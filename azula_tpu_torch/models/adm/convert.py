@@ -1,0 +1,88 @@
+r"""Weight conversion from the JAX package's ADM backbone.
+
+:func:`from_jax_state_dict` takes the flat mapping that
+`azula_tpu.utils.pytree.state_dict(backbone)` yields, as numpy arrays (keys
+like `input_blocks.1.0.in_norm.scale`), and returns the state dict of the
+port's :class:`ADMUNet`: Linear weights go from :math:`(C_i, C_o)` to
+:math:`(C_o, C_i)`, convolution kernels from HWIO to OIHW, and GroupNorm
+`scale` becomes `weight`.
+"""
+
+from __future__ import annotations
+
+__all__ = [
+    "from_jax_state_dict",
+]
+
+import numpy as np
+import torch
+
+from collections.abc import Mapping
+
+_LEAVES = ("weight", "bias", "scale")
+
+
+def _convert(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    if key == "label_emb":
+        return key, value
+
+    prefix, _, leaf = key.rpartition(".")
+
+    if not prefix or leaf not in _LEAVES:
+        raise KeyError(f"unexpected key '{key}' in the JAX ADM state dict")
+
+    if leaf == "scale":  # GroupNorm gain
+        return f"{prefix}.weight", value
+    if leaf == "weight" and value.ndim == 2:  # Linear (in, out) -> (out, in)
+        return key, value.T
+    if leaf == "weight" and value.ndim == 4:  # conv HWIO -> OIHW
+        return key, value.transpose(3, 2, 0, 1)
+    if leaf == "bias" and value.ndim == 1:
+        return key, value
+
+    raise KeyError(f"unexpected shape {value.shape} for key '{key}'")
+
+
+def from_jax_state_dict(
+    sd: Mapping[str, np.ndarray], backbone: torch.nn.Module | None = None
+) -> dict[str, torch.Tensor]:
+    r"""Converts a JAX ADM backbone state dict to the port's layout.
+
+    Arguments:
+        sd: The JAX state dict, as numpy arrays.
+        backbone: Optionally, the port's backbone. When given, every
+            converted key must be one of its parameters with the same shape,
+            and every parameter must be filled.
+
+    Returns:
+        The port's state dict, as CPU tensors of the arrays' dtypes.
+
+    Raises:
+        KeyError: On a key the conversion does not know, a key the backbone
+            lacks, or a backbone parameter the state dict leaves empty.
+        ValueError: On a shape mismatch.
+    """
+
+    out = {}
+    for key, value in sd.items():
+        new, array = _convert(key, np.asarray(value))
+        out[new] = torch.from_numpy(np.ascontiguousarray(array))
+
+    if backbone is not None:
+        expected = backbone.state_dict()
+
+        unexpected = sorted(set(out) - set(expected))
+        missing = sorted(set(expected) - set(out))
+        if unexpected:
+            raise KeyError(f"keys the backbone lacks: {unexpected[:8]}")
+        if missing:
+            raise KeyError(f"backbone parameters left empty: {missing[:8]}")
+
+        for key, value in out.items():
+            if tuple(value.shape) != tuple(expected[key].shape):
+                raise ValueError(
+                    f"shape mismatch for '{key}': {tuple(value.shape)} != "
+                    f"{tuple(expected[key].shape)}"
+                )
+
+    return out

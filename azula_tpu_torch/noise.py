@@ -1,0 +1,65 @@
+r"""Noise schedules.
+
+A noise schedule maps a time :math:`t \in [0, 1]` to the signal scale
+:math:`\alpha_t` and the noise scale :math:`\sigma_t` of the perturbation
+kernel :math:`p(X_t \mid X) = \mathcal{N}(X_t \mid \alpha_t X, \sigma_t^2 I)`.
+
+Port of :mod:`azula_tpu.noise` (`Schedule`, `VPSchedule`). Schedules compute
+in the dtype and on the device of `t`.
+"""
+
+from __future__ import annotations
+
+__all__ = [
+    "Schedule",
+    "VPSchedule",
+]
+
+import abc
+import math
+import torch
+
+from torch import Tensor
+
+
+class Schedule(abc.ABC):
+    r"""Abstract noise schedule."""
+
+    @abc.abstractmethod
+    def __call__(self, t: Tensor) -> tuple[Tensor, Tensor]:
+        r"""
+        Arguments:
+            t: The time :math:`t`, with shape :math:`(*)`.
+
+        Returns:
+            The signal and noise scales :math:`\alpha_t` and :math:`\sigma_t`,
+            with shape :math:`(*)`.
+        """
+
+        pass
+
+
+class VPSchedule(Schedule):
+    r"""Creates a variance preserving (VP) noise schedule.
+
+    .. math::
+        \alpha_t & = \exp \big( t^2 \log \alpha_\min \big) \\
+        \sigma_t & = \sqrt{ 1 - \alpha_t^2 + \sigma_\min^2}
+
+    Arguments:
+        alpha_min: The final signal scale :math:`\alpha_\min \in ]0,1[`.
+        sigma_min: The initial noise scale :math:`\sigma_\min \in ]0,1[`.
+    """
+
+    def __init__(self, alpha_min: float = 1e-3, sigma_min: float = 1e-3) -> None:
+        self.alpha_min = alpha_min
+        self.sigma_min = sigma_min
+
+    def __call__(self, t: Tensor) -> tuple[Tensor, Tensor]:
+        return self.alpha(t), self.sigma(t)
+
+    def alpha(self, t: Tensor) -> Tensor:
+        return torch.exp(math.log(self.alpha_min) * t**2)
+
+    def sigma(self, t: Tensor) -> Tensor:
+        return torch.sqrt(1 - self.alpha(t) ** 2 + self.sigma_min**2)

@@ -1,0 +1,154 @@
+r"""Build and load of the hand-written CUDA kernels.
+
+The sources under `azula_tpu_torch/csrc/` have a plain C interface. On first
+use they are compiled for Hopper (`sm_90a`) with `nvcc`, one process per source
+started together, and linked into one shared library under `build/` beside
+the package. The library is named by a hash of the sources and flags, so an
+edit rebuilds it. It is loaded with `ctypes`.
+
+A missing `nvcc`, a failed build or a failed launch raises: no caller falls
+back to a plain version.
+"""
+
+from __future__ import annotations
+
+__all__ = [
+    "LAUNCHES",
+    "NVCC_FLAGS",
+    "check",
+    "library",
+    "stream",
+]
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import torch
+
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
+BUILD = PACKAGE.parent / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+# Kernel launches by kernel name. Each wrapper adds one where it launches its
+# kernel and nowhere else; `chip_smoke.py` clears this before the main path
+# and reads it after.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+_SIGNATURES = {
+    # x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, dtype, stream
+    "azula_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, BH, L, D, scale, dtype, stream
+    "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    work = out.with_suffix(f".{os.getpid()}.tmp")
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        _compile_and_link(nvcc, work, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _compile_and_link(nvcc: str, work: Path, out: Path) -> None:
+    # one nvcc per source, all started together, then one link
+    objects, procs = [], []
+    for src in _sources():
+        obj = work / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        objects.append(str(obj))
+
+    errors = []
+    for src, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+
+    tmp = work / out.name
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *objects, "-o", str(tmp)],
+        capture_output=True,
+        text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed\n{link.stdout}{link.stderr}")
+
+    os.replace(tmp, out)
+
+
+def library() -> ctypes.CDLL:
+    r"""Returns the kernel library, building it first if its sources changed."""
+
+    global _lib
+
+    with _lock:
+        if _lib is None:
+            out = BUILD / f"libazula_kernels_{_digest()}.so"
+            if not out.exists():
+                BUILD.mkdir(parents=True, exist_ok=True)
+                _build(out)
+
+            lib = ctypes.CDLL(str(out))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.azula_error_string.argtypes = [ctypes.c_int]
+            lib.azula_error_string.restype = ctypes.c_char_p
+            _lib = lib
+
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    r"""Raises if a kernel's C entry point returned a CUDA error."""
+
+    if status != 0:
+        msg = library().azula_error_string(status).decode()
+        raise RuntimeError(f"{name} failed to launch: CUDA error {status} ({msg})")
+
+
+def stream(device: torch.device) -> int:
+    r"""The handle of PyTorch's current CUDA stream on `device`."""
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,204 @@
+r"""The PyTorch port's ADM family (`azula_tpu_torch.models.adm`) against the JAX
+package's, on the CPU, in float32: a tiny backbone with every weight drawn
+from a seeded numpy generator, loaded into JAX with `load_state_dict` and into
+the port with `from_jax_state_dict`.
+
+The JAX backbone zero-initializes every ResBlock `out_conv`, every attention
+`proj` and the final `out_conv`; with those left at zero any comparison would
+pass trivially, so every leaf is drawn.
+
+Tolerances are relative to max |reference|: the two frameworks sum the
+convolutions and matmuls in other orders (float32, measured ~1e-6), over a few
+dozen layers, so 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import math
+import numpy as np
+import pytest
+import torch
+
+from azula_tpu.models import adm as jadm
+from azula_tpu.sample import DDIMSampler as JaxDDIM
+from azula_tpu.utils.pytree import filter_eval_shape, filter_jit, load_state_dict, state_dict
+from azula_tpu_torch.models import adm as tadm
+from azula_tpu_torch.models.adm.convert import from_jax_state_dict
+from azula_tpu_torch.sample import DDIMSampler as TorchDDIM
+
+TINY = dict(  # noqa: C408
+    image_size=32,
+    num_channels=32,
+    num_res_blocks=1,
+    channel_mult=(1, 2),
+    attention_resolutions=(16, 8),
+    num_head_channels=32,  # two heads of 32 at 64 channels: a head dim the kernel takes
+)
+
+# the flags of the imagenet_256x256 card
+CARD = dict(resblock_updown=True, use_scale_shift_norm=True)  # noqa: C408
+
+TOL = 1e-4
+
+
+def _random_state(backbone, seed: int) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, leaf in state_dict(backbone).items():
+        shape = tuple(leaf.shape)
+        if key.endswith(".scale"):  # GroupNorm gain
+            value = 1 + 0.2 * rng.standard_normal(shape)
+        elif len(shape) == 1:  # biases
+            value = 0.2 * rng.standard_normal(shape)
+        elif key == "label_emb":
+            value = rng.standard_normal(shape)
+        else:  # (in, out) linear or HWIO conv: 1 / sqrt(fan in)
+            value = rng.standard_normal(shape) / math.sqrt(math.prod(shape[:-1]))
+        out[key] = value.astype(np.float32)
+    return out
+
+
+def _pair(seed: int = 0, **config):
+    r"""The same random ADM denoiser in JAX and in the port (on the CPU)."""
+
+    config = {**TINY, **config}
+
+    jd = filter_eval_shape(jadm.make_model, **config)
+    sd = _random_state(jd.backbone, seed)
+    jd = jd.tree_replace(
+        backbone=load_state_dict(jd.backbone, {k: jnp.asarray(v) for k, v in sd.items()}),
+        sigmas=jnp.asarray(jadm.discrete_sigmas(), dtype=jnp.float32),
+    )
+
+    td = tadm.make_model(**config, device="cpu")
+    td.backbone.load_state_dict(from_jax_state_dict(sd, td.backbone))
+
+    return jd, td
+
+
+def _rel_err(got: torch.Tensor, want) -> float:
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(got.double().numpy() - want).max() / np.abs(want).max())
+
+
+_jax_backbone = filter_jit(lambda b, x, t, y: b(x, t, y=y))
+
+
+@pytest.mark.parametrize(
+    "config",
+    [
+        dict(resblock_updown=True, use_scale_shift_norm=True),
+        dict(resblock_updown=False, use_scale_shift_norm=False),
+        dict(resblock_updown=True, use_scale_shift_norm=False),
+        dict(resblock_updown=False, use_scale_shift_norm=True),
+        dict(use_new_attention_order=True, **CARD),
+        dict(num_classes=10, **CARD),
+    ],
+    ids=["card", "plain", "updown", "scale_shift", "new_qkv_order", "class_cond"],
+)
+def test_backbone_matches_jax(config):
+    jd, td = _pair(**config)
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    t = np.array([3, 617])
+    y = np.array([1, 7]) if "num_classes" in config else None
+
+    want = _jax_backbone(jd.backbone, jnp.asarray(x), jnp.asarray(t), None if y is None else jnp.asarray(y))
+    with torch.no_grad():
+        got = td.backbone(
+            torch.from_numpy(x), torch.from_numpy(t), y=None if y is None else torch.from_numpy(y)
+        )
+
+    assert got.shape == (2, 32, 32, 6) and got.dtype == torch.float32
+    assert np.abs(np.asarray(want)).max() > 0.1  # not the zero-initialized output
+    assert _rel_err(got, want) <= TOL
+
+
+def test_denoiser_matches_jax():
+    jd, td = _pair(**CARD)
+    x = np.random.default_rng(2).standard_normal((2, 32, 32, 3)).astype(np.float32)
+
+    denoise = filter_jit(lambda d, x, t: d(x, t))
+
+    for t in (0.3, 0.9):
+        want = denoise(jd, jnp.asarray(x), jnp.float32(t))
+        with torch.no_grad():
+            got = td(torch.from_numpy(x), torch.tensor(t, dtype=torch.float32))
+
+        # mean = (x - sigma * eps) / alpha: the backbone's difference grows
+        # by sigma / alpha (~40 at t = 0.9) against a mean clipped to [-1, 1]
+        alpha, sigma = jd.schedule(t)
+        assert _rel_err(got.mean, want.mean) <= TOL * max(1.0, float(sigma / alpha))
+        assert _rel_err(got.var, want.var) <= TOL
+
+
+def test_discrete_timesteps_equal_jax():
+    # A one-ulp difference in alpha or sigma could move sigma / sqrt(alpha^2 +
+    # sigma^2) across an entry of the table; the indices must be equal over
+    # every time of the DDIM-64 trajectory (JAX evaluated op by op in float32,
+    # the port in float64).
+    jd, td = _pair(**CARD)
+    js = jd.schedule
+    times = JaxDDIM(jd, steps=64).timesteps
+
+    def jax_index(t):
+        alpha, sigma = js(t)
+        return int(jnp.searchsorted(jd.sigmas, (sigma * jax.lax.rsqrt(alpha**2 + sigma**2)).ravel())[0])
+
+    want = [jax_index(t) for t in times]
+    got = [int(td.discrete_time(t)[0]) for t in TorchDDIM(td, steps=64).timesteps]
+
+    assert len(got) == 65
+    assert got == want
+    assert want[0] > want[32] > want[-1]  # the indices do move
+
+
+def test_ddim_trajectory_matches_jax():
+    jd, td = _pair(**CARD)
+    x = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)
+
+    want = JaxDDIM(jd, steps=4)(jnp.asarray(x))
+    with torch.no_grad():
+        got = TorchDDIM(td, steps=4)(torch.from_numpy(x))
+
+    # each step carries the backbone's ~1e-6 differences through
+    # c_out = -sigma / alpha (100 at t = 1, 1.2 at t = 0.25) before the clip
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 5 * TOL
+
+
+def test_from_jax_state_dict_is_strict():
+    jd = filter_eval_shape(jadm.make_model, **TINY, **CARD)
+    td = tadm.make_model(**TINY, **CARD, device="cpu")
+    sd = _random_state(jd.backbone, 0)
+
+    converted = from_jax_state_dict(sd, td.backbone)
+    assert set(converted) == set(td.backbone.state_dict())
+    assert tuple(converted["input_blocks.1.0.in_conv.weight"].shape) == (32, 32, 3, 3)
+    assert tuple(converted["input_blocks.3.1.qkv.weight"].shape) == (192, 64)
+
+    missing = dict(sd)
+    del missing["out_norm.scale"]
+    with pytest.raises(KeyError):
+        from_jax_state_dict(missing, td.backbone)
+
+    extra = dict(sd, **{"input_blocks.1.0.extra.weight": np.zeros((3, 3), np.float32)})
+    with pytest.raises(KeyError):
+        from_jax_state_dict(extra, td.backbone)
+
+    with pytest.raises(KeyError):
+        from_jax_state_dict({"input_blocks.1.0.in_norm.mean": np.zeros(4, np.float32)})
+
+    wrong = dict(sd, **{"out_norm.scale": np.zeros(7, np.float32)})
+    with pytest.raises(ValueError):
+        from_jax_state_dict(wrong, td.backbone)
+
+
+def test_make_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        denoiser = tadm.make_model(**TINY)
+        assert next(denoiser.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tadm.make_model(**TINY)

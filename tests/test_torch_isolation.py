@@ -1,0 +1,87 @@
+r"""The PyTorch port stands apart from the JAX package: it imports neither JAX
+nor `azula_tpu`, its main path calls no library attention, GroupNorm or
+compiler, and its kernels are built for Hopper from sources it ships."""
+
+import ast
+import pathlib
+import tomllib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "azula_tpu_torch"
+
+SOURCES = sorted(PACKAGE.rglob("*.py"))
+
+FORBIDDEN_ATTRIBUTES = {"scaled_dot_product_attention", "group_norm", "compile"}
+
+
+def _imports(tree: ast.AST) -> list[str]:
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def _forbidden_import(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "azula_tpu")
+
+
+def test_sources_found():
+    assert len(SOURCES) >= 15
+    assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text())
+    bad = [name for name in _imports(tree) if _forbidden_import(name)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_kernels_in_package(path):
+    # `F.group_norm`, `F.scaled_dot_product_attention`, `torch.compile`: only
+    # chip_smoke.py may time the first two as yardsticks
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in FORBIDDEN_ATTRIBUTES:
+            base = node.value
+            owner = base.id if isinstance(base, ast.Name) else getattr(base, "attr", "")
+            assert owner not in ("F", "functional", "torch"), (
+                f"{path.name}:{node.lineno} calls {owner}.{node.attr}"
+            )
+
+
+def test_build_targets_hopper():
+    from azula_tpu_torch.ops import _build
+
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-O3" in flags and "-std=c++17" in flags
+    assert _build.BUILD == ROOT / "build"
+
+
+def test_kernel_sources_exist_and_are_packaged():
+    csrc = PACKAGE / "csrc"
+    for name in ("group_norm.cu", "attention_fwd.cu", "common.cu", "common.cuh"):
+        assert (csrc / name).exists(), name
+
+    for name in ("group_norm.cu", "attention_fwd.cu"):
+        head = (csrc / name).read_text().split("#include")[0]
+        assert "Replaces: azula_tpu/ops/" in head and "Bound on the H100" in head
+
+    config = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    data = config["tool"]["setuptools"]["package-data"]
+    assert set(data["azula_tpu_torch"]) >= {"csrc/*.cu", "csrc/*.cuh"}
+    assert "cards.yaml" in data["azula_tpu_torch.models.*"]
+    assert (PACKAGE / "models" / "adm" / "cards.yaml").exists()
+
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "build/" in ignored
