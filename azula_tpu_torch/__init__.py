@@ -1,7 +1,8 @@
 r"""Azula-TPU ported to PyTorch and CUDA for the NVIDIA H100.
 
 The counterpart of :mod:`azula_tpu`, slice by slice: noise schedules,
-denoisers, samplers and the ADM model family, with the Pallas kernels of the
+denoisers, samplers, the ADM model family and the DiT / ViT transformer
+backbones, with the Pallas kernels of the
 JAX package replaced by hand-written CUDA kernels (`csrc/`). Images are
 channels-last (B, H, W, C) and attention is (B, H, L, D), as in the JAX
 package. Entry points run on the card unless the caller asks for the CPU.

@@ -1,5 +1,6 @@
 // Helpers shared by the kernels: conversion between the storage type and
-// float32, and vector loads and stores of N consecutive elements.
+// float32, vector loads and stores of N consecutive elements, and the
+// flash-attention tile step of the two attention kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,5 +48,232 @@ __device__ __forceinline__ void store(T* p, const float (&in)[N]) {
   for (int i = 0; i < N; ++i) pk.v[i] = from_float<T>(in[i]);
   *reinterpret_cast<Pack<T, N>*>(p) = pk;
 }
+
+// x rounded to T and back, as a cast to T and back to float32 rounds it.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// The flash-attention forward shared by attention_fwd.cu and fused_msa.cu.
+// One block of kThreads threads takes one 64-query tile of one (batch, head)
+// pair and walks 64-key tiles of K and V through shared memory as float32
+// (rows padded by 4 floats to keep vector reads free of bank conflicts),
+// keeping an online softmax in float32: a running row max and denominator
+// and a float32 (64, D) accumulator in registers, rescaled when the max grows
+// and divided once at the end. Each thread computes a 4 x 4 block of scores
+// and a 4 x (D / 16) block of the output. The products use plain FMA.
+namespace flash {
+
+constexpr int kThreads = 256;
+constexpr int BQ = 64;      // query rows per block
+constexpr int BK = 64;      // keys per shared-memory tile
+constexpr int LS = BK + 4;  // row stride of the score tile
+
+// A block's shared memory: the Q, K and V tiles (row stride LD), the score
+// tile, and each query row's running max, denominator and rescale factor.
+template <int D>
+struct Tiles {
+  static constexpr int LD = D + 4;
+  static constexpr int kBytes = (3 * 64 * LD + BQ * LS + 3 * BQ) * static_cast<int>(sizeof(float));
+
+  float* Q;
+  float* K;
+  float* V;
+  float* S;
+  float* m;
+  float* l;
+  float* alpha;
+
+  __device__ explicit Tiles(float* base)
+      : Q(base), K(Q + BQ * LD), V(K + BK * LD), S(V + BK * LD), m(S + BQ * LS), l(m + BQ), alpha(l + BQ) {}
+};
+
+// Rows [row0, row0 + 64) of a (L, D) matrix whose rows lie `ld` elements
+// apart, into shared memory as float32 with row stride D + 4; zero past row L.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int ld, float* dst, int row0, int L) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER_ROW = D / VEC;
+  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
+    const int r = idx / PER_ROW;
+    const int cv = idx % PER_ROW;
+    float v[VEC];
+    if (row0 + r < L) {
+      load<T, VEC>(src + static_cast<size_t>(row0 + r) * ld + cv * VEC, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * (D + 4) + cv * VEC);
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i) d[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  }
+}
+
+// The running max and denominator of an empty row, and a zero accumulator.
+template <int D>
+__device__ __forceinline__ void start_rows(const Tiles<D>& s, float (&acc)[4][D / 16]) {
+  if (threadIdx.x < BQ) {
+    s.m[threadIdx.x] = -INFINITY;
+    s.l[threadIdx.x] = 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[a][c] = 0.f;
+}
+
+// One 64-key step, once the Q tile and the K and V tiles of keys
+// [k0, k0 + 64) are in shared memory behind a barrier: the scores (keys past
+// L masked), the online-softmax update of each row's max and denominator, and
+// acc = acc * alpha + P V. With kRoundWeights the value product takes the
+// exp-weights rounded to T, while the denominator sums them unrounded. The
+// caller puts a barrier before it overwrites the K, V or score tile.
+template <typename T, int D, bool kRoundWeights>
+__device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D / 16], int k0, int L, float scale) {
+  constexpr int LD = Tiles<D>::LD;
+  constexpr int DC = D / 16;  // output columns per thread
+  const int t = threadIdx.x;
+  const int tx = t % 16;
+  const int ty = t / 16;
+
+  // scores of query rows ty + 16 a against keys tx + 16 b
+  float sc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) sc[a][b] = 0.f;
+
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 qa[4], kb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) qa[a] = *reinterpret_cast<const float4*>(s.Q + (ty + 16 * a) * LD + d);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) kb[b] = *reinterpret_cast<const float4*>(s.K + (tx + 16 * b) * LD + d);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float acc_s = sc[a][b];
+        acc_s = fmaf(qa[a].x, kb[b].x, acc_s);
+        acc_s = fmaf(qa[a].y, kb[b].y, acc_s);
+        acc_s = fmaf(qa[a].z, kb[b].z, acc_s);
+        acc_s = fmaf(qa[a].w, kb[b].w, acc_s);
+        sc[a][b] = acc_s;
+      }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = tx + 16 * b;
+      s.S[(ty + 16 * a) * LS + j] = (k0 + j < L) ? sc[a][b] * scale : -INFINITY;
+    }
+  __syncthreads();
+
+  // online softmax: four threads per row, sixteen keys each
+  {
+    const int i = t / 4;
+    const int part = t % 4;
+    float* row = s.S + i * LS + part * 16;
+
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) mx = fmaxf(mx, row[jj]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+
+    // every tile holds at least one key < L, so m_new is finite
+    const float m_old = s.m[i];
+    const float m_new = fmaxf(m_old, mx);
+
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const float p = expf(row[jj] - m_new);
+      row[jj] = kRoundWeights ? round_to<T>(p) : p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+
+    if (part == 0) {
+      const float alpha = expf(m_old - m_new);
+      s.alpha[i] = alpha;
+      s.l[i] = s.l[i] * alpha + sum;
+      s.m[i] = m_new;
+    }
+  }
+  __syncthreads();
+
+  // acc = acc * alpha + P V for rows ty + 16 a, columns tx * DC + c
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float alpha = s.alpha[ty + 16 * a];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
+  }
+
+  for (int j = 0; j < BK; j += 4) {
+    float4 p4[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) p4[a] = *reinterpret_cast<const float4*>(s.S + (ty + 16 * a) * LS + j);
+
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float vv[DC];
+      const float* vrow = s.V + (j + jj) * LD + tx * DC;
+      if constexpr (DC % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < DC; c += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(vrow + c);
+          vv[c] = w.x;
+          vv[c + 1] = w.y;
+          vv[c + 2] = w.z;
+          vv[c + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < DC; c += 2) {
+          const float2 w = *reinterpret_cast<const float2*>(vrow + c);
+          vv[c] = w.x;
+          vv[c + 1] = w.y;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float p = jj == 0 ? p4[a].x : jj == 1 ? p4[a].y : jj == 2 ? p4[a].z : p4[a].w;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(p, vv[c], acc[a][c]);
+      }
+    }
+  }
+}
+
+// The block's output rows q0 + i < L, divided by their denominators, to
+// `out` (row 0 of this pair's columns, rows `ld` elements apart). The
+// denominators were last written before the final tile's second barrier.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const Tiles<D>& s, const float (&acc)[4][D / 16], T* out, int ld, int q0,
+                                           int L) {
+  constexpr int DC = D / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = ty + 16 * a;
+    if (q0 + i < L) {
+      const float l = s.l[i];
+      T* dst = out + static_cast<size_t>(q0 + i) * ld + tx * DC;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dst[c] = from_float<T>(acc[a][c] / l);
+    }
+  }
+}
+
+}  // namespace flash
 
 }  // namespace azula

@@ -4,14 +4,16 @@ A denoiser approximates the posterior :math:`p(X \mid X_t)` of the clean
 data given a noisy :math:`x_t \sim \mathcal{N}(\alpha_t X, \sigma_t^2 I)`.
 
 Port of :mod:`azula_tpu.denoise` (`broadcast_scales`, `Posterior`,
-`GaussianPosterior`, `Denoiser`).
+`DiracPosterior`, `GaussianPosterior`, `Denoiser`, `KarrasDenoiser`).
 """
 
 from __future__ import annotations
 
 __all__ = [
     "Denoiser",
+    "DiracPosterior",
     "GaussianPosterior",
+    "KarrasDenoiser",
     "Posterior",
     "broadcast_scales",
 ]
@@ -22,6 +24,7 @@ import torch
 
 from torch import Tensor, nn
 
+from .nn.utils import get_module_dtype
 from .noise import Schedule
 
 
@@ -40,6 +43,13 @@ class Posterior(abc.ABC):
     r"""Abstract posterior :math:`q_\phi(X \mid x_t)`."""
 
     mean: Tensor
+
+
+class DiracPosterior(Posterior):
+    r"""Creates a Dirac delta posterior :math:`\delta(X - \mu)`."""
+
+    def __init__(self, mean: Tensor) -> None:
+        self.mean = mean
 
 
 class GaussianPosterior(Posterior):
@@ -73,3 +83,54 @@ class Denoiser(nn.Module, abc.ABC):
         """
 
         pass
+
+
+class KarrasDenoiser(Denoiser):
+    r"""Creates a Gaussian denoiser with EDM-style preconditioning.
+
+    .. math:: \mu_\phi(x_t) = c_\mathrm{skip}(t) \, x_t +
+        c_\mathrm{out}(t) \, b_\phi(c_\mathrm{in}(t) \, x_t, c_\mathrm{time}(t))
+
+    with scale-generalized coefficients
+
+    .. math::
+        c_\mathrm{in} = \frac{1}{\sqrt{\alpha_t^2 + \sigma_t^2}}, \quad
+        c_\mathrm{out} = \frac{\sigma_t}{\sqrt{\alpha_t^2 + \sigma_t^2}}, \quad
+        c_\mathrm{skip} = \frac{\alpha_t}{\alpha_t^2 + \sigma_t^2}, \quad
+        c_\mathrm{time} = \log \frac{\sigma_t}{\alpha_t}
+
+    The backbone runs in its own dtype (`get_module_dtype`); the
+    preconditioning runs in the dtype of :math:`x_t`. The training loss is
+    not ported yet.
+
+    References:
+        | Elucidating the Design Space of Diffusion-Based Generative Models (Karras et al., 2022)
+        | https://arxiv.org/abs/2206.00364
+
+    Arguments:
+        backbone: A noise/time conditional network :math:`b_\phi(x_t, t)`.
+        schedule: A noise schedule.
+    """
+
+    def __init__(self, backbone: nn.Module, schedule: Schedule) -> None:
+        super().__init__()
+
+        self.backbone = backbone
+        self.schedule = schedule
+
+    def forward(self, x_t: Tensor, t: Tensor, **kwargs) -> DiracPosterior:
+        t = torch.as_tensor(t, dtype=x_t.dtype, device=x_t.device)
+
+        alpha_t, sigma_t = self.schedule(t)
+        alpha_t, sigma_t = broadcast_scales(alpha_t, sigma_t, x_t)
+
+        c_in = torch.rsqrt(alpha_t**2 + sigma_t**2)
+        c_out = sigma_t * torch.rsqrt(alpha_t**2 + sigma_t**2)
+        c_skip = alpha_t / (alpha_t**2 + sigma_t**2)
+        c_time = torch.log(sigma_t / alpha_t).reshape(t.shape)
+
+        dtype = get_module_dtype(self.backbone)
+
+        output = self.backbone((c_in * x_t).to(dtype), c_time.to(dtype), **kwargs).to(x_t.dtype)
+
+        return DiracPosterior(mean=c_skip * x_t + c_out * output)

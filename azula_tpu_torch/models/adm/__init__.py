@@ -26,7 +26,7 @@ from collections.abc import Sequence
 from torch import Tensor
 
 from ...denoise import Denoiser, GaussianPosterior, broadcast_scales
-from ...nn.utils import get_module_dtype
+from ...nn.utils import default_device, get_module_dtype
 from ...noise import Schedule, VPSchedule
 from .backbone import ADMUNet
 
@@ -195,7 +195,7 @@ def make_model(
             defaults to one seeded with 0 on `device`.
     """
 
-    device = torch.device("cuda") if device is None else torch.device(device)
+    device = default_device(device)
 
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)

@@ -5,7 +5,8 @@ r"""Weight conversion from the JAX package's ADM backbone.
 like `input_blocks.1.0.in_norm.scale`), and returns the state dict of the
 port's :class:`ADMUNet`: Linear weights go from :math:`(C_i, C_o)` to
 :math:`(C_o, C_i)`, convolution kernels from HWIO to OIHW, and GroupNorm
-`scale` becomes `weight`.
+`scale` becomes `weight`. The Linear rule and the strict check are those of
+:mod:`azula_tpu_torch.nn.convert`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from collections.abc import Mapping
 
-_LEAVES = ("weight", "bias", "scale")
+from ...nn.convert import check_state_dict, convert_leaf
 
 
 def _convert(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -28,19 +29,12 @@ def _convert(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
     prefix, _, leaf = key.rpartition(".")
 
-    if not prefix or leaf not in _LEAVES:
-        raise KeyError(f"unexpected key '{key}' in the JAX ADM state dict")
-
-    if leaf == "scale":  # GroupNorm gain
+    if prefix and leaf == "scale":  # GroupNorm gain
         return f"{prefix}.weight", value
-    if leaf == "weight" and value.ndim == 2:  # Linear (in, out) -> (out, in)
-        return key, value.T
-    if leaf == "weight" and value.ndim == 4:  # conv HWIO -> OIHW
+    if prefix and leaf == "weight" and value.ndim == 4:  # conv HWIO -> OIHW
         return key, value.transpose(3, 2, 0, 1)
-    if leaf == "bias" and value.ndim == 1:
-        return key, value
 
-    raise KeyError(f"unexpected shape {value.shape} for key '{key}'")
+    return convert_leaf(key, value)
 
 
 def from_jax_state_dict(
@@ -69,20 +63,6 @@ def from_jax_state_dict(
         out[new] = torch.from_numpy(np.ascontiguousarray(array))
 
     if backbone is not None:
-        expected = backbone.state_dict()
-
-        unexpected = sorted(set(out) - set(expected))
-        missing = sorted(set(expected) - set(out))
-        if unexpected:
-            raise KeyError(f"keys the backbone lacks: {unexpected[:8]}")
-        if missing:
-            raise KeyError(f"backbone parameters left empty: {missing[:8]}")
-
-        for key, value in out.items():
-            if tuple(value.shape) != tuple(expected[key].shape):
-                raise ValueError(
-                    f"shape mismatch for '{key}': {tuple(value.shape)} != "
-                    f"{tuple(expected[key].shape)}"
-                )
+        check_state_dict(out, backbone)
 
     return out

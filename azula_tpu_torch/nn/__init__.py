@@ -1,3 +1,3 @@
 r"""Neural-network building blocks."""
 
-from . import layers, utils  # noqa: F401
+from . import attention, dit, embedding, layers, utils, vit  # noqa: F401

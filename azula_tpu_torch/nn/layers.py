@@ -1,6 +1,6 @@
 r"""Common layers, channels-last.
 
-Port of the ADM subset of :mod:`azula_tpu.nn.layers`. Tensors are
+Port of the ADM and transformer subsets of :mod:`azula_tpu.nn.layers`. Tensors are
 :math:`(B, *, C)`, as in the JAX package; weights are stored in PyTorch's
 layouts (Linear :math:`(C_o, C_i)`, convolution :math:`(C_o, C_i, k_h, k_w)`)
 so that `F.linear` and `F.conv2d` take them as they are. A channels-last image
@@ -13,7 +13,20 @@ __all__ = [
     "Conv",
     "Dropout",
     "GroupNorm",
+    "Identity",
+    "LayerNorm",
     "Linear",
+    "Patchify",
+    "RMSNorm",
+    "ReLU2",
+    "SineEncoding",
+    "SwiGLU",
+    "Unpatchify",
+    "layer_norm",
+    "relu2",
+    "rms_norm",
+    "sine_encoding",
+    "swiglu",
 ]
 
 import math
@@ -24,6 +37,7 @@ from collections.abc import Sequence
 from torch import Tensor, nn
 
 from ..ops.norm import group_norm
+from .utils import _linspace, promote_dtype
 
 
 def _uniform(shape, bound, device, dtype, generator) -> nn.Parameter:
@@ -160,3 +174,173 @@ class Dropout(nn.Module):
             return x
 
         raise NotImplementedError("dropout in training is not ported yet (ROADMAP A16)")
+
+
+class Identity(nn.Module):
+    r"""Identity layer."""
+
+    def forward(self, x: Tensor, *args, **kwargs) -> Tensor:
+        return x
+
+
+class ReLU2(nn.Module):
+    r"""ReLU² activation: :math:`y = \max(x, 0)^2`."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return relu2(x)
+
+
+def relu2(x: Tensor, /) -> Tensor:
+    return torch.square(F.relu(x))
+
+
+class SwiGLU(nn.Module):
+    r"""SwiGLU activation: :math:`y = x_1 \times x_2 \, \sigma(x_2)` over
+    interleaved channel pairs :math:`(x_1, x_2) = (x_{2i}, x_{2i+1})`."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return swiglu(x)
+
+
+def swiglu(x: Tensor, /) -> Tensor:
+    x = x.unflatten(-1, (-1, 2))
+    return x[..., 0] * F.silu(x[..., 1])
+
+
+class LayerNorm(nn.Module):
+    r"""Parameter-free layer normalization over one or more dimensions,
+    computed in float32."""
+
+    def __init__(self, dim: int | Sequence[int] = -1, eps: float = 1e-5) -> None:
+        super().__init__()
+
+        self.dim = dim if isinstance(dim, int) else tuple(dim)
+        self.eps = eps
+
+    def forward(self, x: Tensor) -> Tensor:
+        return layer_norm(x, dim=self.dim, eps=self.eps)
+
+
+@promote_dtype
+def layer_norm(x: Tensor, /, dim: int | Sequence[int] = -1, eps: float = 1e-5) -> Tensor:
+    m = torch.mean(x, dim=dim, keepdim=True)
+    v = torch.mean(torch.square(x - m), dim=dim, keepdim=True)
+
+    return (x - m) * torch.rsqrt(v + eps)
+
+
+class RMSNorm(nn.Module):
+    r"""Parameter-free RMS normalization over one or more dimensions,
+    computed in float32."""
+
+    def __init__(self, dim: int | Sequence[int] = -1, eps: float = 1e-5) -> None:
+        super().__init__()
+
+        self.dim = dim if isinstance(dim, int) else tuple(dim)
+        self.eps = eps
+
+    def forward(self, x: Tensor) -> Tensor:
+        return rms_norm(x, dim=self.dim, eps=self.eps)
+
+
+@promote_dtype
+def rms_norm(x: Tensor, /, dim: int | Sequence[int] = -1, eps: float = 1e-5) -> Tensor:
+    return x * torch.rsqrt(torch.mean(torch.square(x), dim=dim, keepdim=True) + eps)
+
+
+class Patchify(nn.Module):
+    r"""Folds spatial patches into the channel dimension (channels-last).
+
+    :math:`(B, L_1 p_1, ..., L_N p_N, C) \to (B, L_1, ..., L_N, C p_1 \cdots p_N)`,
+    with the inner feature order :math:`(C, p_1, ..., p_N)`.
+    """
+
+    def __init__(self, patch_shape: Sequence[int]) -> None:
+        super().__init__()
+
+        self.patch_shape = tuple(patch_shape)
+
+    def forward(self, x: Tensor) -> Tensor:
+        p = self.patch_shape
+        N = len(p)
+
+        # (*, L1 p1, ..., LN pN, C) -> (*, L1, p1, ..., LN, pN, C)
+        shape = list(x.shape[: -N - 1])
+        for size, patch in zip(x.shape[-N - 1 : -1], p, strict=True):
+            shape.extend([size // patch, patch])
+        shape.append(x.shape[-1])
+        x = x.reshape(shape)
+
+        # -> (*, L1, ..., LN, C, p1, ..., pN) -> (*, L1, ..., LN, C p1 ... pN)
+        batch = x.ndim - 2 * N - 1
+        grid = [batch + 2 * i for i in range(N)]
+        patches = [batch + 2 * i + 1 for i in range(N)]
+        x = x.permute(*range(batch), *grid, x.ndim - 1, *patches)
+
+        return x.flatten(-N - 1)
+
+
+class Unpatchify(nn.Module):
+    r"""Unfolds the channel dimension back into spatial patches (the inverse
+    of :class:`Patchify`)."""
+
+    def __init__(self, patch_shape: Sequence[int]) -> None:
+        super().__init__()
+
+        self.patch_shape = tuple(patch_shape)
+
+    def forward(self, x: Tensor) -> Tensor:
+        p = self.patch_shape
+        N = len(p)
+
+        grid = x.shape[-N - 1 : -1]
+        C = x.shape[-1] // math.prod(p)
+
+        # (*, L1, ..., LN, C p1 ... pN) -> (*, L1, ..., LN, C, p1, ..., pN)
+        x = x.unflatten(-1, (C, *p))
+
+        # -> (*, L1, p1, ..., LN, pN, C) -> (*, L1 p1, ..., LN pN, C)
+        batch = x.ndim - 2 * N - 1
+        order = list(range(batch))
+        for i in range(N):
+            order.extend([batch + i, batch + N + 1 + i])
+        order.append(batch + N)
+        x = x.permute(order)
+
+        return x.reshape(*x.shape[:batch], *(size * patch for size, patch in zip(grid, p, strict=True)), C)
+
+
+class SineEncoding(nn.Module):
+    r"""Sinusoidal positional encoding, in two halves:
+
+    .. math::
+        e_i = \sin(x \, \omega^{-f_i}), \quad e_{D/2 + i} = \cos(x \, \omega^{-f_i})
+
+    with :math:`f` the :math:`D / 2` points of :math:`\mathrm{linspace}(0, 1)`.
+
+    Arguments:
+        features: The number of embedding features :math:`D`. Must be even.
+        omega: The maximum frequency :math:`\omega`.
+    """
+
+    def __init__(self, features: int, omega: float = 1e4) -> None:
+        super().__init__()
+
+        if features % 2:
+            raise ValueError(f"SineEncoding takes an even number of features, got {features}")
+
+        self.features = features
+        self.omega = omega
+
+    def forward(self, x: Tensor) -> Tensor:
+        return sine_encoding(x, features=self.features, omega=self.omega)
+
+
+@promote_dtype
+def sine_encoding(x: Tensor, /, features: int, omega: float = 1e4) -> Tensor:
+    x = x[..., None]
+
+    freqs = _linspace(0, 1, features // 2, x.dtype, x.device)
+    freqs = torch.exp(math.log(1 / omega) * freqs)
+
+    return torch.cat((torch.sin(x * freqs), torch.cos(x * freqs)), dim=-1)

@@ -1,14 +1,43 @@
-r"""Module utilities."""
+r"""Module and dtype utilities."""
 
 from __future__ import annotations
 
 __all__ = [
+    "default_device",
     "get_module_dtype",
+    "promote_dtype",
 ]
 
+import functools
 import torch
 
-from torch import nn
+from collections.abc import Callable
+from torch import Tensor, nn
+
+
+def default_device(device=None) -> torch.device:
+    r"""The device of a model's parameters: the card (`'cuda'`) unless the
+    caller names another."""
+
+    return torch.device("cuda") if device is None else torch.device(device)
+
+
+def _linspace(start: float, stop: float, num: int, dtype: torch.dtype, device=None) -> Tensor:
+    r"""`jnp.linspace(start, stop, num)` as XLA computes it under `jit`, in
+    `dtype`: `start * (1 - f) + stop * f` with `f = i * (1 / (num - 1))` (XLA
+    turns the division by a constant into a product with its reciprocal), and
+    the last point exactly `stop`."""
+
+    if num < 2:
+        return torch.full((num,), start, dtype=dtype, device=device)
+
+    recip = 1 / torch.tensor(num - 1, dtype=dtype, device=device)
+    f = torch.arange(num - 1, dtype=dtype, device=device) * recip
+    start_t = torch.tensor(start, dtype=dtype, device=device)
+    stop_t = torch.tensor(stop, dtype=dtype, device=device)
+    out = start_t * (1 - f) + stop_t * f
+
+    return torch.cat([out, stop_t[None]])
 
 
 def get_module_dtype(module: nn.Module) -> torch.dtype:
@@ -21,3 +50,46 @@ def get_module_dtype(module: nn.Module) -> torch.dtype:
             return p.dtype
 
     return torch.float32
+
+
+def _map(fn: Callable, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, a) for a in tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, a) for k, a in tree.items()}
+    return fn(tree)
+
+
+def _floating(a) -> bool:
+    return isinstance(a, torch.Tensor) and a.is_floating_point()
+
+
+def promote_dtype(fn: Callable | None = None, min_dtype: torch.dtype = torch.float32) -> Callable:
+    r"""Decorator promoting floating-point tensor arguments to at least
+    `min_dtype`; the outputs are cast back to the highest input precision.
+
+    Port of :func:`azula_tpu.nn.utils.promote_dtype`: normalizations and
+    positional encodings compute in float32 even when activations are
+    bfloat16. Tensors nested in tuples, lists and dicts count too.
+    """
+
+    if fn is None:
+        return functools.partial(promote_dtype, min_dtype=min_dtype)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        dtypes = []
+        _map(lambda a: dtypes.append(a.dtype) if _floating(a) else None, (args, kwargs))
+
+        if not dtypes:
+            return fn(*args, **kwargs)
+
+        in_dtype = functools.reduce(torch.promote_types, dtypes)
+        up_dtype = torch.promote_types(in_dtype, min_dtype)
+
+        args, kwargs = _map(lambda a: a.to(up_dtype) if _floating(a) else a, (args, kwargs))
+        out = fn(*args, **kwargs)
+
+        return _map(lambda a: a.to(in_dtype) if _floating(a) else a, out)
+
+    return wrapper

@@ -2,10 +2,12 @@ r"""Operators with hand-written CUDA kernels for the card and plain PyTorch
 versions for the CPU."""
 
 from .attention import dot_product_attention
+from .fused_msa import fused_msa_attention
 from .norm import group_norm, group_norm_silu
 
 __all__ = [
     "dot_product_attention",
+    "fused_msa_attention",
     "group_norm",
     "group_norm_silu",
 ]

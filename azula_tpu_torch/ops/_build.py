@@ -7,7 +7,8 @@ the package. The library is named by a hash of the sources and flags, so an
 edit rebuilds it. It is loaded with `ctypes`.
 
 A missing `nvcc`, a failed build or a failed launch raises: no caller falls
-back to a plain version.
+back to a plain version. The kernels are forward-only: `forward_only` makes a
+backward through a launch raise.
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ __all__ = [
     "LAUNCHES",
     "NVCC_FLAGS",
     "check",
+    "forward_only",
     "library",
     "stream",
 ]
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,6 +58,8 @@ _SIGNATURES = {
     "azula_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, BH, L, D, scale, dtype, stream
     "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
+    "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
 }
 
 
@@ -152,3 +157,38 @@ def stream(device: torch.device) -> int:
     r"""The handle of PyTorch's current CUDA stream on `device`."""
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class _ForwardOnly(torch.autograd.Function):
+    r"""A kernel launch as a node of the autograd graph whose backward raises.
+
+    The kernels write into fresh tensors through `ctypes`, which autograd
+    does not see: without this node, a backward through a launch would run
+    and give the kernel's inputs no gradient at all."""
+
+    @staticmethod
+    def forward(ctx, name, todo, launch, *args):
+        ctx.name, ctx.todo = name, todo
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"the {ctx.name} kernel has no backward yet ({ctx.todo}); "
+            "call it under torch.no_grad() or torch.inference_mode()"
+        )
+
+
+def forward_only(name: str, todo: str):
+    r"""Decorates a kernel wrapper, called with positional arguments only, so
+    that a backward through its output raises `NotImplementedError` naming
+    the ROADMAP item `todo`, instead of dropping its inputs' gradients."""
+
+    def decorator(launch):
+        @functools.wraps(launch)
+        def wrapper(*args):
+            return _ForwardOnly.apply(name, todo, launch, *args)
+
+        return wrapper
+
+    return decorator

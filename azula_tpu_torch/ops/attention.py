@@ -60,6 +60,7 @@ def _attention_plain(
     return out.to(q.dtype)
 
 
+@_build.forward_only("attention_fwd", "the attention backward, ROADMAP A16")
 def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     r"""Launches `csrc/attention_fwd.cu` on CUDA tensors (B, H, L, D)."""
 

@@ -1,0 +1,241 @@
+r"""Fused multi-head self-attention: QK RMS-norm, RoPE and attention in one pass.
+
+Port of :mod:`azula_tpu.ops.fused_msa`. The function reads the QKV projection
+output in its matmul layout :math:`(B, L, 3 H D)` and writes
+:math:`(B, L, H D)`, the tensors that the projections on either side produce
+and take, so no head transpose goes through memory. Two versions compute it:
+the hand-written kernel (`csrc/fused_msa.cu`) for tensors on the card, and a
+plain PyTorch version for tensors on the CPU, which follows the JAX
+package's `_reference` op by op (its rounding points included): normalize,
+rotate, round q and k to the input dtype, then attend.
+"""
+
+from __future__ import annotations
+
+__all__ = [
+    "fused_msa_attention",
+    "fused_msa_eligible",
+    "rope_tables",
+]
+
+import math
+import torch
+
+from torch import Tensor
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128, 192, 256)
+
+# the JAX gate's resident bound on the sequence length
+_MAX_L = 512
+
+
+def rope_tables(theta: Tensor, heads: int) -> tuple[Tensor, Tensor]:
+    r"""Expands per-head rotary angles into full-width cos / signed-sin tables.
+
+    `theta` has shape :math:`(L, H D / 2)` with head-blocked features (as
+    `MultiheadSelfAttention.theta_proj` makes them). Returns float32
+    `(cos2, sin2)` of shape :math:`(L, H D)` such that the interleaved
+    rotation of `apply_rope` is
+
+    .. math:: \mathrm{rope}(x) = x \cdot \mathrm{cos2} + \mathrm{swap}(x) \cdot \mathrm{sin2}
+
+    where `swap` exchanges each even/odd lane pair: :math:`-\sin` on even
+    lanes, :math:`+\sin` on odd ones.
+    """
+
+    L, half = theta.shape
+    D2 = half // heads
+
+    th = theta.float().reshape(L, heads, D2)
+    cos2 = torch.repeat_interleave(torch.cos(th), 2, dim=-1).reshape(L, 2 * half)
+    sgn = torch.tensor([-1.0, 1.0], device=theta.device).repeat(D2)
+    sin2 = (torch.repeat_interleave(torch.sin(th), 2, dim=-1) * sgn).reshape(L, 2 * half)
+
+    return cos2, sin2
+
+
+def _fused_msa_plain(
+    qkv: Tensor,
+    cos2: Tensor | None,
+    sin2: Tensor | None,
+    heads: int,
+    eps: float | None,
+    scale: float,
+) -> Tensor:
+    r"""Plain PyTorch version of `_reference` (azula_tpu/ops/fused_msa.py):
+    float32 RMS-norm and rotation, q and k rounded to the input dtype, float32
+    logits with the row max subtracted; in float32 the weights are divided
+    before the value product, below float32 the unnormalized weights are
+    rounded to the input dtype, multiplied with float32 accumulation, and the
+    product is divided."""
+
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+
+    x = qkv.reshape(B, L, 3, heads, D)
+    q, k, v = x[:, :, 0].float(), x[:, :, 1].float(), x[:, :, 2]  # (B, L, H, D)
+
+    if eps is not None:
+        q = q * torch.rsqrt(torch.mean(torch.square(q), dim=-1, keepdim=True) + eps)
+        k = k * torch.rsqrt(torch.mean(torch.square(k), dim=-1, keepdim=True) + eps)
+
+    if cos2 is not None:
+        c = cos2.float().reshape(L, heads, D)
+        s = sin2.float().reshape(L, heads, D)
+
+        def swap(z):
+            return z.unflatten(-1, (D // 2, 2)).flip(-1).flatten(-2)
+
+        q = q * c + swap(q) * s
+        k = k * c + swap(k) * s
+
+    q = q.to(qkv.dtype).float().transpose(1, 2)  # (B, H, L, D)
+    k = k.to(qkv.dtype).float().transpose(1, 2)
+    v = v.transpose(1, 2)
+
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    d = p.sum(dim=-1, keepdim=True)
+
+    if qkv.dtype == torch.float32:
+        o = torch.matmul(p / d, v)
+    else:
+        o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / d
+
+    return o.to(qkv.dtype).transpose(1, 2).reshape(B, L, C)
+
+
+@_build.forward_only("fused_msa", "the dit32 training slice, ROADMAP A13a")
+def _fused_msa_kernel(
+    qkv: Tensor,
+    cos2: Tensor | None,
+    sin2: Tensor | None,
+    heads: int,
+    eps: float | None,
+    scale: float,
+) -> Tensor:
+    r"""Launches `csrc/fused_msa.cu` on a CUDA tensor (B, L, 3 H D)."""
+
+    if qkv.device.type != "cuda":
+        raise ValueError(f"the fused MSA kernel needs CUDA tensors, got {qkv.device}")
+    if qkv.dtype not in _DTYPES:
+        raise TypeError(f"the fused MSA kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"the fused MSA kernel takes (B, L, 3 H D) with H = {heads}, got {tuple(qkv.shape)}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("the fused MSA kernel takes a contiguous, 16-byte aligned qkv")
+
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the fused MSA kernel takes head dims {_HEAD_DIMS}, got {D}")
+    if B * heads > 65535:
+        raise ValueError(f"the fused MSA kernel takes at most 65535 (batch, head) pairs, got {B * heads}")
+
+    if cos2 is not None:
+        for t in (cos2, sin2):
+            if t.shape != (L, C) or t.dtype != torch.float32 or t.device != qkv.device:
+                raise ValueError(f"the rope tables must be float32 (L, H D) = {(L, C)} on {qkv.device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("the rope tables must be contiguous and 16-byte aligned")
+
+    o = torch.empty((B, L, C), dtype=qkv.dtype, device=qkv.device)
+
+    status = _build.library().azula_fused_msa(
+        qkv.data_ptr(),
+        None if cos2 is None else cos2.data_ptr(),
+        None if sin2 is None else sin2.data_ptr(),
+        o.data_ptr(),
+        B, L, heads, D,
+        0.0 if eps is None else eps, int(eps is not None),
+        scale, _DTYPES[qkv.dtype], _build.stream(qkv.device),
+    )
+    _build.check(status, "fused_msa")
+    _build.LAUNCHES["fused_msa"] += 1
+
+    return o
+
+
+def fused_msa_eligible(
+    x: Tensor,
+    heads: int,
+    theta: Tensor | None,
+    mask: Tensor | None,
+    dropout: float,
+    generator: torch.Generator | None,
+) -> bool:
+    r"""True when the fused route applies: `x` on a CUDA device, 3-d
+    self-attention with unbatched positions, no mask, no dropout, and the
+    shapes of the JAX gate (`azula_tpu/ops/fused_msa.py`)."""
+
+    if x.device.type != "cuda":
+        return False
+    if x.ndim != 3 or mask is not None:
+        return False
+    if generator is not None and dropout > 0:
+        return False
+    if theta is not None and theta.ndim != 2:
+        return False
+    if x.dtype not in _DTYPES:
+        return False
+
+    L = x.shape[-2]
+    D = x.shape[-1] // heads
+
+    return L % 128 == 0 and 128 <= L <= _MAX_L and D % 64 == 0 and D <= 256 and heads <= 12
+
+
+def fused_msa_attention(
+    qkv: Tensor,
+    heads: int,
+    theta: Tensor | None = None,
+    eps: float | None = 1e-5,
+    scale: float | None = None,
+    implementation: str | None = None,
+) -> Tensor:
+    r"""Computes QK-normalized, rotary-embedded multi-head self-attention
+    directly on the fused QKV projection output.
+
+    Arguments:
+        qkv: The QKV projection output, with shape :math:`(B, L, 3 H D)` and
+            feature layout :math:`[q | k | v]`, each head-blocked.
+        heads: The number of attention heads :math:`H`.
+        theta: Optional rotary angles, with shape :math:`(L, H D / 2)`.
+        eps: The QK RMS-norm epsilon, or :py:`None` to skip normalization.
+        scale: Logit scale; defaults to :math:`1 / \sqrt{D}`.
+        implementation: :py:`None` or `'auto'` (the kernel for CUDA tensors,
+            the plain version for CPU tensors), `'kernel'` (raises on the CPU)
+            or `'plain'`.
+
+    Returns:
+        The attention output, with shape :math:`(B, L, H D)`, heads merged in
+        the feature layout of the unfused path.
+    """
+
+    if implementation not in (None, "auto", "kernel", "plain"):
+        raise ValueError(f"unknown fused MSA implementation '{implementation}'")
+
+    D = qkv.shape[-1] // 3 // heads
+
+    if scale is None:
+        scale = 1 / math.sqrt(D)
+
+    if theta is not None:
+        cos2, sin2 = rope_tables(theta, heads)
+    else:
+        cos2 = sin2 = None
+
+    if implementation in (None, "auto"):
+        implementation = "kernel" if qkv.device.type == "cuda" else "plain"
+
+    if implementation == "plain":
+        return _fused_msa_plain(qkv, cos2, sin2, heads, eps, scale)
+
+    return _fused_msa_kernel(qkv.contiguous(), cos2, sin2, heads, eps, scale)

@@ -129,6 +129,7 @@ def _rows_per_block(B: int, HW: int, C: int, itemsize: int) -> int:
     return math.ceil(HW / nblk)
 
 
+@_build.forward_only("group_norm", "the GroupNorm backward, ROADMAP A16")
 def _group_norm_kernel(
     x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool
 ) -> Tensor:

@@ -19,24 +19,7 @@ from collections.abc import Sequence
 from torch import Tensor
 
 from .denoise import Denoiser
-
-
-def _linspace(start: float, stop: float, num: int, dtype: torch.dtype, device=None) -> Tensor:
-    r"""`jnp.linspace(start, stop, num)` as XLA computes it under `jit`, in
-    `dtype`: `start * (1 - f) + stop * f` with `f = i * (1 / (num - 1))` (XLA
-    turns the division by a constant into a product with its reciprocal), and
-    the last point exactly `stop`."""
-
-    if num < 2:
-        return torch.full((num,), start, dtype=dtype, device=device)
-
-    recip = 1 / torch.tensor(num - 1, dtype=dtype, device=device)
-    f = torch.arange(num - 1, dtype=dtype, device=device) * recip
-    start_t = torch.tensor(start, dtype=dtype, device=device)
-    stop_t = torch.tensor(stop, dtype=dtype, device=device)
-    out = start_t * (1 - f) + stop_t * f
-
-    return torch.cat([out, stop_t[None]])
+from .nn.utils import _linspace
 
 
 class Sampler(abc.ABC):

@@ -20,7 +20,22 @@ Phases, each of which raises on failure:
 5. full width: DDIM-64 (eta = 0) from `sampler.init` noise at batch 8 through
    the full-width model; the result must be finite and the kernel launch
    counts exact. Prints images/s, peak memory and a profile of one step.
-6. the kernels line `{"kernels": [...]}`, then the result line.
+6. dit32 kernels: record the fused MSA calls of one full-width dit32 forward
+   (`Modulated(ViT)` under `KarrasDenoiser(VPSchedule())`, bf16, batch 128,
+   random weights), which must be exactly 12 with no other kernel, then hold
+   the kernel against its plain version at that shape in bf16 and float32,
+   also with RoPE, without the QK-norm and at scale 1, and time kernel,
+   plain version, SDPA on the attention core and bound. A backward through
+   each kernel must raise (they are forward-only).
+7. dit32 slices: the tiny ViT denoiser of the CPU tests (8 x 8 images, which
+   takes the unfused route) and one of 32 x 32 images (256 tokens, two heads
+   of 64, the fused route), each with the same random weights on the CPU
+   (plain versions) and on the card (kernels), float32, with RoPE on and off:
+   the denoiser's output and a 4-step DDIM trajectory.
+8. dit32 full width: DDIM-64 (eta = 0) from `sampler.init` noise at batch
+   128 in bf16; the result must be finite and the launch count exactly
+   12 per step. Prints images/s, peak memory and a profile of one step.
+9. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -32,6 +47,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -43,9 +59,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.models import adm
 from azula_tpu_torch.models.utils import load_cards
-from azula_tpu_torch.ops import _build, attention, norm
+from azula_tpu_torch.nn.attention import MultiheadSelfAttention
+from azula_tpu_torch.nn.embedding import Modulated
+from azula_tpu_torch.nn.vit import ViT
+from azula_tpu_torch.noise import VPSchedule
+from azula_tpu_torch.ops import _build, attention, fused_msa, norm
 from azula_tpu_torch.sample import DDIMSampler
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory, bf16 tensor cores,
@@ -62,6 +83,23 @@ GROUPS = 32
 # `out_norm`, whose SiLU runs after it, unfused, as in the JAX package
 CALLS_PER_FORWARD = {"group_norm_silu": 84, "group_norm": 17, "attention_fwd": 16}
 
+# dit32 (bench.py's `_dit32`): DiT-S-class ViT, 32 x 32 x 3 images, patch 2
+# (L = 256 tokens), 384 channels in 6 heads of 64, 12 blocks; one fused MSA
+# call per block
+DIT32 = dict(mod_features=64, hid_channels=384, hid_blocks=12, patch_size=2, attention_heads=6)  # noqa: C408
+DIT_BATCH = 128
+DIT_STEPS = 64
+DIT_CALLS_PER_FORWARD = {"fused_msa": 12}
+
+# the dit32 slices of phase 7, as (ViT config, image side): the CPU tests'
+# tiny ViT (8 x 8 images, 16 tokens, heads of 32) lies below the fused gate
+# (128 <= L, D % 64 == 0) and takes the unfused route through the attention
+# kernel; 32 x 32 images with patch 2 and two heads of 64 take the fused route
+DIT_SLICES = (
+    (dict(mod_features=16, hid_channels=64, hid_blocks=2, patch_size=2, attention_heads=2), 8),  # noqa: C408
+    (dict(mod_features=16, hid_channels=128, hid_blocks=2, patch_size=2, attention_heads=2), 32),  # noqa: C408
+)
+
 # tolerances, as max |kernel - plain| / max |plain|
 TOL_GN = {
     # same float32 arithmetic, summed in another order
@@ -72,7 +110,9 @@ TOL_GN = {
 TOL_ATTN = {
     torch.float32: 1e-5,
     # the plain version rounds the exp-weights to bf16 before the value product
-    # (as the JAX package does); the kernel keeps them in float32
+    # (as the JAX package does); the attention kernel keeps them in float32,
+    # the fused MSA kernel rounds them after subtracting a running max, not
+    # the row's final max
     torch.bfloat16: 2e-2,
 }
 # |mean| / std = 1e4 in float32: the rounding of x itself (ulp(1e4) ~ 1e-3)
@@ -145,6 +185,7 @@ def recording():
     affine = {}
     modulated = [False]
     compose, gn_kernel, attn_kernel = norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel
+    msa_kernel = fused_msa._fused_msa_kernel
 
     def compose_affine(x, groups, scale, bias, mod_scale, mod_shift):
         # every GroupNorm call composes its affine just before the kernel
@@ -161,11 +202,25 @@ def recording():
         calls[("attn", tuple(q.shape), q.dtype, scale)] += 1
         return attn_kernel(q, k, v, scale)
 
+    def msa(qkv, cos2, sin2, heads, eps, scale):
+        calls[("msa", tuple(qkv.shape), qkv.dtype, heads, eps, scale, cos2 is not None)] += 1
+        return msa_kernel(qkv, cos2, sin2, heads, eps, scale)
+
     norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose_affine, gn, attn
+    fused_msa._fused_msa_kernel = msa
     try:
         yield calls, affine
     finally:
         norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose, gn_kernel, attn_kernel
+        fused_msa._fused_msa_kernel = msa_kernel
+
+
+def kernel_name(key) -> str:
+    r"""The kernel of a recorded call."""
+
+    if key[0] == "gn":
+        return "group_norm_silu" if key[4] else "group_norm"
+    return {"attn": "attention_fwd", "msa": "fused_msa"}[key[0]]
 
 
 def full_width_model(generator: torch.Generator):
@@ -368,6 +423,168 @@ def check_slice() -> None:
         raise AssertionError("the card path did not run every kernel")
 
 
+def dit32_model(generator: torch.Generator) -> KarrasDenoiser:
+    r"""bench.py's dit32 denoiser, with the modules' own initialization drawn
+    from `generator`, cast to bf16 as a whole."""
+
+    vit = ViT(3, 3, **DIT32, device="cuda", generator=generator)
+    backbone = Modulated(vit, DIT32["mod_features"], device="cuda", generator=generator)
+
+    return KarrasDenoiser(backbone.to(torch.bfloat16), VPSchedule())
+
+
+def check_fused_msa(calls, generator) -> dict:
+    r"""The fused MSA kernel against its plain version at the recorded dit32
+    call (timed in bf16, with SDPA on the attention core as the library
+    yardstick), in bf16 and float32; and at the same shape with RoPE, without
+    the QK-norm, and at scale 1 with the QK-norm."""
+
+    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
+                 bound_by=collections.Counter())
+
+    (key,) = [k for k in calls if k[0] == "msa"]
+    _, shape, dtype, heads, eps, scale, _ = key
+    count = calls[key]
+    B, L, C3 = shape
+    C = C3 // 3
+    D = C // heads
+
+    # the angles of a rope=True MSA over the ViT's 2-d token positions
+    side = math.isqrt(L)
+    grid = torch.meshgrid(*(torch.arange(side, device="cuda", dtype=torch.float32),) * 2, indexing="ij")
+    pos = torch.stack(grid, dim=-1).reshape(-1, 2)
+    msa = MultiheadSelfAttention(C, pos_channels=2, attention_heads=heads, rope=True, device="cuda", generator=generator)
+    tables = fused_msa.rope_tables(msa.theta_proj(pos), heads)
+
+    cases = [
+        ("main path", (None, None), eps, scale),
+        ("rope", tables, eps, scale),
+        ("eps=None", (None, None), None, scale),
+        ("scale=1", (None, None), eps, 1.0),
+    ]
+    for label, (cos2, sin2), case_eps, case_scale in cases:
+        for check_dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn(shape, generator=generator, device="cuda").to(check_dtype)
+            got = fused_msa._fused_msa_kernel(qkv, cos2, sin2, heads, case_eps, case_scale)
+            want = fused_msa._fused_msa_plain(qkv, cos2, sin2, heads, case_eps, case_scale)
+            abs_err, rel_err = errors(got, want)
+            if rel_err > TOL_ATTN[check_dtype]:
+                raise AssertionError(f"fused MSA {shape} {check_dtype} {label}: {rel_err} > {TOL_ATTN[check_dtype]}")
+
+            line = (
+                f"  fused_msa {shape} heads={heads} {str(check_dtype)[6:]} {label} (eps={case_eps}, "
+                f"scale={case_scale:.4g}): max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {TOL_ATTN[check_dtype]})"
+            )
+
+            if label == "main path" and check_dtype == dtype:
+                # the library's attention on the core alone: q and k
+                # normalized and rounded beforehand, heads already split
+                x5 = qkv.view(B, L, 3, heads, D)
+
+                def rms(z):
+                    z = z.float()
+                    return (z * torch.rsqrt(torch.mean(torch.square(z), dim=-1, keepdim=True) + eps)).to(dtype)
+
+                q = rms(x5[:, :, 0]).transpose(1, 2).contiguous()
+                k = rms(x5[:, :, 1]).transpose(1, 2).contiguous()
+                v = x5[:, :, 2].transpose(1, 2).contiguous()
+
+                ms = elapsed_ms(lambda: fused_msa._fused_msa_kernel(qkv, None, None, heads, eps, scale))
+                plain = elapsed_ms(lambda: fused_msa._fused_msa_plain(qkv, None, None, heads, eps, scale))
+                library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+                # read q, k, v once and write the output once
+                bound, by = bound_ms(4 * B * L * C * qkv.element_size(), 4 * B * heads * L * L * D, dtype)
+                entry["bound_by"][by] += count * bound
+
+                entry["ms"] += count * ms
+                entry["plain_ms"] += count * plain
+                entry["library_ms"] += count * library
+                entry["bound_ms"] += count * bound
+                line += (f"; {ms:.4f} ms, plain {plain:.4f} ms, SDPA on the normalized core {library:.4f} ms, "
+                         f"bound {bound:.4f} ms ({by})")
+
+            if check_dtype == dtype:
+                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                entry["max_err"] = max(entry["max_err"], rel_err)
+            log(line)
+
+    return entry
+
+
+def check_forward_only(generator) -> None:
+    r"""Under grad, a backward through each kernel, called by its public
+    entry point, must raise rather than give its inputs no gradient."""
+
+    def rand(*shape):
+        return torch.randn(shape, generator=generator, device="cuda", requires_grad=True)
+
+    cases = {
+        "group_norm": lambda: norm.group_norm_silu(rand(2, 64, 64), GROUPS),
+        "attention_fwd": lambda: attention.dot_product_attention(*(rand(1, 2, 64, 32) for _ in range(3))),
+        "fused_msa": lambda: fused_msa.fused_msa_attention(rand(1, 128, 384), heads=2),
+    }
+    for name, call in cases.items():
+        y = call()
+        try:
+            y.float().sum().backward()
+        except NotImplementedError as e:
+            log(f"  {name} under grad: the backward raises ({e})")
+        else:
+            raise AssertionError(f"a backward through the {name} kernel did not raise")
+
+
+def check_dit_slice() -> None:
+    r"""Small ViT denoisers on the CPU (plain versions) and on the card
+    (kernels), with the same random weights, in float32, RoPE off and on."""
+
+    rng = np.random.default_rng(0)
+
+    _build.LAUNCHES.clear()
+    for (config, side), rope in itertools.product(DIT_SLICES, (False, True)):
+        def make(device):
+            vit = ViT(3, 3, rope=rope, **config, device=device)
+            return KarrasDenoiser(Modulated(vit, config["mod_features"], device=device), VPSchedule())
+
+        cpu, card = make("cpu"), make("cuda")
+        state = {}
+        for key, value in cpu.backbone.state_dict().items():
+            if key.endswith("bias"):
+                array = 0.2 * rng.standard_normal(value.shape)
+            else:  # (out, in) linear: 1 / sqrt(fan in)
+                array = rng.standard_normal(value.shape) / math.sqrt(value.shape[-1])
+            state[key] = torch.from_numpy(array.astype(np.float32))
+        cpu.backbone.load_state_dict(state)
+        card.backbone.load_state_dict(state)
+
+        x = torch.from_numpy(rng.standard_normal((2, side, side, 3)).astype(np.float32))
+        label = f"{side}x{side} hid={config['hid_channels']} rope={rope}"
+
+        with torch.inference_mode():
+            for t in (0.3, 0.9):
+                before = dict(_build.LAUNCHES)
+                want = cpu(x, torch.tensor(t)).mean
+                if dict(_build.LAUNCHES) != before:
+                    raise AssertionError("a kernel ran on the CPU path")
+                got = card(x.cuda(), torch.tensor(t, device="cuda")).mean
+
+                _, err = errors(got.cpu(), want)
+                log(f"  dit denoiser {label} t={t}: rel err {err:.3e} (tol {TOL_SLICE})")
+                if err > TOL_SLICE:
+                    raise AssertionError("the dit slice's denoiser on the card disagrees with the CPU")
+
+            want = DDIMSampler(cpu, steps=4)(x)
+            got = DDIMSampler(card, steps=4)(x.cuda())
+            _, err = errors(got.cpu(), want)
+            log(f"  dit DDIM-4 trajectory {label}: rel err {err:.3e} (tol {TOL_TRAJECTORY})")
+            if err > TOL_TRAJECTORY:
+                raise AssertionError("the dit slice's DDIM trajectory on the card disagrees with the CPU")
+
+    launched = dict(_build.LAUNCHES)
+    log(f"  kernel launches on the card: {launched}")
+    if set(launched) != {"attention_fwd", "fused_msa"} or min(launched.values()) == 0:
+        raise AssertionError("the dit slices on the card did not run the attention and fused MSA kernels")
+
+
 def profile_step(sampler, x, t, s) -> None:
     r"""Device time of one full-width DDIM step by kind of kernel, and the
     share of the step's wall time in which the card ran no kernel."""
@@ -393,12 +610,16 @@ def profile_step(sampler, x, t, s) -> None:
             kind = "group_norm (ours)"
         elif "attention_fwd_kernel" in name:
             kind = "attention (ours)"
-        elif "conv" in name.lower() or "xmma" in name or "implicit" in name or "nhwc" in name.lower():
+        elif "fused_msa_kernel" in name:
+            kind = "fused MSA (ours)"
+        elif "conv" in name.lower() or "fprop" in name or "implicit" in name or "nhwc" in name.lower():
             kind = "convolution (cuDNN)"
-        elif "gemm" in name.lower() or "cutlass" in name.lower():
+        elif any(word in name.lower() for word in ("gemm", "cutlass", "xmma", "nvjet")):
             kind = "matmul (cuBLAS)"
+        elif "copy" in name.lower():
+            kind = "copies (casts, layout)"
         else:
-            kind = "other (elementwise, copies, reductions)"
+            kind = "other (norms, elementwise, reductions)"
         kinds[kind] += us / 1e3
 
     busy = sum(kinds.values())
@@ -414,7 +635,7 @@ def profile_step(sampler, x, t, s) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width run")
+    parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
     args = parser.parse_args()
 
     log("== 1. device")
@@ -445,7 +666,7 @@ def main() -> None:
         denoiser(x, sampler.timesteps[0].cuda())
     recorded = collections.Counter()
     for key, count in calls.items():
-        recorded["attention_fwd" if key[0] == "attn" else "group_norm_silu" if key[4] else "group_norm"] += count
+        recorded[kernel_name(key)] += count
     log(f"calls in one full-width forward: {dict(recorded)}")
     if dict(recorded) != CALLS_PER_FORWARD:
         raise AssertionError(f"expected {CALLS_PER_FORWARD} calls per forward")
@@ -485,26 +706,83 @@ def main() -> None:
     with torch.inference_mode():
         profile_step(sampler, x, time_grid[0], time_grid[1])
 
-    log("== 6. result")
+    del denoiser, sampler, x, y
+    torch.cuda.empty_cache()
+
+    log("== 6. dit32 kernels against their plain versions at the main path's shapes")
+    dit = dit32_model(generator)
+    dit_sampler = DDIMSampler(dit, eta=0.0, steps=DIT_STEPS)
+    xd = dit_sampler.init((DIT_BATCH, 32, 32, 3), generator=generator)
+
+    with torch.inference_mode(), recording() as (calls, _):
+        dit(xd, dit_sampler.timesteps[0].cuda())
+    recorded = collections.Counter()
+    for key, count in calls.items():
+        recorded[kernel_name(key)] += count
+    log(f"calls in one full-width dit32 forward: {dict(recorded)}; {list(calls)}")
+    if dict(recorded) != DIT_CALLS_PER_FORWARD:
+        raise AssertionError(f"expected {DIT_CALLS_PER_FORWARD} calls per dit32 forward")
+
+    with torch.inference_mode():
+        msa = check_fused_msa(calls, generator)
+    check_forward_only(generator)
+
+    log("== 7. the dit32 slices: CPU plain versions against the card's kernels, float32")
+    check_dit_slice()
+
+    log(f"== 8. dit32 full width: bf16, batch {DIT_BATCH}, DDIM-{DIT_STEPS}")
+    with torch.inference_mode():
+        dit_grid = dit_sampler.timesteps.cuda()
+        dit_sampler.step(xd, dit_grid[0], dit_grid[1])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        yd = dit_sampler(xd)
+        torch.cuda.synchronize()
+        dit_seconds = time.perf_counter() - t0
+        dit_launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(yd).all()) or yd.shape != xd.shape:
+        raise AssertionError("the full-width dit32 trajectory is not finite")
+    expected = {name: n * DIT_STEPS for name, n in DIT_CALLS_PER_FORWARD.items()}
+    log(f"launches {dit_launches}, expected {expected}")
+    if dit_launches != expected:
+        raise AssertionError("the dit32 path's launch counts are not exact")
+    log(f"dit32 trajectory {dit_seconds:.3f} s, {DIT_BATCH / dit_seconds:.4f} images/s, "
+        f"{dit_seconds / DIT_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
+        f"sample mean {yd.float().mean().item():.4f}, std {yd.float().std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(dit_sampler, xd, dit_grid[0], dit_grid[1])
+
+    log("== 9. result")
     kernels = []
-    for name, entry in (
-        ("group_norm_silu", gn["group_norm_silu"]),
-        ("group_norm", gn["group_norm"]),
-        ("attention_fwd", at),
+    for name, entry, path_launches, per_forward in (
+        ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
+        ("group_norm", gn["group_norm"], launches, CALLS_PER_FORWARD),
+        ("attention_fwd", at, launches, CALLS_PER_FORWARD),
+        ("fused_msa", msa, dit_launches, DIT_CALLS_PER_FORWARD),
     ):
-        source = "azula_tpu_torch/csrc/attention_fwd.cu" if name == "attention_fwd" else "azula_tpu_torch/csrc/group_norm.cu"
-        replaces = (
-            "azula_tpu/ops/attention.py:92 (_pallas_attention), azula_tpu/ops/attention.py:566 (_pallas_attention_batched)"
-            if name == "attention_fwd"
-            else "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"
-        )
-        tol = TOL_ATTN[torch.bfloat16] if name == "attention_fwd" else TOL_GN[torch.bfloat16]
+        source, replaces = {
+            "group_norm_silu": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
+            "group_norm": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
+            "attention_fwd": (
+                "attention_fwd.cu",
+                "azula_tpu/ops/attention.py:92 (_pallas_attention), "
+                "azula_tpu/ops/attention.py:566 (_pallas_attention_batched)",
+            ),
+            "fused_msa": ("fused_msa.cu", "azula_tpu/ops/fused_msa.py:200 (_kernel_call)"),
+        }[name]
+        tol = TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": source,
+            "source": f"azula_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],
+            # launches in the run of the kernel's own main path (ADM-256 or dit32)
+            "launches": path_launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_err": entry["max_err"],
             "tol": tol,
@@ -514,8 +792,9 @@ def main() -> None:
             "bound_ms": entry["bound_ms"],
             # what bounds the larger share of bound_ms
             "bound_by": entry["bound_by"].most_common(1)[0][0],
+            # fused_msa: SDPA on the normalized attention core only (no norm, no layout)
             "library_ms": entry["library_ms"] if name != "group_norm_silu" else None,
-            "calls_per_forward": CALLS_PER_FORWARD[name],
+            "calls_per_forward": per_forward[name],
         })
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -154,6 +154,43 @@ def test_discrete_timesteps_equal_jax():
     assert want[0] > want[32] > want[-1]  # the indices do move
 
 
+# Every time of JAX's DDIM-250 and DDIM-1000 grids at which the port's index
+# (float64 ratio, float64 table) differs from JAX's (float32 ratio, float32
+# table), as (time, JAX index, port index).
+DISCRETE_TIME_TIES = {
+    250: [(np.float32(0.888), 846, 847)],
+    1000: [(np.float32(0.888), 846, 847)],
+}
+
+
+@pytest.mark.parametrize("steps", sorted(DISCRETE_TIME_TIES))
+def test_discrete_time_ties_with_jax(steps):
+    # At these times JAX's float32 noise ratio lands on a float32 table entry
+    # (a tie, which the left search settles below), while the exact ratio lies
+    # just above the entry. Each is a one-step difference at a ratio within two
+    # float32 ulps of an entry, not a different schedule.
+    jd, td = _pair(**CARD)
+    times = np.asarray(JaxDDIM(jd, steps=steps).timesteps)
+
+    alpha, sigma = jd.schedule(jnp.asarray(times))
+    ratio32 = np.asarray(sigma * jax.lax.rsqrt(alpha**2 + sigma**2))
+    want = np.asarray(jnp.searchsorted(jd.sigmas, ratio32))
+
+    got = td.discrete_time(torch.from_numpy(times.copy())).numpy()
+    alpha, sigma = td.schedule(torch.from_numpy(times.copy()).double())
+    ratio64 = (sigma / torch.sqrt(alpha**2 + sigma**2)).numpy()
+
+    differ = np.nonzero(got != want)[0]
+    assert [(times[i], int(want[i]), int(got[i])) for i in differ] == DISCRETE_TIME_TIES[steps]
+
+    table32, table64 = np.asarray(jd.sigmas), td.sigmas.numpy()
+    for i in differ:
+        assert got[i] == want[i] + 1
+        entry = want[i]
+        assert abs(float(ratio32[i]) - float(table32[entry])) <= 2 * np.spacing(ratio32[i])
+        assert abs(ratio64[i] - table64[entry]) <= 2 * np.spacing(np.float32(table64[entry]))
+
+
 def test_ddim_trajectory_matches_jax():
     jd, td = _pair(**CARD)
     x = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)

@@ -70,12 +70,15 @@ def test_build_targets_hopper():
 
 def test_kernel_sources_exist_and_are_packaged():
     csrc = PACKAGE / "csrc"
-    for name in ("group_norm.cu", "attention_fwd.cu", "common.cu", "common.cuh"):
+    for name in ("group_norm.cu", "attention_fwd.cu", "fused_msa.cu", "common.cu", "common.cuh"):
         assert (csrc / name).exists(), name
 
-    for name in ("group_norm.cu", "attention_fwd.cu"):
+    for name in ("group_norm.cu", "attention_fwd.cu", "fused_msa.cu"):
         head = (csrc / name).read_text().split("#include")[0]
         assert "Replaces: azula_tpu/ops/" in head and "Bound on the H100" in head
+
+    head = (csrc / "fused_msa.cu").read_text().split("#include")[0]
+    assert "Replaces: azula_tpu/ops/fused_msa.py:200 (_kernel_call)" in head
 
     config = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = config["tool"]["setuptools"]["package-data"]

@@ -17,6 +17,7 @@ from azula_tpu.ops import attention as jattention
 from azula_tpu.ops import norm as jnorm
 from azula_tpu_torch.ops import _build
 from azula_tpu_torch.ops import attention as tattention
+from azula_tpu_torch.ops import fused_msa as tfused
 from azula_tpu_torch.ops import norm as tnorm
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -223,3 +224,36 @@ def test_no_kernel_launch_on_cpu():
 
     assert dict(_build.LAUNCHES) == before
     assert all(_build.LAUNCHES[name] == 0 for name in ("group_norm", "group_norm_silu", "attention_fwd"))
+
+
+def test_forward_only_backward_raises():
+    launch = _build.forward_only("toy", "ROADMAP X")(lambda x, s: x * s)
+
+    x = torch.ones(3, requires_grad=True)
+    y = launch(x, 2.0)
+    assert torch.equal(y.detach(), torch.full((3,), 2.0)) and y.requires_grad
+    with pytest.raises(NotImplementedError, match=r"the toy kernel has no backward yet \(ROADMAP X\)"):
+        y.sum().backward()
+    assert x.grad is None
+
+    with torch.inference_mode():
+        assert not launch(torch.ones(3), 2.0).requires_grad
+
+
+@pytest.mark.parametrize(
+    "wrapper, args",
+    [
+        (
+            tnorm._group_norm_kernel,
+            lambda: (torch.ones(2, 64, 64), torch.ones(2, 64), torch.zeros(2, 64), 32, 1e-5, True),
+        ),
+        (tattention._attention_kernel, lambda: (*(torch.ones(1, 2, 64, 32) for _ in range(3)), 0.1)),
+        (tfused._fused_msa_kernel, lambda: (torch.ones(1, 128, 384), None, None, 2, 1e-5, 0.1)),
+    ],
+)
+def test_kernel_wrappers_are_forward_only(wrapper, args):
+    # the guard wraps the whole wrapper: its checks still run, here the device's
+    assert wrapper.__wrapped__.__name__ == wrapper.__name__
+    x, *rest = args()
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(x.requires_grad_(), *rest)
