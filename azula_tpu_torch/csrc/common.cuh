@@ -55,7 +55,8 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
-// The flash-attention forward shared by attention_fwd.cu and fused_msa.cu.
+// The flash-attention forward shared by attention_fwd.cu, fused_msa.cu and
+// flash_blhd_fwd.cu, and the tile products of flash_blhd_bwd.cu.
 // One block of kThreads threads takes one 64-query tile of one (batch, head)
 // pair and walks 64-key tiles of K and V through shared memory as float32
 // (rows padded by 4 floats to keep vector reads free of bank conflicts),
@@ -89,13 +90,13 @@ struct Tiles {
       : Q(base), K(Q + BQ * LD), V(K + BK * LD), S(V + BK * LD), m(S + BQ * LS), l(m + BQ), alpha(l + BQ) {}
 };
 
-// Rows [row0, row0 + 64) of a (L, D) matrix whose rows lie `ld` elements
+// Rows [row0, row0 + ROWS) of a (L, D) matrix whose rows lie `ld` elements
 // apart, into shared memory as float32 with row stride D + 4; zero past row L.
-template <typename T, int D>
+template <typename T, int D, int ROWS = 64>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int ld, float* dst, int row0, int L) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += kThreads) {
     const int r = idx / PER_ROW;
     const int cv = idx % PER_ROW;
     float v[VEC];
@@ -130,6 +131,43 @@ __device__ __forceinline__ void start_rows(const Tiles<D>& s, float (&acc)[4][D 
 // acc = acc * alpha + P V. With kRoundWeights the value product takes the
 // exp-weights rounded to T, while the denominator sums them unrounded. The
 // caller puts a barrier before it overwrites the K, V or score tile.
+// out[a][b] = sum over d of A[ty + 16 a][d] * B[tx + 16 b][d], for thread
+// (tx, ty) = (t % 16, t / 16), a < RA and b < 4: one (16 RA, 64) tile of
+// A B^T, for two tiles of rows D + 4 floats apart in shared memory. The sum
+// runs over d in order, one FMA at a time, so every caller gets the same
+// float32 score from the same rows.
+template <int RA, int D>
+__device__ __forceinline__ void dot_rows(const float* A, const float* B, float (&out)[RA][4]) {
+  constexpr int LD = D + 4;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) out[a][b] = 0.f;
+
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 qa[RA], kb[4];
+#pragma unroll
+    for (int a = 0; a < RA; ++a) qa[a] = *reinterpret_cast<const float4*>(A + (ty + 16 * a) * LD + d);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) kb[b] = *reinterpret_cast<const float4*>(B + (tx + 16 * b) * LD + d);
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float acc_s = out[a][b];
+        acc_s = fmaf(qa[a].x, kb[b].x, acc_s);
+        acc_s = fmaf(qa[a].y, kb[b].y, acc_s);
+        acc_s = fmaf(qa[a].z, kb[b].z, acc_s);
+        acc_s = fmaf(qa[a].w, kb[b].w, acc_s);
+        out[a][b] = acc_s;
+      }
+  }
+}
+
 template <typename T, int D, bool kRoundWeights>
 __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D / 16], int k0, int L, float scale) {
   constexpr int LD = Tiles<D>::LD;
@@ -140,30 +178,7 @@ __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D
 
   // scores of query rows ty + 16 a against keys tx + 16 b
   float sc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) sc[a][b] = 0.f;
-
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 qa[4], kb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) qa[a] = *reinterpret_cast<const float4*>(s.Q + (ty + 16 * a) * LD + d);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) kb[b] = *reinterpret_cast<const float4*>(s.K + (tx + 16 * b) * LD + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        float acc_s = sc[a][b];
-        acc_s = fmaf(qa[a].x, kb[b].x, acc_s);
-        acc_s = fmaf(qa[a].y, kb[b].y, acc_s);
-        acc_s = fmaf(qa[a].z, kb[b].z, acc_s);
-        acc_s = fmaf(qa[a].w, kb[b].w, acc_s);
-        sc[a][b] = acc_s;
-      }
-  }
+  dot_rows<4, D>(s.Q, s.K, sc);
 
 #pragma unroll
   for (int a = 0; a < 4; ++a)

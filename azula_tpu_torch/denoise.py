@@ -4,7 +4,12 @@ A denoiser approximates the posterior :math:`p(X \mid X_t)` of the clean
 data given a noisy :math:`x_t \sim \mathcal{N}(\alpha_t X, \sigma_t^2 I)`.
 
 Port of :mod:`azula_tpu.denoise` (`broadcast_scales`, `Posterior`,
-`DiracPosterior`, `GaussianPosterior`, `Denoiser`, `KarrasDenoiser`).
+`DiracPosterior`, `GaussianPosterior`, `Denoiser`, `SimpleDenoiser`,
+`KarrasDenoiser`, with their training losses).
+
+The losses draw the perturbation noise from a `torch.Generator` where JAX
+takes a key; the two never give the same numbers, so the noise is drawn in
+one line and the rest of each loss is a private method that takes it.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ __all__ = [
     "GaussianPosterior",
     "KarrasDenoiser",
     "Posterior",
+    "SimpleDenoiser",
     "broadcast_scales",
 ]
 
@@ -85,6 +91,78 @@ class Denoiser(nn.Module, abc.ABC):
         pass
 
 
+class SimpleDenoiser(Denoiser):
+    r"""Creates a denoiser with simple (:math:`x`-prediction) preconditioning.
+
+    .. math:: \mu_\phi(x_t) = b_\phi(c_\mathrm{in}(t) \, x_t, c_\mathrm{time}(t))
+
+    with :math:`c_\mathrm{in} = 1/\sqrt{\alpha_t^2 + \sigma_t^2}` and
+    :math:`c_\mathrm{time} = \log(\sigma_t / \alpha_t)`. The backbone runs in
+    its own dtype (`get_module_dtype`).
+
+    Arguments:
+        backbone: A noise/time conditional network :math:`b_\phi(x_t, t)`.
+        schedule: A noise schedule.
+    """
+
+    def __init__(self, backbone: nn.Module, schedule: Schedule) -> None:
+        super().__init__()
+
+        self.backbone = backbone
+        self.schedule = schedule
+
+    def forward(self, x_t: Tensor, t: Tensor, **kwargs) -> DiracPosterior:
+        t = torch.as_tensor(t, dtype=x_t.dtype, device=x_t.device)
+
+        alpha_t, sigma_t = self.schedule(t)
+        alpha_t, sigma_t = broadcast_scales(alpha_t, sigma_t, x_t)
+
+        c_in = torch.rsqrt(alpha_t**2 + sigma_t**2)
+        c_time = torch.log(sigma_t / alpha_t).reshape(t.shape)
+
+        dtype = get_module_dtype(self.backbone)
+
+        output = self.backbone((c_in * x_t).to(dtype), c_time.to(dtype), **kwargs).to(x_t.dtype)
+
+        return DiracPosterior(mean=output)
+
+    def loss(
+        self,
+        x: Tensor,
+        t: Tensor,
+        generator: torch.Generator | None = None,
+        max_weight: float = 1e4,
+        **kwargs,
+    ) -> Tensor:
+        r"""Returns the weighted denoising score-matching loss
+
+        .. math:: \frac{\alpha_t^2 + \sigma_t^2}{\sigma_t^2} || \mu_\phi(x_t) - x ||^2
+
+        with the weight clipped at `max_weight`.
+
+        Arguments:
+            x: A clean tensor :math:`x`, with shape :math:`(B, *)`.
+            t: The time :math:`t`, with shape :math:`(B)`.
+            generator: The generator of the perturbation noise (the JAX `key`).
+            max_weight: The largest weight.
+            kwargs: Optional keyword arguments (conditioning).
+        """
+
+        z = torch.randn(x.shape, dtype=x.dtype, device=x.device, generator=generator)
+
+        return self._loss(x, t, z, max_weight, **kwargs)
+
+    def _loss(self, x: Tensor, t: Tensor, z: Tensor, max_weight: float = 1e4, **kwargs) -> Tensor:
+        alpha_t, sigma_t = broadcast_scales(*self.schedule(t), x)
+
+        x_t = alpha_t * x + sigma_t * z
+        q = self(x_t, t, **kwargs)
+
+        w_t = torch.clamp((alpha_t / sigma_t) ** 2 + 1, max=max_weight)
+
+        return torch.mean(w_t * torch.square(q.mean - x))
+
+
 class KarrasDenoiser(Denoiser):
     r"""Creates a Gaussian denoiser with EDM-style preconditioning.
 
@@ -100,8 +178,7 @@ class KarrasDenoiser(Denoiser):
         c_\mathrm{time} = \log \frac{\sigma_t}{\alpha_t}
 
     The backbone runs in its own dtype (`get_module_dtype`); the
-    preconditioning runs in the dtype of :math:`x_t`. The training loss is
-    not ported yet.
+    preconditioning runs in the dtype of :math:`x_t`.
 
     References:
         | Elucidating the Design Space of Diffusion-Based Generative Models (Karras et al., 2022)
@@ -134,3 +211,29 @@ class KarrasDenoiser(Denoiser):
         output = self.backbone((c_in * x_t).to(dtype), c_time.to(dtype), **kwargs).to(x_t.dtype)
 
         return DiracPosterior(mean=c_skip * x_t + c_out * output)
+
+    def loss(self, x: Tensor, t: Tensor, generator: torch.Generator | None = None, **kwargs) -> Tensor:
+        r"""Returns the weighted denoising score-matching loss
+
+        .. math:: \frac{\alpha_t^2 + \sigma_t^2}{\sigma_t^2} || \mu_\phi(x_t) - x ||^2
+
+        Arguments:
+            x: A clean tensor :math:`x`, with shape :math:`(B, *)`.
+            t: The time :math:`t`, with shape :math:`(B)`.
+            generator: The generator of the perturbation noise (the JAX `key`).
+            kwargs: Optional keyword arguments (conditioning).
+        """
+
+        z = torch.randn(x.shape, dtype=x.dtype, device=x.device, generator=generator)
+
+        return self._loss(x, t, z, **kwargs)
+
+    def _loss(self, x: Tensor, t: Tensor, z: Tensor, **kwargs) -> Tensor:
+        alpha_t, sigma_t = broadcast_scales(*self.schedule(t), x)
+
+        x_t = alpha_t * x + sigma_t * z
+        q = self(x_t, t, **kwargs)
+
+        w_t = (alpha_t / sigma_t) ** 2 + 1
+
+        return torch.mean(w_t * torch.square(q.mean - x))

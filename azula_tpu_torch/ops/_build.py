@@ -7,8 +7,10 @@ the package. The library is named by a hash of the sources and flags, so an
 edit rebuilds it. It is loaded with `ctypes`.
 
 A missing `nvcc`, a failed build or a failed launch raises: no caller falls
-back to a plain version. The kernels are forward-only: `forward_only` makes a
-backward through a launch raise.
+back to a plain version. The `_flash_blhd` forward and backward kernels form
+an autograd function with its own backward (`ops/attention.py`); the other
+kernels are forward-only, and `forward_only` makes a backward through one of
+their launches raise.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ _SIGNATURES = {
     "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
+    # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream
+    "azula_flash_blhd_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, g, m, l, dq, dk, dv, delta, B, L, H, D, scale, dtype, stream
+    "azula_flash_blhd_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
 }
 
 

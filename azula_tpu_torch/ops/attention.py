@@ -4,6 +4,12 @@ Port of :func:`azula_tpu.ops.attention.dot_product_attention`, with its
 signature and its (B, H, L, D) layout. Two versions compute it: the
 hand-written flash-attention forward (`csrc/attention_fwd.cu`) for tensors
 on the card, and a plain PyTorch version for tensors on the CPU.
+
+Also :func:`_flash_blhd`, the differentiable flash attention on the
+projection layout :math:`(B, L, H D)` that fused MSA's training route runs:
+hand-written forward and backward kernels (`csrc/flash_blhd_fwd.cu`,
+`csrc/flash_blhd_bwd.cu`) on the card, plain PyTorch versions of the JAX
+kernel bodies on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +27,11 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+
+# the head dims and the bound on L of the JAX package's fused gate, which the
+# (B, L, H D) kernels here and the fused MSA kernel (ops/fused_msa.py) take
+_BLHD_HEAD_DIMS = (64, 128, 192, 256)
+_BLHD_MAX_L = 512
 
 
 def _attention_plain(
@@ -153,3 +164,208 @@ def dot_product_attention(
         )
 
     return _attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+
+
+def _split_heads(x: Tensor, heads: int) -> Tensor:
+    r"""(B, L, H D) -> (B, H, L, D), as float32."""
+
+    return x.unflatten(-1, (heads, -1)).transpose(1, 2).float()
+
+
+def _merge_heads(x: Tensor, dtype: torch.dtype) -> Tensor:
+    r"""(B, H, L, D) -> (B, L, H D), rounded to `dtype`."""
+
+    return x.to(dtype).transpose(1, 2).flatten(2)
+
+
+def _flash_blhd_fwd_plain(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> Tensor:
+    r"""Plain PyTorch version of `_flash_blhd_fwd_kernel`
+    (azula_tpu/ops/attention.py): float32 logits times the scale, the row max,
+    exp, the row sum; the exp-weights rounded to the input dtype enter the
+    value product with float32 accumulation, and the product is divided by
+    the sum, in both dtypes."""
+
+    qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    d = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(q.dtype).float(), vh)
+
+    return _merge_heads(o / d, q.dtype)
+
+
+def _flash_blhd_bwd_plain(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, heads: int, scale: float
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""Plain PyTorch version of `_flash_blhd_bwd_kernel`
+    (azula_tpu/ops/attention.py): p recomputed in float32, dp = g v^T,
+    delta = rowsum(g o) of the stored o and g, ds = p (dp - delta) scale
+    rounded to the input dtype, then dq = ds k, dk = ds^T q and
+    dv = p16^T g, each accumulated in float32 and rounded."""
+
+    dtype = q.dtype
+    qh, kh, vh, oh, gh = (_split_heads(t, heads) for t in (q, k, v, o, g))
+
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    delta = torch.sum(gh * oh, dim=-1, keepdim=True)
+
+    ds = (p * (dp - delta) * scale).to(dtype).float()
+    p16 = p.to(dtype).float()
+
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dv = torch.matmul(p16.transpose(-1, -2), gh)
+
+    return tuple(_merge_heads(t, dtype) for t in (dq, dk, dv))
+
+
+def _check_blhd(tensors: tuple[Tensor, ...], heads: int) -> tuple[int, int, int, int]:
+    r"""Raises unless the (B, L, H D) tensors are what the kernels take;
+    returns (B, L, H, D)."""
+
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"the flash_blhd kernels need CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the flash_blhd kernels take float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 3 or x.shape[-1] % heads:
+        raise ValueError(f"the flash_blhd kernels take (B, L, H D) with H = {heads}, got {tuple(x.shape)}")
+    for t in tensors:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("the flash_blhd kernels take tensors of one shape, dtype and device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the flash_blhd kernels take contiguous, 16-byte aligned tensors")
+
+    B, L, C = x.shape
+    D = C // heads
+
+    if D not in _BLHD_HEAD_DIMS:
+        raise ValueError(f"the flash_blhd kernels take head dims {_BLHD_HEAD_DIMS}, got {D}")
+    if L > _BLHD_MAX_L:
+        raise ValueError(f"the flash_blhd kernels take L <= {_BLHD_MAX_L}, got {L}")
+    if B * heads > 65535:
+        raise ValueError(f"the flash_blhd kernels take at most 65535 (batch, head) pairs, got {B * heads}")
+
+    return B, L, heads, D
+
+
+def _flash_blhd_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    r"""Launches `csrc/flash_blhd_fwd.cu`; returns o and the float32 (B, H, L)
+    row max and denominator."""
+
+    B, L, H, D = _check_blhd((q, k, v), heads)
+
+    o = torch.empty_like(q)
+    m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+
+    status = _build.library().azula_flash_blhd_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, L, H, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
+    )
+    _build.check(status, "flash_blhd_fwd")
+    _build.LAUNCHES["flash_blhd_fwd"] += 1
+
+    return o, m, l
+
+
+def _flash_blhd_bwd_kernel(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, m: Tensor, l: Tensor, heads: int, scale: float
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""Launches `csrc/flash_blhd_bwd.cu`; returns dq, dk, dv."""
+
+    B, L, H, D = _check_blhd((q, k, v, o, g), heads)
+    for t in (m, l):
+        if t.shape != (B, H, L) or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"the row statistics must be float32 (B, H, L) = {(B, H, L)} on {q.device}")
+
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty_like(m)
+
+    status = _build.library().azula_flash_blhd_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        B, L, H, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
+    )
+    _build.check(status, "flash_blhd_bwd")
+    _build.LAUNCHES["flash_blhd_bwd"] += 1
+
+    return dq, dk, dv
+
+
+class _FlashBLHD(torch.autograd.Function):
+    r"""`_flash_blhd` as a node of the autograd graph: the kernels on the
+    card, whose forward saves the rows' max and denominator for the
+    backward, or the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale, kernel):
+        if kernel:
+            o, m, l = _flash_blhd_fwd_kernel(q, k, v, heads, scale)
+            ctx.save_for_backward(q, k, v, o, m, l)
+        else:
+            o = _flash_blhd_fwd_plain(q, k, v, heads, scale)
+            ctx.save_for_backward(q, k, v, o)
+
+        ctx.heads, ctx.scale, ctx.kernel = heads, scale, kernel
+
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, *stats = ctx.saved_tensors
+        g = g.to(q.dtype)  # as `_flash_blhd_bwd` casts the cotangent
+
+        if ctx.kernel:
+            dq, dk, dv = _flash_blhd_bwd_kernel(q, k, v, o, g.contiguous(), *stats, ctx.heads, ctx.scale)
+        else:
+            dq, dk, dv = _flash_blhd_bwd_plain(q, k, v, o, g, ctx.heads, ctx.scale)
+
+        return dq, dk, dv, None, None, None
+
+
+def _flash_blhd(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    heads: int,
+    scale: float,
+    implementation: str | None = None,
+) -> Tensor:
+    r"""Differentiable flash attention over :math:`(B, L, H D)` tensors, the
+    layout of the fused QKV projection, for short self-attention
+    (:math:`L \leq 512`, no mask, no dropout).
+
+    Port of `azula_tpu.ops.attention._flash_blhd` and its `custom_vjp`: the
+    backward casts the cotangent to the inputs' dtype and returns dq, dk, dv.
+
+    Arguments:
+        q, k, v: Queries, keys and values, with shape :math:`(B, L, H D)`.
+        heads: The number of heads :math:`H`.
+        scale: The logit scale.
+        implementation: :py:`None` or `'auto'` (the kernels for CUDA tensors,
+            the plain versions for CPU tensors), `'kernel'` (raises on the
+            CPU) or `'plain'`.
+
+    Returns:
+        The attention output, with shape :math:`(B, L, H D)`.
+    """
+
+    if implementation not in (None, "auto", "kernel", "plain"):
+        raise ValueError(f"unknown flash_blhd implementation '{implementation}'")
+
+    if implementation in (None, "auto"):
+        implementation = "kernel" if q.device.type == "cuda" else "plain"
+
+    kernel = implementation == "kernel"
+    if kernel:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+
+    return _FlashBLHD.apply(q, k, v, heads, scale, kernel)

@@ -8,6 +8,12 @@ the hand-written kernel (`csrc/fused_msa.cu`) for tensors on the card, and a
 plain PyTorch version for tensors on the CPU, which follows the JAX
 package's `_reference` op by op (its rounding points included): normalize,
 rotate, round q and k to the input dtype, then attend.
+
+Under grad on the card, the function takes the JAX package's training route
+(`_fused_fwd`): `_reference_core_flash`, the norm and rotation in mixed
+precision as PyTorch ops, then the differentiable flash attention of
+:func:`azula_tpu_torch.ops.attention._flash_blhd`, whose forward and backward
+are kernels. The serving kernel has no backward.
 """
 
 from __future__ import annotations
@@ -24,12 +30,9 @@ import torch
 from torch import Tensor
 
 from . import _build
+from .attention import _BLHD_HEAD_DIMS, _BLHD_MAX_L, _flash_blhd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 192, 256)
-
-# the JAX gate's resident bound on the sequence length
-_MAX_L = 512
 
 
 def rope_tables(theta: Tensor, heads: int) -> tuple[Tensor, Tensor]:
@@ -110,7 +113,55 @@ def _fused_msa_plain(
     return o.to(qkv.dtype).transpose(1, 2).reshape(B, L, C)
 
 
-@_build.forward_only("fused_msa", "the dit32 training slice, ROADMAP A13a")
+def _reference_core_flash(
+    qkv: Tensor,
+    cos2: Tensor | None,
+    sin2: Tensor | None,
+    heads: int,
+    eps: float | None,
+    scale: float,
+    implementation: str | None = None,
+) -> Tensor:
+    r"""Port of `_reference_core_flash` (azula_tpu/ops/fused_msa.py): the
+    `_reference` math in mixed precision, with the attention core swapped for
+    :func:`_flash_blhd`. The RMS statistics are float32 and the normalization
+    is applied in the input dtype; the rope tables are cast to the input
+    dtype before the rotation; q, k and v go to the flash attention as
+    :math:`(B, L, H D)` views of the projection, heads in place.
+    `implementation` is passed to :func:`_flash_blhd`."""
+
+    B, L, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+
+    x = qkv.reshape(B, L, 3, heads, D)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, L, H, D)
+
+    def norm(z):
+        r = torch.rsqrt(torch.mean(torch.square(z.float()), dim=-1, keepdim=True) + eps)
+        return z * r.to(z.dtype)
+
+    if eps is not None:
+        q, k = norm(q), norm(k)
+
+    if cos2 is not None:
+        c = cos2.to(qkv.dtype).reshape(L, heads, D)
+        s = sin2.to(qkv.dtype).reshape(L, heads, D)
+
+        def swap(z):
+            return z.unflatten(-1, (D // 2, 2)).flip(-1).flatten(-2)
+
+        q = q * c + swap(q) * s
+        k = k * c + swap(k) * s
+
+    return _flash_blhd(
+        q.reshape(B, L, C), k.reshape(B, L, C), v.reshape(B, L, C), heads, scale, implementation
+    )
+
+
+@_build.forward_only(
+    "fused_msa", "under grad, call fused_msa_attention: it takes the flash route, whose kernels have one"
+)
 def _fused_msa_kernel(
     qkv: Tensor,
     cos2: Tensor | None,
@@ -134,8 +185,8 @@ def _fused_msa_kernel(
     C = C3 // 3
     D = C // heads
 
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the fused MSA kernel takes head dims {_HEAD_DIMS}, got {D}")
+    if D not in _BLHD_HEAD_DIMS:
+        raise ValueError(f"the fused MSA kernel takes head dims {_BLHD_HEAD_DIMS}, got {D}")
     if B * heads > 65535:
         raise ValueError(f"the fused MSA kernel takes at most 65535 (batch, head) pairs, got {B * heads}")
 
@@ -189,7 +240,7 @@ def fused_msa_eligible(
     L = x.shape[-2]
     D = x.shape[-1] // heads
 
-    return L % 128 == 0 and 128 <= L <= _MAX_L and D % 64 == 0 and D <= 256 and heads <= 12
+    return L % 128 == 0 and 128 <= L <= _BLHD_MAX_L and D % 64 == 0 and D <= 256 and heads <= 12
 
 
 def fused_msa_attention(
@@ -210,9 +261,13 @@ def fused_msa_attention(
         theta: Optional rotary angles, with shape :math:`(L, H D / 2)`.
         eps: The QK RMS-norm epsilon, or :py:`None` to skip normalization.
         scale: Logit scale; defaults to :math:`1 / \sqrt{D}`.
-        implementation: :py:`None` or `'auto'` (the kernel for CUDA tensors,
-            the plain version for CPU tensors), `'kernel'` (raises on the CPU)
-            or `'plain'`.
+        implementation: :py:`None` or `'auto'` (the kernels for CUDA
+            tensors, the plain version for CPU tensors), `'kernel'` (raises on
+            the CPU) or `'plain'`. Under grad, when `qkv` or `theta` requires
+            it, the kernel route runs `_reference_core_flash` on the
+            `_flash_blhd` kernels, whose backward is a kernel too; otherwise
+            it runs the serving kernel. The plain version is differentiated
+            by autograd.
 
     Returns:
         The attention output, with shape :math:`(B, L, H D)`, heads merged in
@@ -237,5 +292,10 @@ def fused_msa_attention(
 
     if implementation == "plain":
         return _fused_msa_plain(qkv, cos2, sin2, heads, eps, scale)
+
+    # as the JAX package's `_fused` custom_vjp: the serving kernel has no
+    # backward, so a forward that autograd records takes the flash route
+    if torch.is_grad_enabled() and (qkv.requires_grad or (theta is not None and theta.requires_grad)):
+        return _reference_core_flash(qkv, cos2, sin2, heads, eps, scale, implementation="kernel")
 
     return _fused_msa_kernel(qkv.contiguous(), cos2, sin2, heads, eps, scale)

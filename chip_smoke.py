@@ -25,8 +25,10 @@ Phases, each of which raises on failure:
    random weights), which must be exactly 12 with no other kernel, then hold
    the kernel against its plain version at that shape in bf16 and float32,
    also with RoPE, without the QK-norm and at scale 1, and time kernel,
-   plain version, SDPA on the attention core and bound. A backward through
-   each kernel must raise (they are forward-only).
+   plain version, SDPA on the attention core and bound. Under grad, a
+   backward through `fused_msa_attention` must succeed (it takes the flash
+   route of phase 9), while one through the GroupNorm or attention kernel,
+   or through the serving kernel called directly, must raise.
 7. dit32 slices: the tiny ViT denoiser of the CPU tests (8 x 8 images, which
    takes the unfused route) and one of 32 x 32 images (256 tokens, two heads
    of 64, the fused route), each with the same random weights on the CPU
@@ -35,7 +37,24 @@ Phases, each of which raises on failure:
 8. dit32 full width: DDIM-64 (eta = 0) from `sampler.init` noise at batch
    128 in bf16; the result must be finite and the launch count exactly
    12 per step. Prints images/s, peak memory and a profile of one step.
-9. the kernels line `{"kernels": [...]}`, then the result line.
+9. flash kernels: the `_flash_blhd` forward and backward kernels against
+   their plain versions at the dit32 training shape ((128, 256, 384), 6 heads
+   of 64, scale 1/8) in bf16 and float32 (o, and dq, dk, dv for a random
+   cotangent), and at ragged L and the other head dims; timed against the
+   plain versions, SDPA (forward, and its autograd backward) and the bound.
+10. composition gradient: the gradient of `fused_msa_attention` at the dit32
+   shape with RoPE, bf16, through the flash route's kernels, against the
+   gradient through the plain version (the JAX package's gate, rel < 3e-2).
+11. training slice: the 32 x 32 ViT of phase 7 on the CPU (plain versions)
+   and on the card (the flash kernels), float32, same weights and injected
+   noise: the loss and every parameter's gradient of one step, then the
+   parameters after three AdamW steps.
+12. dit32 training at full width: `bench.py`'s dit32_train (bf16 model, batch
+   128, fixed x and t, fresh noise every step, AdamW with optax's settings)
+   through `TrainState.step`: warm-up steps, then timed steps with finite
+   losses and exactly 12 + 12 flash launches per step and no other kernel.
+   Prints train images/s, ms/step, peak memory and a profile of one step.
+13. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -59,6 +78,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from azula_tpu_torch import train
 from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.models import adm
 from azula_tpu_torch.models.utils import load_cards
@@ -100,6 +120,12 @@ DIT_SLICES = (
     (dict(mod_features=16, hid_channels=128, hid_blocks=2, patch_size=2, attention_heads=2), 32),  # noqa: C408
 )
 
+# dit32 training (bench.py's `_dit32_train`): one `_flash_blhd` forward and
+# backward per block and step; warm-up and timed steps of phase 12
+DIT_TRAIN_CALLS_PER_STEP = {"flash_blhd_fwd": 12, "flash_blhd_bwd": 12}
+DIT_TRAIN_WARMUP = 3
+DIT_TRAIN_STEPS = 20
+
 # tolerances, as max |kernel - plain| / max |plain|
 TOL_GN = {
     # same float32 arithmetic, summed in another order
@@ -124,6 +150,15 @@ TOL_SLICE = 1e-4
 # a trajectory carries those differences through c_out = -sigma / alpha
 # (100 at t = 1) before the clip
 TOL_TRAJECTORY = 5e-4
+# fused MSA's gradient through the flash route (mixed-precision norm and
+# rope, bf16) against the plain version's (float32 statistics): the JAX
+# package's own gate, tests/test_ops_tpu.py::test_fused_msa_training_vjp_production_shape
+TOL_COMPOSITION = 3e-2
+# the training slice's parameters after three AdamW steps, absolute: a step
+# moves each parameter by at most ~lr = 1e-4 (Adam's normalized update), and
+# the gradients agree to ~1e-6 relative, so the updates agree far inside a
+# tenth of one step
+TOL_TRAIN_PARAMS = 1e-5
 
 TINY = dict(  # noqa: C408  the tiny ADM of tests/test_torch_adm.py, with the card's flags
     image_size=32,
@@ -512,16 +547,31 @@ def check_fused_msa(calls, generator) -> dict:
 
 
 def check_forward_only(generator) -> None:
-    r"""Under grad, a backward through each kernel, called by its public
-    entry point, must raise rather than give its inputs no gradient."""
+    r"""Under grad, a backward through `fused_msa_attention` runs the flash
+    route's two kernels and gives qkv a finite gradient; one through each
+    forward-only kernel (GroupNorm, attention, and the serving fused MSA
+    kernel called directly) must raise rather than give its inputs no
+    gradient."""
 
     def rand(*shape):
         return torch.randn(shape, generator=generator, device="cuda", requires_grad=True)
 
+    qkv = rand(1, 128, 384)
+    before = collections.Counter(_build.LAUNCHES)
+    fused_msa.fused_msa_attention(qkv, heads=2).float().sum().backward()
+    launched = dict(collections.Counter(_build.LAUNCHES) - before)
+    if qkv.grad is None or not bool(torch.isfinite(qkv.grad).all()):
+        raise AssertionError("the backward through fused_msa_attention gave qkv no finite gradient")
+    if launched != {"flash_blhd_fwd": 1, "flash_blhd_bwd": 1}:
+        raise AssertionError(f"the backward through fused_msa_attention launched {launched}")
+    log(f"  fused_msa_attention under grad: the backward runs, launches {launched}")
+
     cases = {
         "group_norm": lambda: norm.group_norm_silu(rand(2, 64, 64), GROUPS),
         "attention_fwd": lambda: attention.dot_product_attention(*(rand(1, 2, 64, 32) for _ in range(3))),
-        "fused_msa": lambda: fused_msa.fused_msa_attention(rand(1, 128, 384), heads=2),
+        "fused_msa (the serving kernel, called directly)": lambda: fused_msa._fused_msa_kernel(
+            rand(1, 128, 384), None, None, 2, 1e-5, 0.125
+        ),
     }
     for name, call in cases.items():
         y = call()
@@ -585,33 +635,44 @@ def check_dit_slice() -> None:
         raise AssertionError("the dit slices on the card did not run the attention and fused MSA kernels")
 
 
-def profile_step(sampler, x, t, s) -> None:
-    r"""Device time of one full-width DDIM step by kind of kernel, and the
-    share of the step's wall time in which the card ran no kernel."""
+def profile_step(step) -> None:
+    r"""Device time of one full-width step (`step()`, a DDIM or train step) by
+    kind of kernel, and the share of the step's wall time in which the card
+    ran no kernel."""
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sampler.step(x, t, s)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     kinds, top = collections.Counter(), collections.Counter()
+    launched = 0
     for event in prof.key_averages():
         us = getattr(event, "self_device_time_total", None)
         if us is None:
             us = getattr(event, "self_cuda_time_total", 0)
         if not us or event.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        if getattr(event, "is_user_annotation", False):
+            continue  # a range such as `Optimizer.step#AdamW.step` spans kernels counted already
         name = event.key
         top[name] += us / 1e3
+        launched += event.count
         if "gn_partial_kernel" in name or "gn_fold_kernel" in name or "gn_apply_kernel" in name:
             kind = "group_norm (ours)"
         elif "attention_fwd_kernel" in name:
             kind = "attention (ours)"
         elif "fused_msa_kernel" in name:
             kind = "fused MSA (ours)"
+        elif "flash_blhd_fwd_kernel" in name:
+            kind = "flash_blhd forward (ours)"
+        elif "flash_blhd_dq_kernel" in name or "flash_blhd_dkv_kernel" in name:
+            kind = "flash_blhd backward (ours)"
+        elif "multi_tensor_apply" in name:
+            kind = "optimizer (AdamW, foreach)"
         elif "conv" in name.lower() or "fprop" in name or "implicit" in name or "nhwc" in name.lower():
             kind = "convolution (cuDNN)"
         elif any(word in name.lower() for word in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -628,9 +689,199 @@ def profile_step(sampler, x, t, s) -> None:
         return
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.most_common())
     log(f"profile of one step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); {parts}")
+        f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {launched} kernels; {parts}")
     for name, ms in top.most_common(12):
         log(f"  {ms:9.3f} ms  {name[:150]}")
+
+
+def check_flash_blhd(generator) -> dict:
+    r"""The `_flash_blhd` forward and backward kernels against their plain
+    versions at the dit32 training shape (timed in bf16, with SDPA on the
+    (B, H, L, D) views of the same tensors as the library yardstick) and at a
+    ragged L and the other head dims, in bf16 and float32. The plain
+    backward takes the kernel's own o, as autograd hands it the forward's."""
+
+    entries = {
+        name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
+                   bound_by=collections.Counter())
+        for name in DIT_TRAIN_CALLS_PER_STEP
+    }
+
+    heads = DIT32["attention_heads"]
+    main_shape = (DIT_BATCH, 256, heads, DIT32["hid_channels"] // heads)
+    shapes = [main_shape, (4, 200, 2, 64), (2, 256, 2, 128), (2, 160, 2, 192), (2, 512, 1, 256)]
+
+    for shape in shapes:
+        B, L, H, D = shape
+        scale = 1 / math.sqrt(D)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = (torch.randn((B, L, H * D), generator=generator, device="cuda").to(dtype) for _ in range(4))
+
+            o, m, l = attention._flash_blhd_fwd_kernel(q, k, v, H, scale)
+            grads = attention._flash_blhd_bwd_kernel(q, k, v, o, g, m, l, H, scale)
+            want_o = attention._flash_blhd_fwd_plain(q, k, v, H, scale)
+            want_grads = attention._flash_blhd_bwd_plain(q, k, v, o, g, H, scale)
+
+            errs = {"o": errors(o, want_o)}
+            errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
+            tol = TOL_ATTN[dtype]
+            bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
+            if bad:
+                raise AssertionError(f"flash_blhd {shape} {dtype}: {bad} > {tol}")
+
+            line = f"  flash_blhd (B, L, H, D) = {shape} {str(dtype)[6:]}: rel err " + ", ".join(
+                f"{name} {rel:.3e}" for name, (_, rel) in errs.items()
+            ) + f" (tol {tol})"
+
+            if shape == main_shape and dtype == torch.bfloat16:
+                count = DIT_TRAIN_CALLS_PER_STEP["flash_blhd_fwd"]
+                views = [t.view(B, L, H, D).transpose(1, 2) for t in (q, k, v)]
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*(t.view(B, L, H, D).transpose(1, 2) for t in leaves), scale=scale)
+                g4 = g.view(B, L, H, D).transpose(1, 2)
+
+                times = {
+                    "flash_blhd_fwd": (
+                        elapsed_ms(lambda: attention._flash_blhd_fwd_kernel(q, k, v, H, scale)),
+                        elapsed_ms(lambda: attention._flash_blhd_fwd_plain(q, k, v, H, scale)),
+                        elapsed_ms(lambda: F.scaled_dot_product_attention(*views, scale=scale)),
+                        # the JAX cost estimate: q, k, v read and o written once
+                        bound_ms(4 * B * L * H * D * q.element_size(), 4 * B * H * L * L * D, dtype),
+                        errs["o"],
+                    ),
+                    "flash_blhd_bwd": (
+                        elapsed_ms(lambda: attention._flash_blhd_bwd_kernel(q, k, v, o, g, m, l, H, scale)),
+                        elapsed_ms(lambda: attention._flash_blhd_bwd_plain(q, k, v, o, g, H, scale)),
+                        elapsed_ms(lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)),
+                        # q, k, v, o, g read and dq, dk, dv written once
+                        bound_ms(8 * B * L * H * D * q.element_size(), 10 * B * H * L * L * D, dtype),
+                        max((errs[name] for name in ("dq", "dk", "dv")), key=lambda e: e[1]),
+                    ),
+                }
+                for name, (ms, plain, library, (bound, by), (abs_err, rel_err)) in times.items():
+                    entry = entries[name]
+                    entry["ms"] += count * ms
+                    entry["plain_ms"] += count * plain
+                    entry["library_ms"] += count * library
+                    entry["bound_ms"] += count * bound
+                    entry["bound_by"][by] += count * bound
+                    entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                    entry["max_err"] = max(entry["max_err"], rel_err)
+                    line += (f"\n    {name}: {ms:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+                             f"bound {bound:.4f} ms ({by})")
+                del out, leaves
+
+            log(line)
+
+    return entries
+
+
+def check_composition_grad(generator) -> None:
+    r"""The gradient of fused MSA at the dit32 shape with RoPE in bf16, through
+    the flash route's kernels, against the gradient through the plain
+    version, as the JAX package's gate holds `_fused` against `_reference`;
+    and against the same mixed-precision route on the plain `_flash_blhd`,
+    which isolates the kernels from the route's own rounding."""
+
+    heads = DIT32["attention_heads"]
+    B, L, C = DIT_BATCH, 256, DIT32["hid_channels"]
+    eps, scale = 1e-5, 1 / 8
+    qkv = torch.randn((B, L, 3 * C), generator=generator, device="cuda").to(torch.bfloat16)
+    theta = torch.randn((L, C // 2), generator=generator, device="cuda")
+    g = torch.randn((B, L, C), generator=generator, device="cuda")
+    cos2, sin2 = fused_msa.rope_tables(theta, heads)
+
+    def grad(fn):
+        a = qkv.detach().requires_grad_()
+        (fn(a).float() * g).sum().backward()
+        return a.grad
+
+    before = collections.Counter(_build.LAUNCHES)
+    got = grad(lambda a: fused_msa.fused_msa_attention(a, heads, theta, eps=eps, scale=scale))
+    launched = dict(collections.Counter(_build.LAUNCHES) - before)
+    if launched != {"flash_blhd_fwd": 1, "flash_blhd_bwd": 1}:
+        raise AssertionError(f"the gradient did not go through the flash kernels: {launched}")
+
+    want = grad(lambda a: fused_msa.fused_msa_attention(a, heads, theta, eps=eps, scale=scale, implementation="plain"))
+    same_route = grad(
+        lambda a: fused_msa._reference_core_flash(a, cos2, sin2, heads, eps, scale, implementation="plain")
+    )
+
+    for label, reference, tol in (
+        ("the plain version (the JAX gate)", want, TOL_COMPOSITION),
+        ("the same route on the plain _flash_blhd", same_route, TOL_ATTN[torch.bfloat16]),
+    ):
+        abs_err, rel_err = errors(got, reference)
+        log(f"  grad of fused_msa_attention (B, L, 3C) = {tuple(qkv.shape)}, RoPE, bf16, flash kernels, against "
+            f"{label}: max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {tol})")
+        if rel_err > tol:
+            raise AssertionError(f"fused MSA's gradient through the flash kernels disagrees with {label}")
+
+
+def check_train_slice() -> None:
+    r"""The 32 x 32 ViT denoiser of phase 7 on the CPU (plain versions) and
+    on the card (the flash route's kernels), same weights and injected noise,
+    float32, RoPE off and on: the loss and every parameter's gradient of one
+    step, then the parameters after three AdamW steps."""
+
+    config, side = DIT_SLICES[1]
+    rng = np.random.default_rng(1)
+
+    _build.LAUNCHES.clear()
+    for rope in (False, True):
+        def make(device):
+            vit = ViT(3, 3, rope=rope, **config, device=device)
+            return KarrasDenoiser(Modulated(vit, config["mod_features"], device=device), VPSchedule())
+
+        cpu, card = make("cpu"), make("cuda")
+        state = {}
+        for key, value in cpu.backbone.state_dict().items():
+            scale = 0.2 if key.endswith("bias") else 1 / math.sqrt(value.shape[-1])
+            state[key] = torch.from_numpy((scale * rng.standard_normal(value.shape)).astype(np.float32))
+        cpu.backbone.load_state_dict(state)
+        card.backbone.load_state_dict(state)
+
+        optimizers = [torch.optim.AdamW(d.parameters(), **train.OPTAX_ADAMW) for d in (cpu, card)]
+        x = torch.from_numpy(rng.standard_normal((4, side, side, 3)).astype(np.float32))
+        t = torch.from_numpy(rng.uniform(0.05, 0.95, 4).astype(np.float32))
+
+        for i in range(3):
+            z = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+            losses = {}
+            for device, denoiser in (("cpu", cpu), ("cuda", card)):
+                before = dict(_build.LAUNCHES)
+                loss = denoiser._loss(x.to(device), t.to(device), z.to(device))
+                loss.backward()
+                if device == "cpu" and dict(_build.LAUNCHES) != before:
+                    raise AssertionError("a kernel ran on the CPU path")
+                losses[device] = loss.item()
+
+            if i == 0:
+                loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+                worst, worst_name = 0.0, ""
+                for (name, a), (_, b) in zip(cpu.named_parameters(), card.named_parameters()):
+                    _, err = errors(b.grad.cpu(), a.grad)
+                    worst, worst_name = max((worst, worst_name), (err, name))
+                log(f"  train slice {side}x{side} rope={rope}: loss {losses['cpu']:.6f}, rel err {loss_err:.3e}; "
+                    f"worst parameter gradient rel err {worst:.3e} ({worst_name}) (tol {TOL_SLICE})")
+                if loss_err > TOL_SLICE or worst > TOL_SLICE:
+                    raise AssertionError("the training slice's loss or gradients on the card disagree with the CPU")
+
+            for optimizer in optimizers:
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+
+        diff = max((b.detach().cpu() - a.detach()).abs().max().item()
+                   for a, b in zip(cpu.parameters(), card.parameters()))
+        log(f"  train slice rope={rope}: parameters after three AdamW steps, max abs diff {diff:.3e} "
+            f"(tol {TOL_TRAIN_PARAMS})")
+        if diff > TOL_TRAIN_PARAMS:
+            raise AssertionError("the training slice's parameters on the card disagree with the CPU")
+
+    launched = dict(_build.LAUNCHES)
+    log(f"  kernel launches on the card: {launched}")
+    if set(launched) != set(DIT_TRAIN_CALLS_PER_STEP) or min(launched.values()) == 0:
+        raise AssertionError("the training slice on the card did not run the flash kernels (and only them)")
 
 
 def main() -> None:
@@ -704,7 +955,7 @@ def main() -> None:
     log(f"trajectory {seconds:.3f} s, {BATCH / seconds:.4f} images/s, {seconds / args.steps * 1e3:.2f} ms/step, "
         f"peak memory {peak / 2**30:.2f} GiB; sample mean {y.float().mean().item():.4f}, std {y.float().std().item():.4f}")
     with torch.inference_mode():
-        profile_step(sampler, x, time_grid[0], time_grid[1])
+        profile_step(lambda: sampler.step(x, time_grid[0], time_grid[1]))
 
     del denoiser, sampler, x, y
     torch.cuda.empty_cache()
@@ -755,15 +1006,59 @@ def main() -> None:
         f"{dit_seconds / DIT_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
         f"sample mean {yd.float().mean().item():.4f}, std {yd.float().std().item():.4f}")
     with torch.inference_mode():
-        profile_step(dit_sampler, xd, dit_grid[0], dit_grid[1])
+        profile_step(lambda: dit_sampler.step(xd, dit_grid[0], dit_grid[1]))
+    del dit_sampler, xd, yd
+    torch.cuda.empty_cache()
 
-    log("== 9. result")
+    log("== 9. flash kernels against their plain versions at the dit32 training shape")
+    flash = check_flash_blhd(generator)
+
+    log("== 10. fused MSA's gradient through the flash route at the dit32 shape")
+    check_composition_grad(generator)
+
+    log("== 11. the training slice: CPU plain versions against the card's kernels, float32")
+    check_train_slice()
+
+    log(f"== 12. dit32 training at full width: bf16, batch {DIT_BATCH}, AdamW, "
+        f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
+    x_train = torch.randn((DIT_BATCH, 32, 32, 3), generator=generator, device="cuda")
+    t_train = torch.rand((DIT_BATCH,), generator=generator, device="cuda")
+    state = train.TrainState(dit, torch.optim.AdamW(dit.parameters(), **train.OPTAX_ADAMW))
+    for _ in range(DIT_TRAIN_WARMUP):
+        state.step(x_train, t_train, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    losses = [state.step(x_train, t_train, generator) for _ in range(DIT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"a dit32 training loss is not finite: {losses.tolist()}")
+    expected = {name: n * DIT_TRAIN_STEPS for name, n in DIT_TRAIN_CALLS_PER_STEP.items()}
+    log(f"launches {train_launches}, expected {expected}")
+    if train_launches != expected:
+        raise AssertionError("the dit32 training path's launch counts are not exact")
+    log(f"dit32 training {train_seconds:.3f} s for {DIT_TRAIN_STEPS} steps: "
+        f"{DIT_BATCH * DIT_TRAIN_STEPS / train_seconds:.4f} train images/s, "
+        f"{train_seconds / DIT_TRAIN_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
+        f"loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
+    profile_step(lambda: state.step(x_train, t_train, generator))
+
+    log("== 13. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
         ("group_norm", gn["group_norm"], launches, CALLS_PER_FORWARD),
         ("attention_fwd", at, launches, CALLS_PER_FORWARD),
         ("fused_msa", msa, dit_launches, DIT_CALLS_PER_FORWARD),
+        ("flash_blhd_fwd", flash["flash_blhd_fwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
+        ("flash_blhd_bwd", flash["flash_blhd_bwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
     ):
         source, replaces = {
             "group_norm_silu": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
@@ -774,6 +1069,14 @@ def main() -> None:
                 "azula_tpu/ops/attention.py:566 (_pallas_attention_batched)",
             ),
             "fused_msa": ("fused_msa.cu", "azula_tpu/ops/fused_msa.py:200 (_kernel_call)"),
+            "flash_blhd_fwd": (
+                "flash_blhd_fwd.cu",
+                "azula_tpu/ops/attention.py:798 (_flash_blhd; body _flash_blhd_fwd_kernel at :717)",
+            ),
+            "flash_blhd_bwd": (
+                "flash_blhd_bwd.cu",
+                "azula_tpu/ops/attention.py:836 (_flash_blhd_bwd; body _flash_blhd_bwd_kernel at :748)",
+            ),
         }[name]
         tol = TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
         kernels.append({
@@ -781,18 +1084,21 @@ def main() -> None:
             "route": "cuda",
             "source": f"azula_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            # launches in the run of the kernel's own main path (ADM-256 or dit32)
+            # launches in the run of the kernel's own main path (ADM-256
+            # sampling, dit32 sampling or dit32 training)
             "launches": path_launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_err": entry["max_err"],
             "tol": tol,
-            # times of the calls of one forward, summed over their shapes
+            # times of the calls of one forward (flash_blhd: of one train
+            # step), summed over their shapes
             "ms": entry["ms"],
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
             # what bounds the larger share of bound_ms
             "bound_by": entry["bound_by"].most_common(1)[0][0],
-            # fused_msa: SDPA on the normalized attention core only (no norm, no layout)
+            # fused_msa: SDPA on the normalized attention core only (no norm,
+            # no layout); flash_blhd: SDPA's forward, or its autograd backward
             "library_ms": entry["library_ms"] if name != "group_norm_silu" else None,
             "calls_per_forward": per_forward[name],
         })

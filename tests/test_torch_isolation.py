@@ -70,15 +70,20 @@ def test_build_targets_hopper():
 
 def test_kernel_sources_exist_and_are_packaged():
     csrc = PACKAGE / "csrc"
-    for name in ("group_norm.cu", "attention_fwd.cu", "fused_msa.cu", "common.cu", "common.cuh"):
+    kernels = ("group_norm.cu", "attention_fwd.cu", "fused_msa.cu", "flash_blhd_fwd.cu", "flash_blhd_bwd.cu")
+    for name in (*kernels, "common.cu", "common.cuh"):
         assert (csrc / name).exists(), name
 
-    for name in ("group_norm.cu", "attention_fwd.cu", "fused_msa.cu"):
+    for name in kernels:
         head = (csrc / name).read_text().split("#include")[0]
         assert "Replaces: azula_tpu/ops/" in head and "Bound on the H100" in head
 
     head = (csrc / "fused_msa.cu").read_text().split("#include")[0]
     assert "Replaces: azula_tpu/ops/fused_msa.py:200 (_kernel_call)" in head
+    head = (csrc / "flash_blhd_fwd.cu").read_text().split("#include")[0]
+    assert "Replaces: azula_tpu/ops/attention.py:798 (_flash_blhd" in head
+    head = (csrc / "flash_blhd_bwd.cu").read_text().split("#include")[0]
+    assert "Replaces: azula_tpu/ops/attention.py:836 (_flash_blhd_bwd" in head
 
     config = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = config["tool"]["setuptools"]["package-data"]
