@@ -5,28 +5,37 @@
 // no bias, no dropout, no log-sum-exp output. Any L is taken; D is 32, 64 or
 // 128. Inputs and output are bf16 or float32.
 //
+// The max-free entry replaces _pallas_attention_blocked (L > 2048) and
+// _pallas_attention's max_free option, in the same unmasked inference form:
+// no row max and no rescale, p = exp(min(s, 80)) rounded to the input dtype
+// before the value product, the denominator summed from the unrounded p, and
+// o = acc / l at the end. The Python wrapper takes it where the JAX package's
+// TPU dispatch threads max_free (L > 512, L % 128 == 0, D % 64 == 0).
+//
 // Bound on the H100: a (b, h) pair does 4 L^2 D operations on 8 L D bytes
 // (bf16), L / 2 operations per byte. At ADM's L = 1024 that is above the
 // ~295 where even the bf16 tensor cores would limit, and this kernel runs its
 // products on the float32 CUDA cores (67 TFLOP/s, ~20 operations per byte),
-// so it is bound by operations at every main-path length (L = 64, 256, 1024).
+// so it is bound by operations at every main-path length (L = 64, 256, 1024
+// for ADM, 4608 for FLUX.1 at 1024 px).
 //
 // Design: the TPU kernel kept a pair's whole K and V resident in VMEM and
 // ran one softmax over it. A block here has at most 227 KB of shared memory,
 // so K and V are streamed instead: one block of 256 threads per (b * h,
 // 64-query tile) runs the flash step of common.cuh (azula::flash) over
 // 64-key tiles, with an online softmax in float32 divided once at the end;
-// the exp-weights enter the value product unrounded. Keys and queries past
-// L are masked in the ragged last tile, so no length gate is needed. The
-// products use plain FMA; tensor cores (mma.sync / wgmma) and TMA are later
-// work.
+// the exact route's exp-weights enter the value product unrounded. Keys and
+// queries past L are masked in the ragged last tile, so no length gate is
+// needed. The products use plain FMA; tensor cores (mma.sync / wgmma) and
+// TMA are later work. At D = 128 a block takes 119,552 bytes of shared
+// memory, so one block runs per SM.
 #include "common.cuh"
 
 namespace {
 
 namespace flash = azula::flash;
 
-template <typename T, int D>
+template <typename T, int D, bool kMaxFree>
 __global__ void __launch_bounds__(flash::kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, int L, float scale) {
@@ -45,38 +54,48 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     flash::load_tile<T, D>(k + base, D, s.K, k0, L);
     flash::load_tile<T, D>(v + base, D, s.V, k0, L);
     __syncthreads();
-    flash::attend_tile<T, D, false>(s, acc, k0, L, scale);
+    // the max-free form rounds its weights, as the TPU kernels do
+    flash::attend_tile<T, D, kMaxFree, kMaxFree>(s, acc, k0, L, scale);
   }
 
   flash::store_rows<T, D>(s, acc, o + base, D, q0, L);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kMaxFree>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int L, float scale,
                    cudaStream_t s) {
   // the limit is an attribute of the device's copy of the kernel, so it is
   // set on every launch: the current device may differ from the last one
   constexpr int bytes = flash::Tiles<D>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attention_fwd_kernel<T, D, kMaxFree>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
 
   const dim3 grid((L + flash::BQ - 1) / flash::BQ, BH);
-  attention_fwd_kernel<T, D><<<grid, flash::kThreads, bytes, s>>>(
+  attention_fwd_kernel<T, D, kMaxFree><<<grid, flash::kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), L, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <bool kMaxFree, typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int BH, int L, int D,
                      float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, BH, L, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, BH, L, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, BH, L, scale, s);
+    case 32: return launch<T, 32, kMaxFree>(q, k, v, o, BH, L, scale, s);
+    case 64: return launch<T, 64, kMaxFree>(q, k, v, o, BH, L, scale, s);
+    case 128: return launch<T, 128, kMaxFree>(q, k, v, o, BH, L, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kMaxFree>
+int entry(const void* q, const void* k, const void* v, void* o, int BH, int L, int D, float scale,
+          int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == azula::kBFloat16) return dispatch<kMaxFree, __nv_bfloat16>(q, k, v, o, BH, L, D, scale, s);
+  if (dtype == azula::kFloat32) return dispatch<kMaxFree, float>(q, k, v, o, BH, L, D, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -85,8 +104,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 // D in {32, 64, 128}; BH <= 65535. Returns cudaGetLastError().
 extern "C" int azula_attention_fwd(const void* q, const void* k, const void* v, void* o, int BH,
                                    int L, int D, float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == azula::kBFloat16) return dispatch<__nv_bfloat16>(q, k, v, o, BH, L, D, scale, s);
-  if (dtype == azula::kFloat32) return dispatch<float>(q, k, v, o, BH, L, D, scale, s);
-  return cudaErrorInvalidValue;
+  return entry<false>(q, k, v, o, BH, L, D, scale, dtype, stream);
+}
+
+// The max-free form, with the same arguments.
+extern "C" int azula_attention_fwd_max_free(const void* q, const void* k, const void* v, void* o,
+                                            int BH, int L, int D, float scale, int dtype,
+                                            void* stream) {
+  return entry<true>(q, k, v, o, BH, L, D, scale, dtype, stream);
 }

@@ -71,6 +71,11 @@ constexpr int BQ = 64;      // query rows per block
 constexpr int BK = 64;      // keys per shared-memory tile
 constexpr int LS = BK + 4;  // row stride of the score tile
 
+// the logit clamp of the max-free softmax (`_MAX_FREE_CLAMP` of the TPU
+// kernels): exp(80) ~ 5.5e34, so a row of up to ~6,000 saturated keys still
+// sums below float32's 3.4e38
+constexpr float kMaxFreeClamp = 80.f;
+
 // A block's shared memory: the Q, K and V tiles (row stride LD), the score
 // tile, and each query row's running max, denominator and rescale factor.
 template <int D>
@@ -125,12 +130,6 @@ __device__ __forceinline__ void start_rows(const Tiles<D>& s, float (&acc)[4][D 
     for (int c = 0; c < D / 16; ++c) acc[a][c] = 0.f;
 }
 
-// One 64-key step, once the Q tile and the K and V tiles of keys
-// [k0, k0 + 64) are in shared memory behind a barrier: the scores (keys past
-// L masked), the online-softmax update of each row's max and denominator, and
-// acc = acc * alpha + P V. With kRoundWeights the value product takes the
-// exp-weights rounded to T, while the denominator sums them unrounded. The
-// caller puts a barrier before it overwrites the K, V or score tile.
 // out[a][b] = sum over d of A[ty + 16 a][d] * B[tx + 16 b][d], for thread
 // (tx, ty) = (t % 16, t / 16), a < RA and b < 4: one (16 RA, 64) tile of
 // A B^T, for two tiles of rows D + 4 floats apart in shared memory. The sum
@@ -168,7 +167,19 @@ __device__ __forceinline__ void dot_rows(const float* A, const float* B, float (
   }
 }
 
-template <typename T, int D, bool kRoundWeights>
+// One 64-key step, once the Q tile and the K and V tiles of keys
+// [k0, k0 + 64) are in shared memory behind a barrier: the scores (keys past
+// L masked), the online-softmax update of each row's max and denominator, and
+// acc = acc * alpha + P V. With kRoundWeights the value product takes the
+// exp-weights rounded to T, while the denominator sums them unrounded. The
+// caller puts a barrier before it overwrites the K, V or score tile.
+// With kMaxFree there is no row max and no rescale: p = exp(min(s, 80)) and
+// acc = acc + P V, the `max_free` form of the TPU kernels, for logits that
+// are bounded by construction. The clamp keeps the denominator finite for
+// L up to about 6,100 (L e^80 < FLT_MAX); the value accumulator, a sum of up
+// to L e^80 |v|, is bounded only by |v|, as in the TPU kernel.
+// Masked keys still give exp(min(-inf, 80)) = 0.
+template <typename T, int D, bool kRoundWeights, bool kMaxFree = false>
 __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D / 16], int k0, int L, float scale) {
   constexpr int LD = Tiles<D>::LD;
   constexpr int DC = D / 16;  // output columns per thread
@@ -190,7 +201,22 @@ __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D
   __syncthreads();
 
   // online softmax: four threads per row, sixteen keys each
-  {
+  if constexpr (kMaxFree) {
+    const int i = t / 4;
+    float* row = s.S + i * LS + (t % 4) * 16;
+
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const float p = expf(fminf(row[jj], kMaxFreeClamp));
+      row[jj] = kRoundWeights ? round_to<T>(p) : p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+
+    if (t % 4 == 0) s.l[i] += sum;
+  } else {
     const int i = t / 4;
     const int part = t % 4;
     float* row = s.S + i * LS + part * 16;
@@ -225,11 +251,13 @@ __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D
   __syncthreads();
 
   // acc = acc * alpha + P V for rows ty + 16 a, columns tx * DC + c
+  if constexpr (!kMaxFree) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float alpha = s.alpha[ty + 16 * a];
+    for (int a = 0; a < 4; ++a) {
+      const float alpha = s.alpha[ty + 16 * a];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
+      for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
+    }
   }
 
   for (int j = 0; j < BK; j += 4) {

@@ -4,13 +4,14 @@ A noise schedule maps a time :math:`t \in [0, 1]` to the signal scale
 :math:`\alpha_t` and the noise scale :math:`\sigma_t` of the perturbation
 kernel :math:`p(X_t \mid X) = \mathcal{N}(X_t \mid \alpha_t X, \sigma_t^2 I)`.
 
-Port of :mod:`azula_tpu.noise` (`Schedule`, `VPSchedule`). Schedules compute
-in the dtype and on the device of `t`.
+Port of :mod:`azula_tpu.noise` (`Schedule`, `VPSchedule`, `DecaySchedule`).
+Schedules compute in the dtype and on the device of `t`.
 """
 
 from __future__ import annotations
 
 __all__ = [
+    "DecaySchedule",
     "Schedule",
     "VPSchedule",
 ]
@@ -63,3 +64,37 @@ class VPSchedule(Schedule):
 
     def sigma(self, t: Tensor) -> Tensor:
         return torch.sqrt(1 - self.alpha(t) ** 2 + self.sigma_min**2)
+
+
+class DecaySchedule(Schedule):
+    r"""Creates an exponential decay schedule (Flux, Sana).
+
+    .. math::
+        \alpha_t & = \tau \, \alpha_\min + (1 - \tau) \\
+        \sigma_t & = \tau + (1 - \tau) \, \sigma_\min
+        \quad \text{where} \quad \tau = \frac{1 - \gamma^t}{1 - \gamma}
+
+    Arguments:
+        alpha_min: The final signal scale :math:`\alpha_\min \in ]0,1[`.
+        sigma_min: The initial noise scale :math:`\sigma_\min \in ]0,1[`.
+        gamma: The decay factor :math:`\gamma \in ]0,1[`.
+    """
+
+    def __init__(self, alpha_min: float = 1e-3, sigma_min: float = 1e-3, gamma: float = 0.1) -> None:
+        self.alpha_min = alpha_min
+        self.sigma_min = sigma_min
+        self.gamma = gamma
+
+    def __call__(self, t: Tensor) -> tuple[Tensor, Tensor]:
+        return self.alpha(t), self.sigma(t)
+
+    def tau(self, t: Tensor) -> Tensor:
+        return (1 - self.gamma**t) / (1 - self.gamma)
+
+    def alpha(self, t: Tensor) -> Tensor:
+        tau = self.tau(t)
+        return tau * self.alpha_min + (1 - tau)
+
+    def sigma(self, t: Tensor) -> Tensor:
+        tau = self.tau(t)
+        return tau + (1 - tau) * self.sigma_min

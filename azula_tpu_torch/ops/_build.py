@@ -60,6 +60,7 @@ _SIGNATURES = {
     "azula_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, BH, L, D, scale, dtype, stream
     "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "azula_attention_fwd_max_free": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream

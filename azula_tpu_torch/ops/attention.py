@@ -3,7 +3,9 @@ r"""Scaled dot-product attention.
 Port of :func:`azula_tpu.ops.attention.dot_product_attention`, with its
 signature and its (B, H, L, D) layout. Two versions compute it: the
 hand-written flash-attention forward (`csrc/attention_fwd.cu`) for tensors
-on the card, and a plain PyTorch version for tensors on the CPU.
+on the card, and a plain PyTorch version for tensors on the CPU. The kernel
+has a second entry, the max-free forward of `_pallas_attention_blocked` and
+of `_pallas_attention`'s `max_free` option, with its own plain version.
 
 Also :func:`_flash_blhd`, the differentiable flash attention on the
 projection layout :math:`(B, L, H D)` that fused MSA's training route runs:
@@ -27,6 +29,13 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+
+# JAX's `_MAX_FREE_CLAMP`: the logit clamp of the max-free softmax
+_MAX_FREE_CLAMP = 80.0
+
+# JAX's `_BATCHED_MAX_L`: at or below it the TPU dispatch takes the batched
+# kernel, which ignores max_free
+_BATCHED_MAX_L = 512
 
 # the head dims and the bound on L of the JAX package's fused gate, which the
 # (B, L, H D) kernels here and the fused MSA kernel (ops/fused_msa.py) take
@@ -71,9 +80,25 @@ def _attention_plain(
     return out.to(q.dtype)
 
 
-@_build.forward_only("attention_fwd", "the attention backward, ROADMAP A16")
-def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    r"""Launches `csrc/attention_fwd.cu` on CUDA tensors (B, H, L, D)."""
+def _attention_max_free_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    r"""Plain PyTorch version of the `max_free` forward of
+    `_pallas_attention_blocked` and `_pallas_attention`
+    (azula_tpu/ops/attention.py): float32 logits, no row max,
+    :math:`p = \exp(\min(s, 80))`; the denominator sums p unrounded, the
+    value product takes p rounded to the input dtype with float32
+    accumulation, and the product is divided by the denominator."""
+
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(torch.clamp(logits, max=_MAX_FREE_CLAMP))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(q.dtype).float(), v.float())
+
+    return (o / l).to(q.dtype)
+
+
+def _launch_attention(name: str, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    r"""Launches the entry `azula_<name>` of `csrc/attention_fwd.cu` on CUDA
+    tensors (B, H, L, D)."""
 
     if q.device.type != "cuda":
         raise ValueError(f"the attention kernel needs CUDA tensors, got {q.device}")
@@ -81,9 +106,9 @@ def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
     if q.ndim != 4:
         raise ValueError(f"the attention kernel takes (B, H, L, D) tensors, got {tuple(q.shape)}")
-    for name, t in (("k", k), ("v", v)):
+    for label, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q's shape, dtype and device (self-attention)")
+            raise ValueError(f"{label} must match q's shape, dtype and device (self-attention)")
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the attention kernel takes contiguous, 16-byte aligned tensors")
@@ -97,14 +122,44 @@ def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
 
     o = torch.empty_like(q)
 
-    status = _build.library().azula_attention_fwd(
+    status = getattr(_build.library(), f"azula_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
     )
-    _build.check(status, "attention_fwd")
-    _build.LAUNCHES["attention_fwd"] += 1
+    _build.check(status, name)
+    _build.LAUNCHES[name] += 1
 
     return o
+
+
+@_build.forward_only("attention_fwd", "the attention backward, ROADMAP A16")
+def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    r"""Launches the exact flash forward of `csrc/attention_fwd.cu`."""
+
+    return _launch_attention("attention_fwd", q, k, v, scale)
+
+
+@_build.forward_only("attention_fwd_max_free", "the attention backward, ROADMAP A16")
+def _attention_max_free_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    r"""Launches the max-free flash forward of `csrc/attention_fwd.cu`."""
+
+    return _launch_attention("attention_fwd_max_free", q, k, v, scale)
+
+
+def _max_free_route(q: Tensor) -> bool:
+    r"""Whether the JAX package's TPU dispatch threads `max_free` to a kernel
+    for this unmasked, dropout-free self-attention: `_use_pallas` admits
+    :math:`L \geq 512`, :math:`L \bmod 128 = 0`, :math:`D \bmod 64 = 0`,
+    :math:`D \leq 256`, and `_pallas_dispatch` passes `max_free` on only
+    above :math:`L = 512` (to `_pallas_attention` up to 2048, to
+    `_pallas_attention_blocked` beyond)."""
+
+    if q.ndim != 4:
+        return False
+
+    L, D = q.shape[-2:]
+
+    return L > _BATCHED_MAX_L and L % 128 == 0 and D % 64 == 0 and D <= 256
 
 
 def dot_product_attention(
@@ -134,8 +189,14 @@ def dot_product_attention(
         implementation: :py:`None` or `'auto'` (the kernel for CUDA tensors,
             the plain version for CPU tensors), `'kernel'` (raises on the CPU)
             or `'plain'`.
-        max_free: Accepted for the JAX signature; the kernel always keeps the
-            exact row max.
+        max_free: The softmax without a row max, for logits bounded by
+            construction (RMS-normalized q and k, as in Flux): the weights are
+            :math:`\exp(\min(s, 80))`. Taken where the JAX package takes it,
+            on the card's unmasked route for self-attention with
+            :math:`L > 512`, :math:`L \bmod 128 = 0` and
+            :math:`D \bmod 64 = 0` (the max-free kernel); everywhere else,
+            the plain version on the CPU included, the exact softmax is
+            computed, as JAX's XLA path ignores the flag.
 
     Returns:
         The attention output, with shape :math:`(*, H, L, D)`.
@@ -163,7 +224,9 @@ def dot_product_attention(
             "the attention kernel takes no mask yet (masked flash forward, ROADMAP B)"
         )
 
-    return _attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+    kernel = _attention_max_free_kernel if max_free and _max_free_route(q) else _attention_kernel
+
+    return kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
 
 
 def _split_heads(x: Tensor, heads: int) -> Tensor:

@@ -54,7 +54,24 @@ Phases, each of which raises on failure:
    through `TrainState.step`: warm-up steps, then timed steps with finite
    losses and exactly 12 + 12 flash launches per step and no other kernel.
    Prints train images/s, ms/step, peak memory and a profile of one step.
-13. the kernels line `{"kernels": [...]}`, then the result line.
+13. max-free attention: the max-free flash kernel against its plain version
+   at the FLUX.1 shapes (1, 24, 4608, 128), row 5's route, and
+   (1, 24, 1536, 128), row 3's, in bf16; in float32; at a ragged L called
+   directly; and with logits above the clamp at 80. Timed against the plain
+   version, SDPA (the exact softmax, which equals the max-free function while
+   the logits stay under 80) and the bound.
+14. the tiny Flux slice: a small `FluxTransformer` (2 heads of 64, 24 x 24
+   latents and 64 text tokens: L = 640, the max-free route) under
+   `FluxDenoiser`, same random weights on the CPU (plain versions) and on the
+   card, float32: the denoiser's output, a 4-step DDIM trajectory and exact
+   launch counts.
+15. FLUX.1-dev at full width and depth: bf16 weights drawn on the card from a
+   seeded generator, 1024 x 1024 (the packed latent (1, 64, 64, 64)), 512
+   random T5 tokens and a random CLIP pooled prompt, guidance 4: one recorded
+   warm-up step (57 max-free calls at (1, 24, 4608, 128) and nothing else),
+   then a timed DDIM-4 trajectory with exactly 57 max-free launches per step.
+   Prints ms/step, images/s, peak memory and a profile of one step.
+16. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -81,11 +98,12 @@ import torch.nn.functional as F
 from azula_tpu_torch import train
 from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.models import adm
+from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
 from azula_tpu_torch.models.utils import load_cards
 from azula_tpu_torch.nn.attention import MultiheadSelfAttention
 from azula_tpu_torch.nn.embedding import Modulated
 from azula_tpu_torch.nn.vit import ViT
-from azula_tpu_torch.noise import VPSchedule
+from azula_tpu_torch.noise import DecaySchedule, VPSchedule
 from azula_tpu_torch.ops import _build, attention, fused_msa, norm
 from azula_tpu_torch.sample import DDIMSampler
 
@@ -125,6 +143,34 @@ DIT_SLICES = (
 DIT_TRAIN_CALLS_PER_STEP = {"flash_blhd_fwd": 12, "flash_blhd_bwd": 12}
 DIT_TRAIN_WARMUP = 3
 DIT_TRAIN_STEPS = 20
+
+# FLUX.1-dev (the `FluxTransformer` defaults, 19 dual-stream and 38
+# single-stream blocks, 24 heads of 128) at 1024 x 1024: a (1, 64, 64, 64)
+# packed latent and 512 T5 tokens, L = 4608; one max-free attention per block.
+# Cut: 4 DDIM steps where users run 28-50 (the time per step does not depend
+# on their number)
+FLUX_BATCH = 1
+FLUX_SIDE = 64
+FLUX_TEXT = 512
+FLUX_STEPS = 4
+FLUX_GUIDANCE = 4.0
+FLUX_SHAPE = (FLUX_BATCH, 24, FLUX_TEXT + FLUX_SIDE**2, 128)
+FLUX_CALLS_PER_FORWARD = {"attention_fwd_max_free": 19 + 38}
+
+# the tiny Flux of phase 14: heads of a kernel head dim, 24 x 24 latents and
+# 64 text tokens (L = 640 > 512, L % 128 = 0: the max-free route)
+TINY_FLUX = dict(  # noqa: C408
+    in_channels=16,
+    num_layers=2,
+    num_single_layers=2,
+    attention_head_dim=64,
+    num_attention_heads=2,
+    joint_attention_dim=32,
+    pooled_projection_dim=20,
+    axes_dims_rope=(16, 24, 24),
+)
+TINY_FLUX_SIDE = 24
+TINY_FLUX_TEXT = 64
 
 # tolerances, as max |kernel - plain| / max |plain|
 TOL_GN = {
@@ -220,7 +266,7 @@ def recording():
     affine = {}
     modulated = [False]
     compose, gn_kernel, attn_kernel = norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel
-    msa_kernel = fused_msa._fused_msa_kernel
+    msa_kernel, max_free_kernel = fused_msa._fused_msa_kernel, attention._attention_max_free_kernel
 
     def compose_affine(x, groups, scale, bias, mod_scale, mod_shift):
         # every GroupNorm call composes its affine just before the kernel
@@ -241,13 +287,17 @@ def recording():
         calls[("msa", tuple(qkv.shape), qkv.dtype, heads, eps, scale, cos2 is not None)] += 1
         return msa_kernel(qkv, cos2, sin2, heads, eps, scale)
 
+    def max_free(q, k, v, scale):
+        calls[("max_free", tuple(q.shape), q.dtype, scale)] += 1
+        return max_free_kernel(q, k, v, scale)
+
     norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose_affine, gn, attn
-    fused_msa._fused_msa_kernel = msa
+    fused_msa._fused_msa_kernel, attention._attention_max_free_kernel = msa, max_free
     try:
         yield calls, affine
     finally:
         norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose, gn_kernel, attn_kernel
-        fused_msa._fused_msa_kernel = msa_kernel
+        fused_msa._fused_msa_kernel, attention._attention_max_free_kernel = msa_kernel, max_free_kernel
 
 
 def kernel_name(key) -> str:
@@ -255,7 +305,7 @@ def kernel_name(key) -> str:
 
     if key[0] == "gn":
         return "group_norm_silu" if key[4] else "group_norm"
-    return {"attn": "attention_fwd", "msa": "fused_msa"}[key[0]]
+    return {"attn": "attention_fwd", "msa": "fused_msa", "max_free": "attention_fwd_max_free"}[key[0]]
 
 
 def full_width_model(generator: torch.Generator):
@@ -549,9 +599,9 @@ def check_fused_msa(calls, generator) -> dict:
 def check_forward_only(generator) -> None:
     r"""Under grad, a backward through `fused_msa_attention` runs the flash
     route's two kernels and gives qkv a finite gradient; one through each
-    forward-only kernel (GroupNorm, attention, and the serving fused MSA
-    kernel called directly) must raise rather than give its inputs no
-    gradient."""
+    forward-only kernel (GroupNorm, attention, max-free attention, and the
+    serving fused MSA kernel called directly) must raise rather than give its
+    inputs no gradient."""
 
     def rand(*shape):
         return torch.randn(shape, generator=generator, device="cuda", requires_grad=True)
@@ -569,6 +619,9 @@ def check_forward_only(generator) -> None:
     cases = {
         "group_norm": lambda: norm.group_norm_silu(rand(2, 64, 64), GROUPS),
         "attention_fwd": lambda: attention.dot_product_attention(*(rand(1, 2, 64, 32) for _ in range(3))),
+        "attention_fwd_max_free": lambda: attention.dot_product_attention(
+            *(rand(1, 2, 640, 64) for _ in range(3)), max_free=True
+        ),
         "fused_msa (the serving kernel, called directly)": lambda: fused_msa._fused_msa_kernel(
             rand(1, 128, 384), None, None, 2, 1e-5, 0.125
         ),
@@ -663,6 +716,8 @@ def profile_step(step) -> None:
         launched += event.count
         if "gn_partial_kernel" in name or "gn_fold_kernel" in name or "gn_apply_kernel" in name:
             kind = "group_norm (ours)"
+        elif "attention_fwd_kernel" in name and "true" in name:
+            kind = "max-free attention (ours)"
         elif "attention_fwd_kernel" in name:
             kind = "attention (ours)"
         elif "fused_msa_kernel" in name:
@@ -884,6 +939,133 @@ def check_train_slice() -> None:
         raise AssertionError("the training slice on the card did not run the flash kernels (and only them)")
 
 
+def check_max_free(generator) -> dict:
+    r"""The max-free attention kernel against its plain version at the
+    FLUX.1 shapes (timed in bf16 beside the plain version, SDPA and the
+    bound), in float32, at ragged lengths called directly (the dispatch takes
+    the kernel only at L % 128 = 0), and with logits above the clamp."""
+
+    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
+                 bound_by=collections.Counter())
+    count = FLUX_CALLS_PER_FORWARD["attention_fwd_max_free"]
+
+    cases = [
+        # (label, shape, dtype, q scale, timed)
+        ("row 5's route: FLUX.1 at 1024 px", FLUX_SHAPE, torch.bfloat16, 1.0, True),
+        ("row 3's route: FLUX.1 at 512 px", (1, 24, 1536, 128), torch.bfloat16, 1.0, True),
+        ("float32", FLUX_SHAPE, torch.float32, 1.0, False),
+        ("float32, D = 64", (2, 4, 1024, 64), torch.float32, 1.0, False),
+        ("ragged L", (2, 3, 1000, 128), torch.bfloat16, 1.0, False),
+        ("ragged L", (1, 4, 2305, 64), torch.float32, 1.0, False),
+        # logits of std 30: a few per row above 80, where the clamp applies
+        ("clamp", (1, 2, 2304, 128), torch.bfloat16, 30.0, False),
+        ("clamp", (1, 2, 2304, 128), torch.float32, 30.0, False),
+    ]
+    for label, shape, dtype, q_scale, timed in cases:
+        scale = 1 / math.sqrt(shape[-1])
+        q, k, v = (torch.randn(shape, generator=generator, device="cuda") for _ in range(3))
+        q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+
+        got = attention._attention_max_free_kernel(q, k, v, scale)
+        want = attention._attention_max_free_plain(q, k, v, scale)
+        abs_err, rel_err = errors(got, want)
+        tol = TOL_ATTN[dtype]
+        if rel_err > tol:
+            raise AssertionError(f"max-free attention {shape} {dtype} ({label}): {rel_err} > {tol}")
+
+        line = (f"  attention_fwd_max_free {shape} {str(dtype)[6:]} ({label}): "
+                f"max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {tol})")
+
+        if q_scale > 1:
+            _, exact_err = errors(want, attention._attention_plain(q, k, v, scale=scale))
+            if exact_err < 0.1:
+                raise AssertionError("the clamp case did not reach the clamp")
+            line += f"; the exact softmax differs by rel {exact_err:.3e}"
+
+        if timed:
+            ms = elapsed_ms(lambda: attention._attention_max_free_kernel(q, k, v, scale))
+            plain = elapsed_ms(lambda: attention._attention_max_free_plain(q, k, v, scale))
+            library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            B, H, L, D = shape
+            # q, k, v read and o written once; 4 L^2 D operations per pair
+            bound, by = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * L * L * D, dtype)
+            tflops = 4 * B * H * L * L * D / ms / 1e9
+            line += (f"; {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+                     f"bound {bound:.4f} ms ({by})")
+
+            if shape == FLUX_SHAPE:
+                entry["ms"] += count * ms
+                entry["plain_ms"] += count * plain
+                entry["library_ms"] += count * library
+                entry["bound_ms"] += count * bound
+                entry["bound_by"][by] += count * bound
+                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                entry["max_err"] = max(entry["max_err"], rel_err)
+
+        log(line)
+
+    return entry
+
+
+def check_flux_slice() -> None:
+    r"""A small Flux denoiser on the CPU (plain versions) and on the card
+    (the max-free kernel), same random weights, float32."""
+
+    rng = np.random.default_rng(2)
+    cpu = FluxDenoiser(FluxTransformer(**TINY_FLUX, device="cpu"), DecaySchedule())
+    card = FluxDenoiser(FluxTransformer(**TINY_FLUX, device="cuda"), DecaySchedule())
+
+    state = {}
+    for key, value in cpu.backbone.state_dict().items():
+        if value.ndim == 1 and key.endswith(".weight"):  # the q/k RMSNorm gains
+            array = 1 + 0.2 * rng.standard_normal(value.shape)
+        elif value.ndim == 1:
+            array = 0.2 * rng.standard_normal(value.shape)
+        else:  # (out, in) linear: 1 / sqrt(fan in)
+            array = rng.standard_normal(value.shape) / math.sqrt(value.shape[-1])
+        state[key] = torch.from_numpy(array.astype(np.float32))
+    cpu.backbone.load_state_dict(state)
+    card.backbone.load_state_dict(state)
+
+    side, channels = TINY_FLUX_SIDE, TINY_FLUX["in_channels"]
+    x = torch.from_numpy(rng.standard_normal((2, side, side, channels)).astype(np.float32))
+    cond = dict(  # noqa: C408
+        prompt_clip=torch.from_numpy(rng.standard_normal((2, TINY_FLUX["pooled_projection_dim"])).astype(np.float32)),
+        prompt_t5=torch.from_numpy(
+            rng.standard_normal((1, TINY_FLUX_TEXT, TINY_FLUX["joint_attention_dim"])).astype(np.float32)
+        ),
+    )
+    card_cond = {k: v.cuda() for k, v in cond.items()}
+    per_forward = TINY_FLUX["num_layers"] + TINY_FLUX["num_single_layers"]
+
+    _build.LAUNCHES.clear()
+    with torch.inference_mode():
+        for t in (0.3, 0.9):
+            before = dict(_build.LAUNCHES)
+            want = cpu(x, torch.tensor(t), **cond).mean
+            if dict(_build.LAUNCHES) != before:
+                raise AssertionError("a kernel ran on the CPU path")
+            got = card(x.cuda(), torch.tensor(t, device="cuda"), **card_cond).mean
+
+            _, err = errors(got.cpu(), want)
+            log(f"  flux denoiser L={side * side + TINY_FLUX_TEXT} t={t}: rel err {err:.3e} (tol {TOL_SLICE})")
+            if err > TOL_SLICE:
+                raise AssertionError("the tiny Flux denoiser on the card disagrees with the CPU")
+
+        want = DDIMSampler(cpu, steps=4)(x, **cond)
+        got = DDIMSampler(card, steps=4)(x.cuda(), **card_cond)
+        _, err = errors(got.cpu(), want)
+        log(f"  flux DDIM-4 trajectory: rel err {err:.3e} (tol {TOL_SLICE})")
+        if err > TOL_SLICE:
+            raise AssertionError("the tiny Flux DDIM trajectory on the card disagrees with the CPU")
+
+    launched = dict(_build.LAUNCHES)
+    expected = {"attention_fwd_max_free": per_forward * (2 + 4)}
+    log(f"  kernel launches on the card: {launched}, expected {expected}")
+    if launched != expected:
+        raise AssertionError("the tiny Flux slice's launch counts are not exact")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
@@ -1049,8 +1231,71 @@ def main() -> None:
         f"{train_seconds / DIT_TRAIN_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
         f"loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
     profile_step(lambda: state.step(x_train, t_train, generator))
+    del state, dit, x_train, t_train
+    torch.cuda.empty_cache()
 
-    log("== 13. result")
+    log("== 13. the max-free attention kernel against its plain version at the FLUX.1 shapes")
+    with torch.inference_mode():
+        mf = check_max_free(generator)
+
+    log("== 14. the tiny Flux slice: CPU plain versions against the card's kernel, float32")
+    check_flux_slice()
+
+    log(f"== 15. FLUX.1-dev at full width: bf16, {FLUX_SIDE * 16} px, {FLUX_TEXT} T5 tokens, "
+        f"guidance {FLUX_GUIDANCE}, DDIM-{FLUX_STEPS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flux = FluxDenoiser(FluxTransformer(device="cuda", dtype=torch.bfloat16, generator=generator), DecaySchedule())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in flux.parameters())
+    log(f"FLUX.1-dev: {n_params:,} bf16 parameters drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cond = dict(  # noqa: C408  random prompt embeddings: T5 tokens and the CLIP pooled vector
+        prompt_t5=torch.randn((FLUX_BATCH, FLUX_TEXT, 4096), generator=generator, device="cuda", dtype=torch.bfloat16),
+        prompt_clip=torch.randn((FLUX_BATCH, 768), generator=generator, device="cuda", dtype=torch.bfloat16),
+        guidance=FLUX_GUIDANCE,
+    )
+    flux_sampler = DDIMSampler(flux, eta=0.0, steps=FLUX_STEPS)
+    xf = flux_sampler.init((FLUX_BATCH, FLUX_SIDE, FLUX_SIDE, 64), generator=generator)
+
+    with torch.inference_mode():
+        flux_grid = flux_sampler.timesteps.cuda()
+        with recording() as (calls, _):
+            flux_sampler.step(xf, flux_grid[0], flux_grid[1], **cond)  # warm-up
+        torch.cuda.synchronize()
+        expected_calls = {
+            ("max_free", FLUX_SHAPE, torch.bfloat16, 1 / math.sqrt(FLUX_SHAPE[-1])): FLUX_CALLS_PER_FORWARD[
+                "attention_fwd_max_free"
+            ]
+        }
+        log(f"calls in one full-width FLUX.1-dev step: {dict(calls)}")
+        if dict(calls) != expected_calls:
+            raise AssertionError(f"expected {expected_calls} calls per FLUX.1-dev step")
+        torch.cuda.reset_peak_memory_stats()
+
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        yf = flux_sampler(xf, **cond)
+        torch.cuda.synchronize()
+        flux_seconds = time.perf_counter() - t0
+        flux_launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(yf).all()) or yf.shape != xf.shape:
+        raise AssertionError("the FLUX.1-dev trajectory is not finite")
+    expected = {name: n * FLUX_STEPS for name, n in FLUX_CALLS_PER_FORWARD.items()}
+    log(f"launches {flux_launches}, expected {expected}")
+    if flux_launches != expected:
+        raise AssertionError("the FLUX.1-dev path's launch counts are not exact")
+    log(f"FLUX.1-dev trajectory {flux_seconds:.3f} s, {FLUX_BATCH / flux_seconds:.6f} images/s, "
+        f"{flux_seconds / FLUX_STEPS * 1e3:.2f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
+        f"sample mean {yf.float().mean().item():.4f}, std {yf.float().std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: flux_sampler.step(xf, flux_grid[0], flux_grid[1], **cond))
+    del flux, flux_sampler, xf, yf, cond
+    torch.cuda.empty_cache()
+
+    log("== 16. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -1059,6 +1304,7 @@ def main() -> None:
         ("fused_msa", msa, dit_launches, DIT_CALLS_PER_FORWARD),
         ("flash_blhd_fwd", flash["flash_blhd_fwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
         ("flash_blhd_bwd", flash["flash_blhd_bwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
+        ("attention_fwd_max_free", mf, flux_launches, FLUX_CALLS_PER_FORWARD),
     ):
         source, replaces = {
             "group_norm_silu": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
@@ -1077,6 +1323,11 @@ def main() -> None:
                 "flash_blhd_bwd.cu",
                 "azula_tpu/ops/attention.py:836 (_flash_blhd_bwd; body _flash_blhd_bwd_kernel at :748)",
             ),
+            "attention_fwd_max_free": (
+                "attention_fwd.cu",
+                "azula_tpu/ops/attention.py:337 (_pallas_attention_blocked), "
+                "azula_tpu/ops/attention.py:92 (_pallas_attention, max_free)",
+            ),
         }[name]
         tol = TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
         kernels.append({
@@ -1085,7 +1336,7 @@ def main() -> None:
             "source": f"azula_tpu_torch/csrc/{source}",
             "replaces": replaces,
             # launches in the run of the kernel's own main path (ADM-256
-            # sampling, dit32 sampling or dit32 training)
+            # sampling, dit32 sampling, dit32 training or FLUX.1-dev sampling)
             "launches": path_launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_err": entry["max_err"],

@@ -248,6 +248,7 @@ def test_forward_only_backward_raises():
             lambda: (torch.ones(2, 64, 64), torch.ones(2, 64), torch.zeros(2, 64), 32, 1e-5, True),
         ),
         (tattention._attention_kernel, lambda: (*(torch.ones(1, 2, 64, 32) for _ in range(3)), 0.1)),
+        (tattention._attention_max_free_kernel, lambda: (*(torch.ones(1, 2, 640, 64) for _ in range(3)), 0.1)),
         (tfused._fused_msa_kernel, lambda: (torch.ones(1, 128, 384), None, None, 2, 1e-5, 0.1)),
     ],
 )
