@@ -1,9 +1,16 @@
 // Flash-attention forward: o = softmax(q k^T * scale) v on (B, H, L, D).
 //
 // Replaces: azula_tpu/ops/attention.py, _pallas_attention (512 <= L <= 2048)
-// and _pallas_attention_batched (L <= 512), in their unmasked inference form:
-// no bias, no dropout, no log-sum-exp output. Any L is taken; D is 32, 64 or
-// 128. Inputs and output are bf16 or float32.
+// and _pallas_attention_batched (L <= 512), unmasked: no bias, no dropout.
+// Any L is taken; D is 32, 64 or 128. Inputs and output are bf16 or float32.
+//
+// The LSE entry is the same forward with the TPU kernels' with_lse=True
+// output, the residual of the backward (attention_bwd.cu): each row's float32
+// log-sum-exp m + log l, (B H, L), from the online softmax's final row max m
+// and denominator l (the TPU kernels write it lane-replicated, (B H, L, 128)).
+// As in the TPU kernel, its exp-weights are rounded to the input dtype before
+// the value product; the inference entry keeps them unrounded, and writes no
+// LSE, as JAX's primal path writes none.
 //
 // The max-free entry replaces _pallas_attention_blocked (L > 2048) and
 // _pallas_attention's max_free option, in the same unmasked inference form:
@@ -35,10 +42,13 @@ namespace {
 
 namespace flash = azula::flash;
 
-template <typename T, int D, bool kMaxFree>
-__global__ void __launch_bounds__(flash::kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int L, float scale) {
+// One block: query tile blockIdx.x of pair blockIdx.y. With kRound the
+// exp-weights are rounded to T before the value product. Unless lse is null,
+// each row's log-sum-exp goes to lse.
+template <typename T, int D, bool kMaxFree, bool kRound>
+__device__ __forceinline__ void forward_block(const T* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                                              int L, float scale) {
   extern __shared__ float4 smem4[];
   const flash::Tiles<D> s(reinterpret_cast<float*>(smem4));
 
@@ -54,47 +64,75 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     flash::load_tile<T, D>(k + base, D, s.K, k0, L);
     flash::load_tile<T, D>(v + base, D, s.V, k0, L);
     __syncthreads();
-    // the max-free form rounds its weights, as the TPU kernels do
-    flash::attend_tile<T, D, kMaxFree, kMaxFree>(s, acc, k0, L, scale);
+    flash::attend_tile<T, D, kRound, kMaxFree>(s, acc, k0, L, scale);
   }
 
   flash::store_rows<T, D>(s, acc, o + base, D, q0, L);
+
+  // the rows' final max and denominator were written before the last tile's
+  // second barrier
+  const int i = threadIdx.x;
+  if (lse != nullptr && i < flash::BQ && q0 + i < L) {
+    lse[static_cast<size_t>(blockIdx.y) * L + q0 + i] = s.m[i] + logf(s.l[i]);
+  }
 }
 
+// The inference forms (lse is null); the max-free form rounds its weights, as
+// the TPU kernels do.
 template <typename T, int D, bool kMaxFree>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int L, float scale,
+__global__ void __launch_bounds__(flash::kThreads)
+attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ o, float* __restrict__ lse, int L, float scale) {
+  forward_block<T, D, kMaxFree, kMaxFree>(q, k, v, o, lse, L, scale);
+}
+
+// The exact form with the LSE output, its weights rounded as the TPU kernel's.
+template <typename T, int D>
+__global__ void __launch_bounds__(flash::kThreads)
+attention_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         T* __restrict__ o, float* __restrict__ lse, int L, float scale) {
+  forward_block<T, D, false, true>(q, k, v, o, lse, L, scale);
+}
+
+// The three forms: the exact inference forward, the max-free forward and the
+// exact forward with the LSE output.
+enum class Form { kExact, kMaxFree, kLse };
+
+template <typename T, int D, Form F>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int L, float scale,
                    cudaStream_t s) {
+  auto* const kernel =
+      F == Form::kLse ? attention_fwd_lse_kernel<T, D> : attention_fwd_kernel<T, D, F == Form::kMaxFree>;
+
   // the limit is an attribute of the device's copy of the kernel, so it is
   // set on every launch: the current device may differ from the last one
   constexpr int bytes = flash::Tiles<D>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, D, kMaxFree>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
 
   const dim3 grid((L + flash::BQ - 1) / flash::BQ, BH);
-  attention_fwd_kernel<T, D, kMaxFree><<<grid, flash::kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), L, scale);
+  kernel<<<grid, flash::kThreads, bytes, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                              static_cast<const T*>(v), static_cast<T*>(o), lse, L, scale);
   return cudaGetLastError();
 }
 
-template <bool kMaxFree, typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int BH, int L, int D,
+template <Form F, typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int L, int D,
                      float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32, kMaxFree>(q, k, v, o, BH, L, scale, s);
-    case 64: return launch<T, 64, kMaxFree>(q, k, v, o, BH, L, scale, s);
-    case 128: return launch<T, 128, kMaxFree>(q, k, v, o, BH, L, scale, s);
+    case 32: return launch<T, 32, F>(q, k, v, o, lse, BH, L, scale, s);
+    case 64: return launch<T, 64, F>(q, k, v, o, lse, BH, L, scale, s);
+    case 128: return launch<T, 128, F>(q, k, v, o, lse, BH, L, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kMaxFree>
-int entry(const void* q, const void* k, const void* v, void* o, int BH, int L, int D, float scale,
+template <Form F>
+int entry(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int L, int D, float scale,
           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == azula::kBFloat16) return dispatch<kMaxFree, __nv_bfloat16>(q, k, v, o, BH, L, D, scale, s);
-  if (dtype == azula::kFloat32) return dispatch<kMaxFree, float>(q, k, v, o, BH, L, D, scale, s);
+  if (dtype == azula::kBFloat16) return dispatch<F, __nv_bfloat16>(q, k, v, o, lse, BH, L, D, scale, s);
+  if (dtype == azula::kFloat32) return dispatch<F, float>(q, k, v, o, lse, BH, L, D, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -104,12 +142,18 @@ int entry(const void* q, const void* k, const void* v, void* o, int BH, int L, i
 // D in {32, 64, 128}; BH <= 65535. Returns cudaGetLastError().
 extern "C" int azula_attention_fwd(const void* q, const void* k, const void* v, void* o, int BH,
                                    int L, int D, float scale, int dtype, void* stream) {
-  return entry<false>(q, k, v, o, BH, L, D, scale, dtype, stream);
+  return entry<Form::kExact>(q, k, v, o, nullptr, BH, L, D, scale, dtype, stream);
 }
 
 // The max-free form, with the same arguments.
 extern "C" int azula_attention_fwd_max_free(const void* q, const void* k, const void* v, void* o,
                                             int BH, int L, int D, float scale, int dtype,
                                             void* stream) {
-  return entry<true>(q, k, v, o, BH, L, D, scale, dtype, stream);
+  return entry<Form::kMaxFree>(q, k, v, o, nullptr, BH, L, D, scale, dtype, stream);
+}
+
+// The exact form with the LSE output; lse: float32 (BH, L) contiguous.
+extern "C" int azula_attention_fwd_lse(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                                       int L, int D, float scale, int dtype, void* stream) {
+  return entry<Form::kLse>(q, k, v, o, static_cast<float*>(lse), BH, L, D, scale, dtype, stream);
 }

@@ -1,6 +1,7 @@
 // Helpers shared by the kernels: conversion between the storage type and
-// float32, vector loads and stores of N consecutive elements, and the
-// flash-attention tile step of the two attention kernels.
+// float32, vector loads and stores of N consecutive elements, the
+// flash-attention tile step of the attention forward kernels, and the
+// flash-attention backward of the two backward kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -318,5 +319,374 @@ __device__ __forceinline__ void store_rows(const Tiles<D>& s, const float (&acc)
 }
 
 }  // namespace flash
+
+// The flash-attention backward shared by flash_blhd_bwd.cu (the (B, L, H D)
+// layout, statistics m and l) and attention_bwd.cu (the (B H, L, D) layout,
+// the log-sum-exp): dq, dk, dv of o = softmax(q k^T * scale) v per (batch,
+// head) pair, given the cotangent g of o. Rows of a pair's q, k, v, o and g
+// lie C = H D elements apart and its columns start at h D; the (B, H, L, D)
+// layout is the case H = 1 with the pairs as the batch. The arithmetic is the
+// JAX bodies', with their rounding points:
+//
+//   p     = exp(s - m) / l, or exp(s - lse)   float32, s = (q k^T) * scale
+//   dp    = g v^T                             float32
+//   delta = sum over d of g * o               float32, of the stored (rounded) o and g
+//   ds    = T(p * (dp - delta) * scale)       rounded to the input dtype T
+//   dq    = T(ds k), dk = T(ds^T q), dv = T(T(p)^T g), each summed in float32
+//
+// The work is the FlashAttention-2 split into two kernels, launched in order
+// on one stream; no block writes another's output, so no atomics are needed
+// and the result does not depend on the order in which blocks run:
+//
+// 1. dq: one block per (pair, query tile). It keeps the Q and G tiles in
+//    shared memory, computes each row's delta from o and g (and writes it to a
+//    float32 (B, H, L) scratch), then streams 64-key tiles of K and V: the
+//    scores and dp by the flash tile product, p rebuilt exactly from the
+//    saved statistics, ds rounded to T in a shared tile, dq += ds K in
+//    registers.
+// 2. dk, dv: one block per (pair, 64-key tile). It keeps K and V, streams the
+//    query tiles of Q and G with their statistics and delta, rebuilds p and
+//    ds the same way, and accumulates dk += ds^T Q and dv += T(p)^T G in
+//    registers.
+//
+// Tiles live in shared memory as float32, rows padded by 4 floats. A query
+// tile has 64 rows for D <= 128 and 32 rows above, so that the four tiles
+// fit (217,472 bytes at D = 256). Each file defines its own two __global__
+// kernels over `dq_block` and `dkv_block` (so that a profile tells the
+// routes apart) and launches them with `launch`.
+namespace flash_bwd {
+
+constexpr int kThreads = flash::kThreads;
+constexpr int BK = 64;      // keys per tile
+constexpr int LS = BK + 4;  // row stride of the p and ds tiles
+
+// A block's shared memory: the query-side tiles Q and G (BQ rows), the
+// key-side tiles K and V (BK rows), the rounded p and ds tiles, and each
+// query row's statistics (m and l, or the log-sum-exp in m and 1 in l) and
+// delta.
+template <int D>
+struct Tiles {
+  static constexpr int BQ = D <= 128 ? 64 : 32;  // query rows per tile
+  static constexpr int RA = BQ / 16;              // query rows per thread in a tile product
+  static constexpr int LD = D + 4;
+  static constexpr int kBytes =
+      (2 * BQ * LD + 2 * BK * LD + 2 * BQ * LS + 3 * BQ) * static_cast<int>(sizeof(float));
+
+  float* Q;
+  float* G;
+  float* K;
+  float* V;
+  float* P;
+  float* dS;
+  float* m;
+  float* l;
+  float* delta;
+
+  __device__ explicit Tiles(float* base)
+      : Q(base),
+        G(Q + BQ * LD),
+        K(G + BQ * LD),
+        V(K + BK * LD),
+        P(V + BK * LD),
+        dS(P + BQ * LS),
+        m(dS + BQ * LS),
+        l(m + BQ),
+        delta(l + BQ) {}
+};
+
+static_assert(Tiles<256>::kBytes <= 232448 && Tiles<128>::kBytes <= 232448, "the tiles fit in shared memory");
+
+// Row `row` of a pair's statistics into shared slot r: (m, l), or (lse, 1)
+// with kLse; rows past L get (0, 1).
+template <int D, bool kLse>
+__device__ __forceinline__ void load_stats(const Tiles<D>& s, int r, const float* m, const float* l, size_t row,
+                                           bool valid) {
+  s.m[r] = valid ? m[row] : 0.f;
+  if constexpr (kLse) {
+    s.l[r] = 1.f;
+  } else {
+    s.l[r] = valid ? l[row] : 1.f;
+  }
+}
+
+// p and ds of the (BQ, 64) tile of query rows q0 + i and keys k0 + j, once
+// Q, G, K, V and the rows' statistics and delta are in shared memory: p and
+// ds of thread (tx, ty) at rows ty + 16 a and keys tx + 16 b. Rows or keys
+// past L get p = ds = 0.
+template <typename T, int D, bool kLse>
+__device__ __forceinline__ void p_and_ds(const Tiles<D>& s, int q0, int k0, int L, float scale,
+                                         float (&p)[Tiles<D>::RA][4], float (&ds)[Tiles<D>::RA][4]) {
+  constexpr int RA = Tiles<D>::RA;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  float sc[RA][4], dp[RA][4];
+  flash::dot_rows<RA, D>(s.Q, s.K, sc);
+  flash::dot_rows<RA, D>(s.G, s.V, dp);
+
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int i = ty + 16 * a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = tx + 16 * b;
+      p[a][b] = 0.f;
+      ds[a][b] = 0.f;
+      if (q0 + i < L && k0 + j < L) {
+        // the score rounded as the forward computed it, then exp(s - m) / l
+        // or exp(s - lse)
+        const float e = expf(__fmul_rn(sc[a][b], scale) - s.m[i]);
+        if constexpr (kLse) {
+          p[a][b] = e;
+        } else {
+          p[a][b] = e / s.l[i];
+        }
+        ds[a][b] = round_to<T>(__fmul_rn(__fmul_rn(p[a][b], dp[a][b] - s.delta[i]), scale));
+      }
+    }
+  }
+}
+
+// acc[a][c] += sum over r < R of X[r][ty + 16 a] * Y[r][tx * DC + c]: the
+// (64, D) tile X^T Y of a (R, 64) tile X (row stride LS) and a (R, D) tile Y
+// (row stride D + 4), rows ty + 16 a and columns tx * DC + c of thread
+// (tx, ty).
+template <int R, int D>
+__device__ __forceinline__ void add_transposed_product(const float* X, const float* Y, float (&acc)[4][D / 16]) {
+  constexpr int DC = D / 16;
+  constexpr int LD = D + 4;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  for (int r = 0; r < R; ++r) {
+    float x[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = X[r * LS + ty + 16 * a];
+    const float* y = Y + r * LD + tx * DC;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const float yc = y[c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(x[a], yc, acc[a][c]);
+    }
+  }
+}
+
+// The rows [row0, row0 + 16 RA) of thread (tx, ty), ty + 16 a < L - row0,
+// columns tx * DC + c, rounded to T, to `out` (row 0 of this head's columns,
+// rows C apart).
+template <typename T, int D, int RA>
+__device__ __forceinline__ void store_tile(const float (&acc)[RA][D / 16], T* out, int C, int row0, int L) {
+  constexpr int DC = D / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int i = ty + 16 * a;
+    if (row0 + i < L) {
+      T* dst = out + static_cast<size_t>(row0 + i) * C + tx * DC;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dst[c] = from_float<T>(acc[a][c]);
+    }
+  }
+}
+
+// Kernel 1, the body of one block: dq of query tile blockIdx.x of pair
+// blockIdx.y = b H + h, and the tile rows' delta.
+template <typename T, int D, bool kLse>
+__device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                         const T* __restrict__ o, const T* __restrict__ g,
+                                         const float* __restrict__ m, const float* __restrict__ l,
+                                         T* __restrict__ dq, float* __restrict__ delta, int L, int H, float scale) {
+  using S = Tiles<D>;
+  constexpr int BQ = S::BQ;
+  constexpr int RA = S::RA;
+  constexpr int DC = D / 16;
+  constexpr int LD = S::LD;
+
+  extern __shared__ float4 smem4[];
+  const S s(reinterpret_cast<float*>(smem4));
+
+  const int C = H * D;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const size_t base = static_cast<size_t>(b) * L * C + h * D;
+  const size_t rows = static_cast<size_t>(blockIdx.y) * L;  // this pair's statistics and delta
+  const int q0 = blockIdx.x * BQ;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  flash::load_tile<T, D, BQ>(q + base, C, s.Q, q0, L);
+  flash::load_tile<T, D, BQ>(g + base, C, s.G, q0, L);
+  __syncthreads();
+
+  // delta of each query row, kThreads / BQ threads per row
+  {
+    constexpr int TPR = kThreads / BQ;
+    const int r = threadIdx.x / TPR;
+    const int part = threadIdx.x % TPR;
+    const bool valid = q0 + r < L;
+
+    float sum = 0.f;
+    if (valid) {
+      const T* orow = o + base + static_cast<size_t>(q0 + r) * C;
+      for (int d = part; d < D; d += TPR) sum = fmaf(to_float(orow[d]), s.G[r * LD + d], sum);
+    }
+#pragma unroll
+    for (int w = 1; w < TPR; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+
+    if (part == 0) {
+      s.delta[r] = sum;
+      load_stats<D, kLse>(s, r, m, l, rows + q0 + r, valid);
+      if (valid) delta[rows + q0 + r] = sum;
+    }
+  }
+
+  float acc[RA][DC];
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    __syncthreads();  // the previous tile's readers are done; the row stats are in
+    flash::load_tile<T, D>(k + base, C, s.K, k0, L);
+    flash::load_tile<T, D>(v + base, C, s.V, k0, L);
+    __syncthreads();
+
+    float p[RA][4], ds[RA][4];
+    p_and_ds<T, D, kLse>(s, q0, k0, L, scale, p, ds);
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) s.dS[(ty + 16 * a) * LS + tx + 16 * bb] = ds[a][bb];
+    __syncthreads();
+
+    // acc += ds K for rows ty + 16 a, columns tx * DC + c
+    for (int j = 0; j < BK; ++j) {
+      const float* krow = s.K + j * LD + tx * DC;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kc = krow[c];
+#pragma unroll
+        for (int a = 0; a < RA; ++a) acc[a][c] = fmaf(s.dS[(ty + 16 * a) * LS + j], kc, acc[a][c]);
+      }
+    }
+  }
+
+  store_tile<T, D, RA>(acc, dq + base, C, q0, L);
+}
+
+// Kernel 2, the body of one block: dk and dv of key tile blockIdx.x of pair
+// blockIdx.y, from the deltas that kernel 1 wrote.
+template <typename T, int D, bool kLse>
+__device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                          const T* __restrict__ g, const float* __restrict__ m,
+                                          const float* __restrict__ l, const float* __restrict__ delta,
+                                          T* __restrict__ dk, T* __restrict__ dv, int L, int H, float scale) {
+  using S = Tiles<D>;
+  constexpr int BQ = S::BQ;
+  constexpr int RA = S::RA;
+  constexpr int DC = D / 16;
+
+  extern __shared__ float4 smem4[];
+  const S s(reinterpret_cast<float*>(smem4));
+
+  const int C = H * D;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const size_t base = static_cast<size_t>(b) * L * C + h * D;
+  const size_t rows = static_cast<size_t>(blockIdx.y) * L;
+  const int k0 = blockIdx.x * BK;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  flash::load_tile<T, D>(k + base, C, s.K, k0, L);
+  flash::load_tile<T, D>(v + base, C, s.V, k0, L);
+
+  // key rows ty + 16 a, columns tx * DC + c
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk_acc[a][c] = 0.f;
+      dv_acc[a][c] = 0.f;
+    }
+
+  for (int q0 = 0; q0 < L; q0 += BQ) {
+    __syncthreads();  // the previous tile's readers are done
+    flash::load_tile<T, D, BQ>(q + base, C, s.Q, q0, L);
+    flash::load_tile<T, D, BQ>(g + base, C, s.G, q0, L);
+    if (threadIdx.x < BQ) {
+      const int r = threadIdx.x;
+      const bool valid = q0 + r < L;
+      load_stats<D, kLse>(s, r, m, l, rows + q0 + r, valid);
+      s.delta[r] = valid ? delta[rows + q0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    float p[RA][4], ds[RA][4];
+    p_and_ds<T, D, kLse>(s, q0, k0, L, scale, p, ds);
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int idx = (ty + 16 * a) * LS + tx + 16 * bb;
+        s.P[idx] = round_to<T>(p[a][bb]);
+        s.dS[idx] = ds[a][bb];
+      }
+    __syncthreads();
+
+    add_transposed_product<BQ, D>(s.P, s.G, dv_acc);
+    add_transposed_product<BQ, D>(s.dS, s.Q, dk_acc);
+  }
+
+  store_tile<T, D, 4>(dk_acc, dk + base, C, k0, L);
+  store_tile<T, D, 4>(dv_acc, dv + base, C, k0, L);
+}
+
+// The two kernels' signatures: (q, k, v, o, g, m, l, dq, delta, L, H, scale)
+// and (q, k, v, g, m, l, delta, dk, dv, L, H, scale).
+template <typename T>
+using DqKernel = void (*)(const T*, const T*, const T*, const T*, const T*, const float*, const float*, T*, float*,
+                          int, int, float);
+template <typename T>
+using DkvKernel = void (*)(const T*, const T*, const T*, const T*, const float*, const float*, const float*, T*, T*,
+                           int, int, float);
+
+// Launches dq_kernel, then dkv_kernel, on stream s over B * H pairs.
+template <typename T, int D>
+cudaError_t launch(DqKernel<T> dq_kernel, DkvKernel<T> dkv_kernel, const void* q, const void* k, const void* v,
+                   const void* o, const void* g, const float* m, const float* l, void* dq, void* dk, void* dv,
+                   float* delta, int B, int L, int H, float scale, cudaStream_t s) {
+  using S = Tiles<D>;
+  constexpr int bytes = S::kBytes;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(g);
+
+  // the limit is an attribute of the device's copy of each kernel, so it is
+  // set on every launch: the current device may differ from the last one
+  cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+
+  // dq first: it writes the deltas that the dk, dv kernel reads
+  const dim3 grid_q((L + S::BQ - 1) / S::BQ, B * H);
+  dq_kernel<<<grid_q, kThreads, bytes, s>>>(qt, kt, vt, static_cast<const T*>(o), gt, m, l, static_cast<T*>(dq),
+                                            delta, L, H, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const dim3 grid_k((L + BK - 1) / BK, B * H);
+  dkv_kernel<<<grid_k, kThreads, bytes, s>>>(qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+                                             L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace flash_bwd
 
 }  // namespace azula

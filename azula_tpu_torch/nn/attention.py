@@ -134,7 +134,11 @@ class MultiheadSelfAttention(nn.Module):
             y = fused_msa_attention(qkv, self.heads, theta, eps=eps)
             return self.y_proj(y)
 
-        # (*, L, 3 H C) -> 3 x (*, H, L, C)
+        # (*, L, 3 H C) -> 3 x (*, H, L, C), views; on the card the attention
+        # copies them contiguous for its kernels, and under grad those copies,
+        # its output and the rows' log-sum-exp are what its backward saves.
+        # The QK-norm and RoPE compute in float32 and cast back, so q, k and v
+        # keep the activations' dtype.
         q, k, v = qkv.unflatten(-1, (3, self.heads, -1)).movedim(-3, 0).transpose(-3, -2)
         q, k = self.qk_norm(q), self.qk_norm(k)
 

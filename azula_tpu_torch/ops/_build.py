@@ -7,10 +7,12 @@ the package. The library is named by a hash of the sources and flags, so an
 edit rebuilds it. It is loaded with `ctypes`.
 
 A missing `nvcc`, a failed build or a failed launch raises: no caller falls
-back to a plain version. The `_flash_blhd` forward and backward kernels form
-an autograd function with its own backward (`ops/attention.py`); the other
-kernels are forward-only, and `forward_only` makes a backward through one of
-their launches raise.
+back to a plain version. Two pairs of forward and backward kernels form
+autograd functions with their own backward (`ops/attention.py`):
+`_flash_blhd` (`flash_blhd_fwd.cu`, `flash_blhd_bwd.cu`) and `_flash`
+(`attention_fwd.cu`'s LSE entry, `attention_bwd.cu`). The other kernel
+wrappers are forward-only, and `forward_only` makes a backward through one
+of their launches raise.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ NVCC_FLAGS = (
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` clears this before the main path
-# and reads it after.
+# and reads it after. A backward entry (`flash_blhd_bwd`, `attention_bwd`)
+# launches two kernels, dq then dk/dv, and counts once.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
@@ -61,6 +64,10 @@ _SIGNATURES = {
     # q, k, v, o, BH, L, D, scale, dtype, stream
     "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "azula_attention_fwd_max_free": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, lse, BH, L, D, scale, dtype, stream
+    "azula_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, g, lse, dq, dk, dv, delta, BH, L, D, scale, dtype, stream
+    "azula_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream

@@ -7,6 +7,12 @@ on the card, and a plain PyTorch version for tensors on the CPU. The kernel
 has a second entry, the max-free forward of `_pallas_attention_blocked` and
 of `_pallas_attention`'s `max_free` option, with its own plain version.
 
+When autograd records the call on the card, :func:`_flash` runs instead: the
+port of JAX's `_flash` custom vjp, whose forward is the same kernel's third
+entry, writing the rows' log-sum-exp (`_pallas_attention(with_lse=True)`),
+and whose backward is the FlashAttention-2 pair of `csrc/attention_bwd.cu`
+(`_pallas_attention_bwd` and `_pallas_attention_batched_bwd`).
+
 Also :func:`_flash_blhd`, the differentiable flash attention on the
 projection layout :math:`(B, L, H D)` that fused MSA's training route runs:
 hand-written forward and backward kernels (`csrc/flash_blhd_fwd.cu`,
@@ -96,30 +102,97 @@ def _attention_max_free_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> 
     return (o / l).to(q.dtype)
 
 
-def _launch_attention(name: str, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    r"""Launches the entry `azula_<name>` of `csrc/attention_fwd.cu` on CUDA
-    tensors (B, H, L, D)."""
+def _attention_lse_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> tuple[Tensor, Tensor]:
+    r"""Plain PyTorch version of `_pallas_attention` with `with_lse=True`
+    (azula_tpu/ops/attention.py): float32 logits, the row max m, the
+    exp-weights p and their sum d; in float32 the weights are normalized
+    before the value product, below float32 they enter it rounded to the
+    input dtype (float32 accumulation) and the product is divided by d.
+    Returns o and the float32 (B, H, L) log-sum-exp :math:`m + \log d`."""
 
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    d = p.sum(dim=-1, keepdim=True)
+
+    if q.dtype == torch.float32:
+        o = torch.matmul(p / d, v)
+    else:
+        o = torch.matmul(p.to(q.dtype).float(), v.float()) / d
+
+    return o.to(q.dtype), (m + torch.log(d)).squeeze(-1)
+
+
+def _softmax_grads(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, p: Tensor, scale: float, dtype: torch.dtype
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""dq, dk, dv in float32 from float32 (..., L, D) q, k, v, the stored o,
+    the cotangent g and the softmax p, with the rounding points of the JAX
+    backward kernels: dp = g v^T, delta = rowsum(g o), ds = p (dp - delta)
+    scale rounded to `dtype`, then dq = ds k, dk = ds^T q and dv = p16^T g
+    with p rounded to `dtype`, each summed in float32."""
+
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    delta = torch.sum(g * o, dim=-1, keepdim=True)
+
+    ds = (p * (dp - delta) * scale).to(dtype).float()
+    p16 = p.to(dtype).float()
+
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), torch.matmul(p16.transpose(-1, -2), g)
+
+
+def _attention_bwd_plain(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, g: Tensor, scale: float
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""Plain PyTorch version of `_pallas_attention_bwd` and
+    `_pallas_attention_batched_bwd` (azula_tpu/ops/attention.py) on
+    (B, H, L, D): g cast to the inputs' dtype, p = exp(s - lse) rebuilt in
+    float32 from the float32 (B, H, L) log-sum-exp, then the rounding points
+    of `_softmax_grads`. Returns dq, dk, dv in the inputs' dtype."""
+
+    dtype = q.dtype
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g.to(dtype)))
+
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+
+    return tuple(t.to(dtype) for t in _softmax_grads(qf, kf, vf, of, gf, p, scale, dtype))
+
+
+def _check_bhld(tensors: tuple[Tensor, ...], name: str) -> tuple[int, int, int, int]:
+    r"""Raises unless the (B, H, L, D) tensors are what the attention kernels
+    take: CUDA, float32 or bfloat16, one shape, contiguous and aligned;
+    returns (B, H, L, D)."""
+
+    q = tensors[0]
     if q.device.type != "cuda":
-        raise ValueError(f"the attention kernel needs CUDA tensors, got {q.device}")
+        raise ValueError(f"the {name} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"the attention kernel takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"the {name} kernel takes float32 or bfloat16, got {q.dtype}")
     if q.ndim != 4:
-        raise ValueError(f"the attention kernel takes (B, H, L, D) tensors, got {tuple(q.shape)}")
-    for label, t in (("k", k), ("v", v)):
+        raise ValueError(f"the {name} kernel takes (B, H, L, D) tensors, got {tuple(q.shape)}")
+    for t in tensors[1:]:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{label} must match q's shape, dtype and device (self-attention)")
-    for t in (q, k, v):
+            raise ValueError(f"the {name} kernel takes tensors of q's shape, dtype and device (self-attention)")
+    for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the attention kernel takes contiguous, 16-byte aligned tensors")
+            raise ValueError(f"the {name} kernel takes contiguous, 16-byte aligned tensors")
 
     B, H, L, D = q.shape
 
     if D not in _HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head dims {_HEAD_DIMS}, got {D}")
+        raise ValueError(f"the {name} kernel takes head dims {_HEAD_DIMS}, got {D}")
     if B * H > 65535:
-        raise ValueError(f"the attention kernel takes at most 65535 (batch, head) pairs, got {B * H}")
+        raise ValueError(f"the {name} kernel takes at most 65535 (batch, head) pairs, got {B * H}")
 
+    return B, H, L, D
+
+
+def _launch_attention(name: str, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    r"""Launches the inference entry `azula_<name>` of `csrc/attention_fwd.cu`
+    on CUDA tensors (B, H, L, D)."""
+
+    B, H, L, D = _check_bhld((q, k, v), name)
     o = torch.empty_like(q)
 
     status = getattr(_build.library(), f"azula_{name}")(
@@ -132,18 +205,128 @@ def _launch_attention(name: str, q: Tensor, k: Tensor, v: Tensor, scale: float) 
     return o
 
 
-@_build.forward_only("attention_fwd", "the attention backward, ROADMAP A16")
+# the direct wrappers' backward: JAX's training route, and so the port's, is `_flash`
+_TRAINING_ROUTE = "under grad, dot_product_attention takes the LSE forward and the attention backward kernels"
+
+
+@_build.forward_only("attention_fwd", _TRAINING_ROUTE)
 def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     r"""Launches the exact flash forward of `csrc/attention_fwd.cu`."""
 
     return _launch_attention("attention_fwd", q, k, v, scale)
 
 
-@_build.forward_only("attention_fwd_max_free", "the attention backward, ROADMAP A16")
+@_build.forward_only("attention_fwd_max_free", _TRAINING_ROUTE)
 def _attention_max_free_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     r"""Launches the max-free flash forward of `csrc/attention_fwd.cu`."""
 
     return _launch_attention("attention_fwd_max_free", q, k, v, scale)
+
+
+def _attention_lse_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> tuple[Tensor, Tensor]:
+    r"""Launches the LSE entry of `csrc/attention_fwd.cu`; returns o and the
+    float32 (B, H, L) log-sum-exp."""
+
+    B, H, L, D = _check_bhld((q, k, v), "attention_fwd_lse")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+
+    status = _build.library().azula_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
+    )
+    _build.check(status, "attention_fwd_lse")
+    _build.LAUNCHES["attention_fwd_lse"] += 1
+
+    return o, lse
+
+
+def _attention_bwd_kernel(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, g: Tensor, scale: float
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""Launches `csrc/attention_bwd.cu` (its dq and dk/dv kernels, counted as
+    one launch); returns dq, dk, dv."""
+
+    B, H, L, D = _check_bhld((q, k, v, o, g), "attention_bwd")
+    if lse.shape != (B, H, L) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"the log-sum-exp must be float32 (B, H, L) = {(B, H, L)} on {q.device}")
+
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty_like(lse)
+
+    status = _build.library().azula_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
+    )
+    _build.check(status, "attention_bwd")
+    _build.LAUNCHES["attention_bwd"] += 1
+
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    r"""JAX's `_flash` with its custom vjp (`_flash_fwd`, `_flash_bwd`) as a
+    node of the autograd graph: the forward saves q, k, v, o and the rows'
+    log-sum-exp, the backward rebuilds the softmax from them; the kernels on
+    the card, or the plain versions on the CPU. Like the custom vjp, it has
+    no second derivative."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kernel):
+        o, lse = (_attention_lse_kernel if kernel else _attention_lse_plain)(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.kernel = scale, kernel
+
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        g = g.to(q.dtype)  # as `_pallas_attention_bwd` casts the cotangent
+
+        if ctx.kernel:
+            dq, dk, dv = _attention_bwd_kernel(q, k, v, o, lse, g.contiguous(), ctx.scale)
+        else:
+            dq, dk, dv = _attention_bwd_plain(q, k, v, o, lse, g, ctx.scale)
+
+        return dq, dk, dv, None, None
+
+
+def _flash(q: Tensor, k: Tensor, v: Tensor, scale: float, implementation: str | None = None) -> Tensor:
+    r"""Differentiable flash attention over :math:`(B, H, L, D)` tensors, for
+    unmasked, dropout-free self-attention.
+
+    Port of `azula_tpu.ops.attention._flash` under `jax.grad`: the forward
+    writes the rows' log-sum-exp, and the backward casts the cotangent to the
+    inputs' dtype and returns dq, dk, dv. JAX's `_flash_fwd` writes the LSE
+    above :math:`L = 512` only and its batched backward recomputes the
+    softmax below; here the LSE is written at every length, which gives the
+    same function. `max_free` does not apply: `_flash_fwd` ignores it.
+
+    Arguments:
+        q, k, v: Queries, keys and values, with shape :math:`(B, H, L, D)`.
+        scale: The logit scale.
+        implementation: :py:`None` or `'auto'` (the kernels for CUDA tensors,
+            the plain versions for CPU tensors), `'kernel'` (raises on the
+            CPU) or `'plain'`.
+
+    Returns:
+        The attention output, with shape :math:`(B, H, L, D)`.
+    """
+
+    if implementation not in (None, "auto", "kernel", "plain"):
+        raise ValueError(f"unknown flash implementation '{implementation}'")
+
+    if implementation in (None, "auto"):
+        implementation = "kernel" if q.device.type == "cuda" else "plain"
+
+    kernel = implementation == "kernel"
+    if kernel:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+
+    return _Flash.apply(q, k, v, scale, kernel)
 
 
 def _max_free_route(q: Tensor) -> bool:
@@ -186,17 +369,23 @@ def dot_product_attention(
         dropout_rate: Attention-weight dropout rate. Not ported yet: must be 0.
         generator: The generator of the dropout mask (the JAX `key`).
         scale: Logit scale; defaults to :math:`1 / \sqrt{D}`.
-        implementation: :py:`None` or `'auto'` (the kernel for CUDA tensors,
-            the plain version for CPU tensors), `'kernel'` (raises on the CPU)
-            or `'plain'`.
+        implementation: :py:`None` or `'auto'` (the kernels for CUDA
+            tensors, the plain version for CPU tensors), `'kernel'` (raises on
+            the CPU) or `'plain'`. When autograd records a kernel call (grad
+            enabled and any of q, k, v requiring it), the call goes to
+            :func:`_flash`, the LSE forward and the backward kernels, as
+            JAX's `_flash` custom vjp runs under `jax.grad`; otherwise to the
+            inference forward. The plain version is differentiated by
+            autograd, the counterpart of JAX's XLA path on the CPU.
         max_free: The softmax without a row max, for logits bounded by
             construction (RMS-normalized q and k, as in Flux): the weights are
             :math:`\exp(\min(s, 80))`. Taken where the JAX package takes it,
-            on the card's unmasked route for self-attention with
+            on the card's unmasked inference route for self-attention with
             :math:`L > 512`, :math:`L \bmod 128 = 0` and
             :math:`D \bmod 64 = 0` (the max-free kernel); everywhere else,
-            the plain version on the CPU included, the exact softmax is
-            computed, as JAX's XLA path ignores the flag.
+            the plain version on the CPU and the training route included, the
+            exact softmax is computed, as JAX's XLA path and its `_flash_fwd`
+            ignore the flag.
 
     Returns:
         The attention output, with shape :math:`(*, H, L, D)`.
@@ -207,7 +396,7 @@ def dot_product_attention(
 
     if dropout_rate > 0:
         raise NotImplementedError(
-            "attention dropout is not ported yet (training kernels, ROADMAP B)"
+            "attention dropout is not ported yet (the dropout hash, ROADMAP A17 (c))"
         )
 
     if scale is None:
@@ -221,8 +410,11 @@ def dot_product_attention(
 
     if mask is not None:
         raise NotImplementedError(
-            "the attention kernel takes no mask yet (masked flash forward, ROADMAP B)"
+            "the attention kernels take no mask yet (the bias modes, ROADMAP A17 (c))"
         )
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _flash(q, k, v, scale, implementation="kernel")
 
     kernel = _attention_max_free_kernel if max_free and _max_free_route(q) else _attention_kernel
 
@@ -275,17 +467,7 @@ def _flash_blhd_bwd_plain(
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
 
-    dp = torch.matmul(gh, vh.transpose(-1, -2))
-    delta = torch.sum(gh * oh, dim=-1, keepdim=True)
-
-    ds = (p * (dp - delta) * scale).to(dtype).float()
-    p16 = p.to(dtype).float()
-
-    dq = torch.matmul(ds, kh)
-    dk = torch.matmul(ds.transpose(-1, -2), qh)
-    dv = torch.matmul(p16.transpose(-1, -2), gh)
-
-    return tuple(_merge_heads(t, dtype) for t in (dq, dk, dv))
+    return tuple(_merge_heads(t, dtype) for t in _softmax_grads(qh, kh, vh, oh, gh, p, scale, dtype))
 
 
 def _check_blhd(tensors: tuple[Tensor, ...], heads: int) -> tuple[int, int, int, int]:

@@ -27,8 +27,11 @@ Phases, each of which raises on failure:
    also with RoPE, without the QK-norm and at scale 1, and time kernel,
    plain version, SDPA on the attention core and bound. Under grad, a
    backward through `fused_msa_attention` must succeed (it takes the flash
-   route of phase 9), while one through the GroupNorm or attention kernel,
-   or through the serving kernel called directly, must raise.
+   route of phase 9), and so must one through `dot_product_attention`, with
+   and without `max_free` (the LSE forward and backward kernels of phase
+   16), while one through the GroupNorm kernel, through the attention or
+   max-free attention kernel called directly, or through the serving fused
+   MSA kernel called directly, must raise.
 7. dit32 slices: the tiny ViT denoiser of the CPU tests (8 x 8 images, which
    takes the unfused route) and one of 32 x 32 images (256 tokens, two heads
    of 64, the fused route), each with the same random weights on the CPU
@@ -71,7 +74,24 @@ Phases, each of which raises on failure:
    warm-up step (57 max-free calls at (1, 24, 4608, 128) and nothing else),
    then a timed DDIM-4 trajectory with exactly 57 max-free launches per step.
    Prints ms/step, images/s, peak memory and a profile of one step.
-16. the kernels line `{"kernels": [...]}`, then the result line.
+16. attention training kernels: the LSE forward (`attention_fwd.cu`'s third
+   entry) and the backward (`attention_bwd.cu`, dq then dk/dv) against their
+   plain versions at dit64's shape (128, 6, 1024, 64), at L = 512 and 256
+   (the batched TPU kernels' lengths), at ragged L and at D = 32 and 128, in
+   bf16 and float32 (o, lse, and dq, dk, dv for a random cotangent); timed
+   against the plain versions, SDPA (forward, and its autograd backward) and
+   the bound.
+17. the 64 x 64 training slice: the ViT of phase 11 on 64 x 64 images (1024
+   tokens, past the fused gate: the unfused route through
+   `dot_product_attention`) on the CPU and on the card, float32, same
+   weights and injected noise, RoPE off and on: the loss and every
+   parameter's gradient of one step, the parameters after three AdamW steps,
+   and exactly 2 LSE forwards and 2 backward launches per step.
+18. dit64 training at full width: the dit32 model on 64 x 64 images (1024
+   tokens), bf16, batch 128, AdamW, as phase 12: exactly 12 LSE forwards and
+   12 backward launches per step and no other kernel. Prints train images/s,
+   ms/step, peak memory and a profile of one step.
+19. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -139,10 +159,23 @@ DIT_SLICES = (
 )
 
 # dit32 training (bench.py's `_dit32_train`): one `_flash_blhd` forward and
-# backward per block and step; warm-up and timed steps of phase 12
+# backward per block and step; warm-up and timed steps of phases 12 and 18
 DIT_TRAIN_CALLS_PER_STEP = {"flash_blhd_fwd": 12, "flash_blhd_bwd": 12}
 DIT_TRAIN_WARMUP = 3
 DIT_TRAIN_STEPS = 20
+
+# dit64: the dit32 model on 64 x 64 x 3 images (the ViT takes its positions
+# from coordinates), 1024 tokens per image, past the fused gate (L <= 512):
+# under grad each block's attention goes through `_flash`, one LSE forward
+# and one backward (dq then dk/dv, counted once) per block and step
+DIT64_SIDE = 64
+DIT64_TRAIN_CALLS_PER_STEP = {"attention_fwd_lse": 12, "attention_bwd": 12}
+DIT64_SHAPE = (
+    DIT_BATCH,
+    DIT32["attention_heads"],
+    (DIT64_SIDE // DIT32["patch_size"]) ** 2,
+    DIT32["hid_channels"] // DIT32["attention_heads"],
+)
 
 # FLUX.1-dev (the `FluxTransformer` defaults, 19 dual-stream and 38
 # single-stream blocks, 24 heads of 128) at 1024 x 1024: a (1, 64, 64, 64)
@@ -598,29 +631,48 @@ def check_fused_msa(calls, generator) -> dict:
 
 def check_forward_only(generator) -> None:
     r"""Under grad, a backward through `fused_msa_attention` runs the flash
-    route's two kernels and gives qkv a finite gradient; one through each
-    forward-only kernel (GroupNorm, attention, max-free attention, and the
-    serving fused MSA kernel called directly) must raise rather than give its
-    inputs no gradient."""
+    route's two kernels, and one through `dot_product_attention` (with and
+    without `max_free`, which the training route ignores) runs the LSE
+    forward and backward kernels, each giving its inputs finite gradients;
+    one through each forward-only kernel (GroupNorm, the attention and
+    max-free attention kernels and the serving fused MSA kernel, each called
+    directly) must raise rather than give its inputs no gradient."""
 
     def rand(*shape):
         return torch.randn(shape, generator=generator, device="cuda", requires_grad=True)
 
-    qkv = rand(1, 128, 384)
-    before = collections.Counter(_build.LAUNCHES)
-    fused_msa.fused_msa_attention(qkv, heads=2).float().sum().backward()
-    launched = dict(collections.Counter(_build.LAUNCHES) - before)
-    if qkv.grad is None or not bool(torch.isfinite(qkv.grad).all()):
-        raise AssertionError("the backward through fused_msa_attention gave qkv no finite gradient")
-    if launched != {"flash_blhd_fwd": 1, "flash_blhd_bwd": 1}:
-        raise AssertionError(f"the backward through fused_msa_attention launched {launched}")
-    log(f"  fused_msa_attention under grad: the backward runs, launches {launched}")
+    runs = {
+        "fused_msa_attention": (
+            lambda *a: fused_msa.fused_msa_attention(*a, heads=2), [(1, 128, 384)],
+            {"flash_blhd_fwd": 1, "flash_blhd_bwd": 1},
+        ),
+        "dot_product_attention": (
+            attention.dot_product_attention, [(1, 2, 64, 32)] * 3,
+            {"attention_fwd_lse": 1, "attention_bwd": 1},
+        ),
+        "dot_product_attention, max_free": (
+            lambda *a: attention.dot_product_attention(*a, max_free=True), [(1, 2, 640, 64)] * 3,
+            {"attention_fwd_lse": 1, "attention_bwd": 1},
+        ),
+    }
+    for name, (call, shapes, expected) in runs.items():
+        inputs = [rand(*shape) for shape in shapes]
+        before = collections.Counter(_build.LAUNCHES)
+        call(*inputs).float().sum().backward()
+        launched = dict(collections.Counter(_build.LAUNCHES) - before)
+        if any(t.grad is None or not bool(torch.isfinite(t.grad).all()) for t in inputs):
+            raise AssertionError(f"the backward through {name} gave its inputs no finite gradient")
+        if launched != expected:
+            raise AssertionError(f"the backward through {name} launched {launched}, expected {expected}")
+        log(f"  {name} under grad: the backward runs, launches {launched}")
 
     cases = {
         "group_norm": lambda: norm.group_norm_silu(rand(2, 64, 64), GROUPS),
-        "attention_fwd": lambda: attention.dot_product_attention(*(rand(1, 2, 64, 32) for _ in range(3))),
-        "attention_fwd_max_free": lambda: attention.dot_product_attention(
-            *(rand(1, 2, 640, 64) for _ in range(3)), max_free=True
+        "attention_fwd (called directly)": lambda: attention._attention_kernel(
+            *(rand(1, 2, 64, 32) for _ in range(3)), 32**-0.5
+        ),
+        "attention_fwd_max_free (called directly)": lambda: attention._attention_max_free_kernel(
+            *(rand(1, 2, 640, 64) for _ in range(3)), 0.125
         ),
         "fused_msa (the serving kernel, called directly)": lambda: fused_msa._fused_msa_kernel(
             rand(1, 128, 384), None, None, 2, 1e-5, 0.125
@@ -716,6 +768,10 @@ def profile_step(step) -> None:
         launched += event.count
         if "gn_partial_kernel" in name or "gn_fold_kernel" in name or "gn_apply_kernel" in name:
             kind = "group_norm (ours)"
+        elif "attention_fwd_lse_kernel" in name:
+            kind = "attention LSE forward (ours)"
+        elif "attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name:
+            kind = "attention backward (ours)"
         elif "attention_fwd_kernel" in name and "true" in name:
             kind = "max-free attention (ours)"
         elif "attention_fwd_kernel" in name:
@@ -873,14 +929,16 @@ def check_composition_grad(generator) -> None:
             raise AssertionError(f"fused MSA's gradient through the flash kernels disagrees with {label}")
 
 
-def check_train_slice() -> None:
-    r"""The 32 x 32 ViT denoiser of phase 7 on the CPU (plain versions) and
-    on the card (the flash route's kernels), same weights and injected noise,
-    float32, RoPE off and on: the loss and every parameter's gradient of one
-    step, then the parameters after three AdamW steps."""
+def check_train_slice(side: int, calls_per_step: dict) -> None:
+    r"""The ViT denoiser of phase 7's second slice on `side` x `side` images,
+    on the CPU (plain versions) and on the card (the kernels of its training
+    route, `calls_per_step` launches per step), same weights and injected
+    noise, float32, RoPE off and on: the loss and every parameter's gradient
+    of one step, then the parameters after three AdamW steps."""
 
-    config, side = DIT_SLICES[1]
+    config, _ = DIT_SLICES[1]
     rng = np.random.default_rng(1)
+    steps = 0
 
     _build.LAUNCHES.clear()
     for rope in (False, True):
@@ -910,6 +968,7 @@ def check_train_slice() -> None:
                 if device == "cpu" and dict(_build.LAUNCHES) != before:
                     raise AssertionError("a kernel ran on the CPU path")
                 losses[device] = loss.item()
+            steps += 1
 
             if i == 0:
                 loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
@@ -928,15 +987,147 @@ def check_train_slice() -> None:
 
         diff = max((b.detach().cpu() - a.detach()).abs().max().item()
                    for a, b in zip(cpu.parameters(), card.parameters()))
-        log(f"  train slice rope={rope}: parameters after three AdamW steps, max abs diff {diff:.3e} "
+        log(f"  train slice {side}x{side} rope={rope}: parameters after three AdamW steps, max abs diff {diff:.3e} "
             f"(tol {TOL_TRAIN_PARAMS})")
         if diff > TOL_TRAIN_PARAMS:
             raise AssertionError("the training slice's parameters on the card disagree with the CPU")
 
     launched = dict(_build.LAUNCHES)
-    log(f"  kernel launches on the card: {launched}")
-    if set(launched) != set(DIT_TRAIN_CALLS_PER_STEP) or min(launched.values()) == 0:
-        raise AssertionError("the training slice on the card did not run the flash kernels (and only them)")
+    expected = {name: n * steps for name, n in calls_per_step.items()}
+    log(f"  kernel launches on the card: {launched}, expected {expected}")
+    if launched != expected:
+        raise AssertionError("the training slice on the card did not run exactly its route's kernels")
+
+
+def train_full_width(side: int, calls_per_step: dict, generator) -> dict:
+    r"""`bench.py`'s dit32_train on `side` x `side` images: the bf16 dit32
+    model, batch 128, fixed x and t, fresh noise every step, AdamW with
+    optax's settings, through `TrainState.step`: warm-up steps, then timed
+    steps with finite losses and exactly `calls_per_step` launches per step
+    and no other kernel. Prints train images/s, ms/step, peak memory and a
+    profile of one step; returns the timed steps' launches."""
+
+    dit = dit32_model(generator)
+    x_train = torch.randn((DIT_BATCH, side, side, 3), generator=generator, device="cuda")
+    t_train = torch.rand((DIT_BATCH,), generator=generator, device="cuda")
+    state = train.TrainState(dit, torch.optim.AdamW(dit.parameters(), **train.OPTAX_ADAMW))
+    for _ in range(DIT_TRAIN_WARMUP):
+        state.step(x_train, t_train, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    losses = [state.step(x_train, t_train, generator) for _ in range(DIT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"a training loss at {side}x{side} is not finite: {losses.tolist()}")
+    expected = {name: n * DIT_TRAIN_STEPS for name, n in calls_per_step.items()}
+    log(f"launches {train_launches}, expected {expected}")
+    if train_launches != expected:
+        raise AssertionError(f"the {side}x{side} training path's launch counts are not exact")
+    log(f"{side}x{side} training {train_seconds:.3f} s for {DIT_TRAIN_STEPS} steps: "
+        f"{DIT_BATCH * DIT_TRAIN_STEPS / train_seconds:.4f} train images/s, "
+        f"{train_seconds / DIT_TRAIN_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
+        f"loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
+    profile_step(lambda: state.step(x_train, t_train, generator))
+
+    del state, dit, x_train, t_train
+    torch.cuda.empty_cache()
+
+    return train_launches
+
+
+def check_attention_training(generator) -> dict:
+    r"""The LSE forward and the backward kernels against their plain versions
+    at dit64's shape and the batched TPU kernels' lengths (timed in bf16,
+    with SDPA's forward and its autograd backward on the same tensors as the
+    library yardsticks; the entries sum dit64's calls of one step), at
+    ragged L and at the other head dims, in bf16 and float32. The plain
+    backward takes the kernel's own o and lse, as autograd hands it the
+    forward's."""
+
+    entries = {
+        name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
+                   bound_by=collections.Counter())
+        for name in DIT64_TRAIN_CALLS_PER_STEP
+    }
+    count = DIT64_TRAIN_CALLS_PER_STEP["attention_fwd_lse"]
+
+    timed = [DIT64_SHAPE, (8, 6, 512, 64), (8, 6, 256, 64)]
+    shapes = [*timed, (4, 3, 1000, 64), (2, 4, 777, 32), (2, 4, 1024, 128), (2, 2, 300, 128)]
+    for shape in shapes:
+        B, H, L, D = shape
+        scale = 1 / math.sqrt(D)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = (torch.randn(shape, generator=generator, device="cuda").to(dtype) for _ in range(4))
+
+            o, lse = attention._attention_lse_kernel(q, k, v, scale)
+            grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale)
+            want_o, want_lse = attention._attention_lse_plain(q, k, v, scale)
+            want_grads = attention._attention_bwd_plain(q, k, v, o, lse, g, scale)
+
+            errs = {"o": errors(o, want_o), "lse": errors(lse, want_lse)}
+            errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
+            del want_grads
+            tol = TOL_ATTN[dtype]
+            bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
+            if bad:
+                raise AssertionError(f"attention training kernels {shape} {dtype}: {bad} > {tol}")
+
+            line = f"  attention_fwd_lse + attention_bwd (B, H, L, D) = {shape} {str(dtype)[6:]}: rel err " + ", ".join(
+                f"{name} {rel:.3e}" for name, (_, rel) in errs.items()
+            ) + f" (tol {tol})"
+
+            if shape in timed and dtype == torch.bfloat16:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                n, elt = q.numel(), q.element_size()
+                ops = {"attention_fwd_lse": 4 * B * H * L * L * D, "attention_bwd": 10 * B * H * L * L * D}
+
+                times = {
+                    "attention_fwd_lse": (
+                        elapsed_ms(lambda: attention._attention_lse_kernel(q, k, v, scale)),
+                        elapsed_ms(lambda: attention._attention_lse_plain(q, k, v, scale)),
+                        elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                        # q, k, v read and o and the float32 lse written once
+                        bound_ms(4 * n * elt + lse.numel() * 4, ops["attention_fwd_lse"], dtype),
+                        max((errs[name] for name in ("o", "lse")), key=lambda e: e[1]),
+                    ),
+                    "attention_bwd": (
+                        elapsed_ms(lambda: attention._attention_bwd_kernel(q, k, v, o, lse, g, scale)),
+                        elapsed_ms(lambda: attention._attention_bwd_plain(q, k, v, o, lse, g, scale)),
+                        elapsed_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)),
+                        # q, k, v, o, g and the lse read and dq, dk, dv written once
+                        bound_ms(8 * n * elt + lse.numel() * 4, ops["attention_bwd"], dtype),
+                        max((errs[name] for name in ("dq", "dk", "dv")), key=lambda e: e[1]),
+                    ),
+                }
+                for name, (ms, plain, library, (bound, by), (abs_err, rel_err)) in times.items():
+                    line += (f"\n    {name}: {ms:.4f} ms ({ops[name] / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                             f"SDPA {library:.4f} ms, bound {bound:.4f} ms ({by})")
+                    if shape != DIT64_SHAPE:
+                        continue
+                    entry = entries[name]
+                    entry["ms"] += count * ms
+                    entry["plain_ms"] += count * plain
+                    entry["library_ms"] += count * library
+                    entry["bound_ms"] += count * bound
+                    entry["bound_by"][by] += count * bound
+                    entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                    entry["max_err"] = max(entry["max_err"], rel_err)
+                del out, leaves
+
+            log(line)
+            del q, k, v, g, o, lse, grads, want_o, want_lse
+        torch.cuda.empty_cache()
+
+    return entries
 
 
 def check_max_free(generator) -> dict:
@@ -1199,40 +1390,12 @@ def main() -> None:
     check_composition_grad(generator)
 
     log("== 11. the training slice: CPU plain versions against the card's kernels, float32")
-    check_train_slice()
+    check_train_slice(32, {name: 2 for name in DIT_TRAIN_CALLS_PER_STEP})
 
     log(f"== 12. dit32 training at full width: bf16, batch {DIT_BATCH}, AdamW, "
         f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
-    x_train = torch.randn((DIT_BATCH, 32, 32, 3), generator=generator, device="cuda")
-    t_train = torch.rand((DIT_BATCH,), generator=generator, device="cuda")
-    state = train.TrainState(dit, torch.optim.AdamW(dit.parameters(), **train.OPTAX_ADAMW))
-    for _ in range(DIT_TRAIN_WARMUP):
-        state.step(x_train, t_train, generator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    _build.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    losses = [state.step(x_train, t_train, generator) for _ in range(DIT_TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    train_seconds = time.perf_counter() - t0
-    train_launches = dict(_build.LAUNCHES)
-
-    peak = torch.cuda.max_memory_allocated()
-    losses = torch.stack(losses).float().cpu()
-    if not bool(torch.isfinite(losses).all()):
-        raise AssertionError(f"a dit32 training loss is not finite: {losses.tolist()}")
-    expected = {name: n * DIT_TRAIN_STEPS for name, n in DIT_TRAIN_CALLS_PER_STEP.items()}
-    log(f"launches {train_launches}, expected {expected}")
-    if train_launches != expected:
-        raise AssertionError("the dit32 training path's launch counts are not exact")
-    log(f"dit32 training {train_seconds:.3f} s for {DIT_TRAIN_STEPS} steps: "
-        f"{DIT_BATCH * DIT_TRAIN_STEPS / train_seconds:.4f} train images/s, "
-        f"{train_seconds / DIT_TRAIN_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
-        f"loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
-    profile_step(lambda: state.step(x_train, t_train, generator))
-    del state, dit, x_train, t_train
-    torch.cuda.empty_cache()
+    del dit
+    train_launches = train_full_width(32, DIT_TRAIN_CALLS_PER_STEP, generator)
 
     log("== 13. the max-free attention kernel against its plain version at the FLUX.1 shapes")
     with torch.inference_mode():
@@ -1295,7 +1458,17 @@ def main() -> None:
     del flux, flux_sampler, xf, yf, cond
     torch.cuda.empty_cache()
 
-    log("== 16. result")
+    log("== 16. attention training kernels against their plain versions at the dit64 shape")
+    lse_bwd = check_attention_training(generator)
+
+    log("== 17. the 64x64 training slice: CPU plain versions against the card's kernels, float32")
+    check_train_slice(DIT64_SIDE, {name: 2 for name in DIT64_TRAIN_CALLS_PER_STEP})
+
+    log(f"== 18. dit64 training at full width: {DIT64_SIDE}x{DIT64_SIDE} images, bf16, batch {DIT_BATCH}, AdamW, "
+        f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
+    dit64_launches = train_full_width(DIT64_SIDE, DIT64_TRAIN_CALLS_PER_STEP, generator)
+
+    log("== 19. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -1305,6 +1478,8 @@ def main() -> None:
         ("flash_blhd_fwd", flash["flash_blhd_fwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
         ("flash_blhd_bwd", flash["flash_blhd_bwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
         ("attention_fwd_max_free", mf, flux_launches, FLUX_CALLS_PER_FORWARD),
+        ("attention_fwd_lse", lse_bwd["attention_fwd_lse"], dit64_launches, DIT64_TRAIN_CALLS_PER_STEP),
+        ("attention_bwd", lse_bwd["attention_bwd"], dit64_launches, DIT64_TRAIN_CALLS_PER_STEP),
     ):
         source, replaces = {
             "group_norm_silu": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
@@ -1328,6 +1503,16 @@ def main() -> None:
                 "azula_tpu/ops/attention.py:337 (_pallas_attention_blocked), "
                 "azula_tpu/ops/attention.py:92 (_pallas_attention, max_free)",
             ),
+            "attention_fwd_lse": (
+                "attention_fwd.cu",
+                "azula_tpu/ops/attention.py:92 (_pallas_attention, with_lse=True), "
+                "azula_tpu/ops/attention.py:566 (_pallas_attention_batched, with_lse=True)",
+            ),
+            "attention_bwd": (
+                "attention_bwd.cu",
+                "azula_tpu/ops/attention.py:1102 (_pallas_attention_bwd; dq_kernel :1200, dkv_kernel :1275), "
+                "azula_tpu/ops/attention.py:966 (_pallas_attention_batched_bwd)",
+            ),
         }[name]
         tol = TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
         kernels.append({
@@ -1336,20 +1521,22 @@ def main() -> None:
             "source": f"azula_tpu_torch/csrc/{source}",
             "replaces": replaces,
             # launches in the run of the kernel's own main path (ADM-256
-            # sampling, dit32 sampling, dit32 training or FLUX.1-dev sampling)
+            # sampling, dit32 sampling, dit32 training, FLUX.1-dev sampling
+            # or dit64 training)
             "launches": path_launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_err": entry["max_err"],
             "tol": tol,
-            # times of the calls of one forward (flash_blhd: of one train
-            # step), summed over their shapes
+            # times of the calls of one forward (flash_blhd, attention_fwd_lse,
+            # attention_bwd: of one train step), summed over their shapes
             "ms": entry["ms"],
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
             # what bounds the larger share of bound_ms
             "bound_by": entry["bound_by"].most_common(1)[0][0],
             # fused_msa: SDPA on the normalized attention core only (no norm,
-            # no layout); flash_blhd: SDPA's forward, or its autograd backward
+            # no layout); flash_blhd, attention_fwd_lse, attention_bwd: SDPA's
+            # forward, or its autograd backward
             "library_ms": entry["library_ms"] if name != "group_norm_silu" else None,
             "calls_per_forward": per_forward[name],
         })

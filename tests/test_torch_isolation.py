@@ -70,7 +70,9 @@ def test_build_targets_hopper():
 
 def test_kernel_sources_exist_and_are_packaged():
     csrc = PACKAGE / "csrc"
-    kernels = ("group_norm.cu", "attention_fwd.cu", "fused_msa.cu", "flash_blhd_fwd.cu", "flash_blhd_bwd.cu")
+    kernels = (
+        "group_norm.cu", "attention_fwd.cu", "attention_bwd.cu", "fused_msa.cu", "flash_blhd_fwd.cu", "flash_blhd_bwd.cu"
+    )
     for name in (*kernels, "common.cu", "common.cuh"):
         assert (csrc / name).exists(), name
 
@@ -84,6 +86,9 @@ def test_kernel_sources_exist_and_are_packaged():
     assert "Replaces: azula_tpu/ops/attention.py:798 (_flash_blhd" in head
     head = (csrc / "flash_blhd_bwd.cu").read_text().split("#include")[0]
     assert "Replaces: azula_tpu/ops/attention.py:836 (_flash_blhd_bwd" in head
+    head = (csrc / "attention_bwd.cu").read_text().split("#include")[0]
+    assert "Replaces: azula_tpu/ops/attention.py:1102 (_pallas_attention_bwd" in head
+    assert "azula_tpu/ops/attention.py:966" in head
 
     config = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = config["tool"]["setuptools"]["package-data"]
