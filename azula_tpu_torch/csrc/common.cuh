@@ -8,6 +8,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace azula {
 
@@ -55,6 +56,86 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
+
+// The murmur3 finalizer of the TPU kernels' dropout hash (`_fmix32` in
+// azula_tpu/ops/attention.py), on uint32: JAX's wrapping int32 products and
+// logical shifts compute the same bits, and signed overflow is undefined in
+// C++.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// The bias and dropout of the masked and dropout attention forms, as a
+// wrapper passes them to a launch: the TPU kernels' `b_ref` (an additive
+// (Gm, L, L) bias in the inputs' dtype, the group of pair p being
+// (p / bias_div) % bias_mod: "full", "batch", "head" or "one") and `s_ref`
+// (two int32 seed words on the device), the signed keep threshold of
+// `_dropout_threshold` and 1 - rate. Null pointers mean no bias, no dropout.
+struct MaskArgs {
+  const void* bias = nullptr;
+  int bias_div = 1;
+  int bias_mod = 1;
+  const int* seed = nullptr;
+  int threshold = 0;
+  float retain = 1.f;
+};
+
+// The mask arguments of a C entry point, in the order the wrappers pass them.
+inline MaskArgs mask_args(const void* bias, int bias_div, int bias_mod, const void* seed, int threshold,
+                          float retain) {
+  MaskArgs mask;
+  mask.bias = bias;
+  mask.bias_div = bias_div;
+  mask.bias_mod = bias_mod;
+  mask.seed = static_cast<const int*>(seed);
+  mask.threshold = threshold;
+  mask.retain = retain;
+  return mask;
+}
+
+// MaskArgs resolved for one (batch, head) pair: its (L, L) bias and its
+// dropout hash. `keep` is the TPU kernels' `_keep_mask` at the absolute
+// (query, key) coordinates: murmur3 rounds of the coordinates, the pair
+// index b H + h and the seed words, kept where the bits, read as int32, are
+// at least the threshold. The forward and both backward kernels call it, so
+// they drop the same weights whatever their tiling.
+template <typename T>
+struct PairMask {
+  const T* bias = nullptr;  // row 0 of the pair's (L, L) bias, or null
+  uint32_t pair_bits = 0;   // pair * 0x27D4EB2F ^ s0
+  uint32_t s1 = 0;
+  int threshold = 0;
+  float retain = 1.f;
+
+  PairMask() = default;
+
+  __device__ PairMask(const MaskArgs& a, int pair, int L) : threshold(a.threshold), retain(a.retain) {
+    if (a.bias != nullptr) {
+      const int group = (pair / a.bias_div) % a.bias_mod;
+      bias = static_cast<const T*>(a.bias) + static_cast<size_t>(group) * L * L;
+    }
+    if (a.seed != nullptr) {
+      pair_bits = static_cast<uint32_t>(pair) * 0x27D4EB2Fu ^ static_cast<uint32_t>(a.seed[0]);
+      s1 = static_cast<uint32_t>(a.seed[1]);
+    }
+  }
+
+  // s + bias[row][col], rounded as the TPU kernels add the bias to the
+  // scaled logit; s unchanged without a bias
+  __device__ __forceinline__ float add_bias(float s, int row, int col, int L) const {
+    return bias == nullptr ? s : __fadd_rn(s, to_float(bias[static_cast<size_t>(row) * L + col]));
+  }
+
+  __device__ __forceinline__ bool keep(int row, int col) const {
+    const uint32_t h = static_cast<uint32_t>(row) * 0x9E3779B1u ^ static_cast<uint32_t>(col) * 1000003u ^ pair_bits;
+    return static_cast<int32_t>(fmix32(fmix32(h) ^ s1)) >= threshold;
+  }
+};
 
 // The flash-attention forward shared by attention_fwd.cu, fused_msa.cu and
 // flash_blhd_fwd.cu, and the tile products of flash_blhd_bwd.cu.
@@ -180,8 +261,15 @@ __device__ __forceinline__ void dot_rows(const float* A, const float* B, float (
 // L up to about 6,100 (L e^80 < FLT_MAX); the value accumulator, a sum of up
 // to L e^80 |v|, is bounded only by |v|, as in the TPU kernel.
 // Masked keys still give exp(min(-inf, 80)) = 0.
-template <typename T, int D, bool kRoundWeights, bool kMaxFree = false>
-__device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D / 16], int k0, int L, float scale) {
+// The tile's queries start at row q0. `mask` adds the pair's bias to the
+// scaled scores. With kDropout the value product takes the weights of the
+// dropped-out softmax, p / (1 - rate) where `mask` keeps (q0 + i, k0 + j)
+// and 0 elsewhere, rounded to T, while the denominator sums the undropped p
+// (`_pallas_attention_blocked` with a seed).
+template <typename T, int D, bool kRoundWeights, bool kMaxFree = false, bool kDropout = false>
+__device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D / 16], int k0, int L, float scale,
+                                            int q0 = 0, const PairMask<T>& mask = PairMask<T>()) {
+  static_assert(!(kMaxFree && kDropout), "dropout keeps the exact softmax");
   constexpr int LD = Tiles<D>::LD;
   constexpr int DC = D / 16;  // output columns per thread
   const int t = threadIdx.x;
@@ -196,8 +284,14 @@ __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
+      const int i = ty + 16 * a;
       const int j = tx + 16 * b;
-      s.S[(ty + 16 * a) * LS + j] = (k0 + j < L) ? sc[a][b] * scale : -INFINITY;
+      float x = -INFINITY;
+      if (k0 + j < L) {
+        x = __fmul_rn(sc[a][b], scale);
+        if (q0 + i < L) x = mask.add_bias(x, q0 + i, k0 + j, L);
+      }
+      s.S[i * LS + j] = x;
     }
   __syncthreads();
 
@@ -236,7 +330,12 @@ __device__ __forceinline__ void attend_tile(const Tiles<D>& s, float (&acc)[4][D
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) {
       const float p = expf(row[jj] - m_new);
-      row[jj] = kRoundWeights ? round_to<T>(p) : p;
+      if constexpr (kDropout) {
+        const float kept = mask.keep(q0 + i, k0 + part * 16 + jj) ? __fdiv_rn(p, mask.retain) : 0.f;
+        row[jj] = round_to<T>(kept);
+      } else {
+        row[jj] = kRoundWeights ? round_to<T>(p) : p;
+      }
       sum += p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -412,10 +511,14 @@ __device__ __forceinline__ void load_stats(const Tiles<D>& s, int r, const float
 // p and ds of the (BQ, 64) tile of query rows q0 + i and keys k0 + j, once
 // Q, G, K, V and the rows' statistics and delta are in shared memory: p and
 // ds of thread (tx, ty) at rows ty + 16 a and keys tx + 16 b. Rows or keys
-// past L get p = ds = 0.
-template <typename T, int D, bool kLse>
+// past L get p = ds = 0. `mask` adds the pair's bias to the scaled scores;
+// with kDropout, p comes out as the dropped weights p~ = M p / (1 - rate)
+// that the forward's value product took, and ds = T(p (M dp / (1 - rate) -
+// delta) scale), `_p_ds` of `_pallas_attention_bwd`.
+template <typename T, int D, bool kLse, bool kDropout = false>
 __device__ __forceinline__ void p_and_ds(const Tiles<D>& s, int q0, int k0, int L, float scale,
-                                         float (&p)[Tiles<D>::RA][4], float (&ds)[Tiles<D>::RA][4]) {
+                                         float (&p)[Tiles<D>::RA][4], float (&ds)[Tiles<D>::RA][4],
+                                         const PairMask<T>& mask = PairMask<T>()) {
   constexpr int RA = Tiles<D>::RA;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -435,13 +538,22 @@ __device__ __forceinline__ void p_and_ds(const Tiles<D>& s, int q0, int k0, int 
       if (q0 + i < L && k0 + j < L) {
         // the score rounded as the forward computed it, then exp(s - m) / l
         // or exp(s - lse)
-        const float e = expf(__fmul_rn(sc[a][b], scale) - s.m[i]);
+        const float x = mask.add_bias(__fmul_rn(sc[a][b], scale), q0 + i, k0 + j, L);
+        const float e = expf(x - s.m[i]);
+        float pij;
         if constexpr (kLse) {
-          p[a][b] = e;
+          pij = e;
         } else {
-          p[a][b] = e / s.l[i];
+          pij = e / s.l[i];
         }
-        ds[a][b] = round_to<T>(__fmul_rn(__fmul_rn(p[a][b], dp[a][b] - s.delta[i]), scale));
+        float dpij = dp[a][b];
+        p[a][b] = pij;
+        if constexpr (kDropout) {
+          const bool kept = mask.keep(q0 + i, k0 + j);
+          p[a][b] = kept ? __fdiv_rn(pij, mask.retain) : 0.f;
+          dpij = kept ? __fdiv_rn(dpij, mask.retain) : 0.f;
+        }
+        ds[a][b] = round_to<T>(__fmul_rn(__fmul_rn(pij, dpij - s.delta[i]), scale));
       }
     }
   }
@@ -491,13 +603,15 @@ __device__ __forceinline__ void store_tile(const float (&acc)[RA][D / 16], T* ou
   }
 }
 
-// Kernel 1, the body of one block: dq of query tile blockIdx.x of pair
-// blockIdx.y = b H + h, and the tile rows' delta.
-template <typename T, int D, bool kLse>
+// Kernel 1, the body of one block: dq of one query tile of one pair
+// b H + h, and the tile rows' delta. The grid is one-dimensional, the tiles
+// of pair 0 first, so that any number of pairs fits in it.
+template <typename T, int D, bool kLse, bool kDropout>
 __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                          const T* __restrict__ o, const T* __restrict__ g,
                                          const float* __restrict__ m, const float* __restrict__ l,
-                                         T* __restrict__ dq, float* __restrict__ delta, int L, int H, float scale) {
+                                         T* __restrict__ dq, float* __restrict__ delta, int L, int H, float scale,
+                                         const MaskArgs& args) {
   using S = Tiles<D>;
   constexpr int BQ = S::BQ;
   constexpr int RA = S::RA;
@@ -507,12 +621,15 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
   extern __shared__ float4 smem4[];
   const S s(reinterpret_cast<float*>(smem4));
 
+  const int tiles = (L + BQ - 1) / BQ;
+  const int pair = blockIdx.x / tiles;
   const int C = H * D;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = pair / H;
+  const int h = pair % H;
   const size_t base = static_cast<size_t>(b) * L * C + h * D;
-  const size_t rows = static_cast<size_t>(blockIdx.y) * L;  // this pair's statistics and delta
-  const int q0 = blockIdx.x * BQ;
+  const size_t rows = static_cast<size_t>(pair) * L;  // this pair's statistics and delta
+  const int q0 = (blockIdx.x % tiles) * BQ;
+  const PairMask<T> mask(args, pair, L);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
@@ -555,7 +672,7 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
     __syncthreads();
 
     float p[RA][4], ds[RA][4];
-    p_and_ds<T, D, kLse>(s, q0, k0, L, scale, p, ds);
+    p_and_ds<T, D, kLse, kDropout>(s, q0, k0, L, scale, p, ds, mask);
 #pragma unroll
     for (int a = 0; a < RA; ++a)
 #pragma unroll
@@ -577,13 +694,14 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
   store_tile<T, D, RA>(acc, dq + base, C, q0, L);
 }
 
-// Kernel 2, the body of one block: dk and dv of key tile blockIdx.x of pair
-// blockIdx.y, from the deltas that kernel 1 wrote.
-template <typename T, int D, bool kLse>
+// Kernel 2, the body of one block: dk and dv of one key tile of one pair,
+// from the deltas that kernel 1 wrote; the grid as kernel 1's.
+template <typename T, int D, bool kLse, bool kDropout>
 __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                           const T* __restrict__ g, const float* __restrict__ m,
                                           const float* __restrict__ l, const float* __restrict__ delta,
-                                          T* __restrict__ dk, T* __restrict__ dv, int L, int H, float scale) {
+                                          T* __restrict__ dk, T* __restrict__ dv, int L, int H, float scale,
+                                          const MaskArgs& args) {
   using S = Tiles<D>;
   constexpr int BQ = S::BQ;
   constexpr int RA = S::RA;
@@ -592,12 +710,15 @@ __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __re
   extern __shared__ float4 smem4[];
   const S s(reinterpret_cast<float*>(smem4));
 
+  const int tiles = (L + BK - 1) / BK;
+  const int pair = blockIdx.x / tiles;
   const int C = H * D;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = pair / H;
+  const int h = pair % H;
   const size_t base = static_cast<size_t>(b) * L * C + h * D;
-  const size_t rows = static_cast<size_t>(blockIdx.y) * L;
-  const int k0 = blockIdx.x * BK;
+  const size_t rows = static_cast<size_t>(pair) * L;
+  const int k0 = (blockIdx.x % tiles) * BK;
+  const PairMask<T> mask(args, pair, L);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
@@ -627,7 +748,7 @@ __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __re
     __syncthreads();
 
     float p[RA][4], ds[RA][4];
-    p_and_ds<T, D, kLse>(s, q0, k0, L, scale, p, ds);
+    p_and_ds<T, D, kLse, kDropout>(s, q0, k0, L, scale, p, ds, mask);
 #pragma unroll
     for (int a = 0; a < RA; ++a)
 #pragma unroll
@@ -646,22 +767,25 @@ __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __re
   store_tile<T, D, 4>(dv_acc, dv + base, C, k0, L);
 }
 
-// The two kernels' signatures: (q, k, v, o, g, m, l, dq, delta, L, H, scale)
-// and (q, k, v, g, m, l, delta, dk, dv, L, H, scale).
+// The two kernels' signatures: (q, k, v, o, g, m, l, dq, delta, L, H, scale,
+// mask) and (q, k, v, g, m, l, delta, dk, dv, L, H, scale, mask).
 template <typename T>
 using DqKernel = void (*)(const T*, const T*, const T*, const T*, const T*, const float*, const float*, T*, float*,
-                          int, int, float);
+                          int, int, float, MaskArgs);
 template <typename T>
 using DkvKernel = void (*)(const T*, const T*, const T*, const T*, const float*, const float*, const float*, T*, T*,
-                           int, int, float);
+                           int, int, float, MaskArgs);
 
 // Launches dq_kernel, then dkv_kernel, on stream s over B * H pairs.
 template <typename T, int D>
 cudaError_t launch(DqKernel<T> dq_kernel, DkvKernel<T> dkv_kernel, const void* q, const void* k, const void* v,
                    const void* o, const void* g, const float* m, const float* l, void* dq, void* dk, void* dv,
-                   float* delta, int B, int L, int H, float scale, cudaStream_t s) {
+                   float* delta, int B, int L, int H, float scale, cudaStream_t s, const MaskArgs& mask = MaskArgs()) {
   using S = Tiles<D>;
   constexpr int bytes = S::kBytes;
+  const long long tiles_q = static_cast<long long>(B) * H * ((L + S::BQ - 1) / S::BQ);
+  const long long tiles_k = static_cast<long long>(B) * H * ((L + BK - 1) / BK);
+  if (tiles_q > 2147483647LL || tiles_k > 2147483647LL) return cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -675,15 +799,13 @@ cudaError_t launch(DqKernel<T> dq_kernel, DkvKernel<T> dkv_kernel, const void* q
   if (e != cudaSuccess) return e;
 
   // dq first: it writes the deltas that the dk, dv kernel reads
-  const dim3 grid_q((L + S::BQ - 1) / S::BQ, B * H);
-  dq_kernel<<<grid_q, kThreads, bytes, s>>>(qt, kt, vt, static_cast<const T*>(o), gt, m, l, static_cast<T*>(dq),
-                                            delta, L, H, scale);
+  dq_kernel<<<static_cast<unsigned>(tiles_q), kThreads, bytes, s>>>(qt, kt, vt, static_cast<const T*>(o), gt, m, l,
+                                                                    static_cast<T*>(dq), delta, L, H, scale, mask);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const dim3 grid_k((L + BK - 1) / BK, B * H);
-  dkv_kernel<<<grid_k, kThreads, bytes, s>>>(qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-                                             L, H, scale);
+  dkv_kernel<<<static_cast<unsigned>(tiles_k), kThreads, bytes, s>>>(qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk),
+                                                                     static_cast<T*>(dv), L, H, scale, mask);
   return cudaGetLastError();
 }
 

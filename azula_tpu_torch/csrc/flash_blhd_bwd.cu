@@ -37,8 +37,8 @@ __global__ void __launch_bounds__(flash_bwd::kThreads)
 flash_blhd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ o, const T* __restrict__ g, const float* __restrict__ m,
                      const float* __restrict__ l, T* __restrict__ dq, float* __restrict__ delta, int L, int H,
-                     float scale) {
-  flash_bwd::dq_block<T, D, false>(q, k, v, o, g, m, l, dq, delta, L, H, scale);
+                     float scale, azula::MaskArgs mask) {
+  flash_bwd::dq_block<T, D, false, false>(q, k, v, o, g, m, l, dq, delta, L, H, scale, mask);
 }
 
 template <typename T, int D>
@@ -46,8 +46,8 @@ __global__ void __launch_bounds__(flash_bwd::kThreads)
 flash_blhd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ g, const float* __restrict__ m, const float* __restrict__ l,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L, int H,
-                      float scale) {
-  flash_bwd::dkv_block<T, D, false>(q, k, v, g, m, l, delta, dk, dv, L, H, scale);
+                      float scale, azula::MaskArgs mask) {
+  flash_bwd::dkv_block<T, D, false, false>(q, k, v, g, m, l, delta, dk, dv, L, H, scale, mask);
 }
 
 template <typename T, int D>

@@ -114,8 +114,8 @@ class MultiheadSelfAttention(nn.Module):
             x: The input tokens :math:`x`, with shape :math:`(*, L, H \times C)`.
             pos: Optional position vectors :math:`p`, with shape :math:`(*, L, P)`.
             mask: Optional attention mask, with shape :math:`(L, L)`.
-            generator: The generator of the attention dropout (training; not
-                ported yet).
+            generator: The generator of the attention dropout, which it enables
+                (training; the JAX `key`).
 
         Returns:
             The output tokens :math:`y`, with shape :math:`(*, L, H \times C)`.

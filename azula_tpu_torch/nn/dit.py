@@ -173,16 +173,33 @@ class DiTBlock(nn.Module):
             mod: The modulation vector, with shape :math:`(D)` or :math:`(*, D)`.
             pos: The position coordinates, with shape :math:`(*, L, N)`.
             mask: The attention mask, with shape :math:`(*, L, L)`.
-            generator: The generator of the dropout (training; not ported yet).
+            generator: The generator of the dropout, which it enables
+                (training; the JAX `key`): the attention's, then the FFN's
+                draws, as JAX splits the key in two.
 
         Returns:
             The output tokens :math:`y`, with shape :math:`(*, L, C)`.
         """
 
         if self.checkpointing and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(
-                self._forward, x, mod, pos, mask, generator, use_reentrant=False
-            )
+            if generator is None:
+                return torch.utils.checkpoint.checkpoint(self._forward, x, mod, pos, mask, use_reentrant=False)
+
+            # the checkpoint restores the global RNG states only: the forward
+            # draws from `generator`, and the recompute from a copy of its
+            # state before the block, so it drops what the forward dropped
+            state = generator.get_state()
+            runs = []
+
+            def run(x, mod, pos, mask):
+                g = generator
+                if runs:
+                    g = torch.Generator(device=generator.device)
+                    g.set_state(state)
+                runs.append(g)
+                return self._forward(x, mod, pos, mask, g)
+
+            return torch.utils.checkpoint.checkpoint(run, x, mod, pos, mask, use_reentrant=False)
 
         return self._forward(x, mod, pos, mask, generator)
 
@@ -258,7 +275,9 @@ class DiT(nn.Module):
             pos: The position tensor, with shape :math:`(*, L, P)`.
                 If :py:`None`, use the sequence indices instead.
             cond: The condition tensor, with shape :math:`(*, L, C_c)`.
-            generator: The generator of the dropout (training; not ported yet).
+            generator: The generator of the dropout, which it enables
+                (training; the JAX `key`), drawn from by each block in turn,
+                as JAX splits one key per block.
 
         Returns:
             The output tensor, with shape :math:`(*, L, C_o)`.

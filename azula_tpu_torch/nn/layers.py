@@ -161,8 +161,10 @@ class GroupNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    r"""Dropout layer: the identity at inference (no generator). Training,
-    which passes a generator, is not ported yet (ROADMAP A16)."""
+    r"""Dropout layer: active only when a generator is given (training), the
+    identity otherwise. Elements are kept with probability :math:`1 - r`,
+    drawn from the generator (of `x`'s device), and scaled by
+    :math:`1 / (1 - r)`."""
 
     def __init__(self, rate: float) -> None:
         super().__init__()
@@ -173,7 +175,11 @@ class Dropout(nn.Module):
         if generator is None or self.rate <= 0:
             return x
 
-        raise NotImplementedError("dropout in training is not ported yet (ROADMAP A16)")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - self.rate
+        # 1 - r in x's dtype, as JAX's weak-typed scalar takes it
+        retain = torch.tensor(1 - self.rate, dtype=x.dtype).item()
+
+        return torch.where(keep, x / retain, 0.0).to(x.dtype)
 
 
 class Identity(nn.Module):

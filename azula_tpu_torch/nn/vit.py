@@ -101,7 +101,8 @@ class ViT(DiT):
             x: The input tensor, with shape :math:`(B, L_1, ..., L_N, C_i)`.
             mod: The modulation vector, with shape :math:`(D)` or :math:`(B, D)`.
             cond: The condition tensor, with shape :math:`(B, L_1, ..., L_N, C_c)`.
-            generator: The generator of the dropout (training; not ported yet).
+            generator: The generator of the dropout, which it enables
+                (training; the JAX `key`).
 
         Returns:
             The output tensor, with shape :math:`(B, L_1, ..., L_N, C_o)`.

@@ -50,7 +50,10 @@ NVCC_FLAGS = (
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` clears this before the main path
 # and reads it after. A backward entry (`flash_blhd_bwd`, `attention_bwd`)
-# launches two kernels, dq then dk/dv, and counts once.
+# launches two kernels, dq then dk/dv, and counts once. The attention entries
+# count each form under its own name: `attention_fwd_lse`,
+# `attention_fwd_lse_bias`, `attention_fwd_lse_dropout`,
+# `attention_fwd_lse_bias_dropout`, and so on.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
@@ -61,13 +64,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, dtype, stream
     "azula_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # q, k, v, o, BH, L, D, scale, dtype, stream
-    "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, BH, L, D, scale, dtype, stream, then the mask arguments
+    # bias, bias_div, bias_mod, seed, threshold, retain
+    "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
     "azula_attention_fwd_max_free": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, lse, BH, L, D, scale, dtype, stream
-    "azula_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, g, lse, dq, dk, dv, delta, BH, L, D, scale, dtype, stream
-    "azula_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+    # q, k, v, o, lse, BH, L, D, scale, dtype, stream, mask arguments
+    "azula_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
+    # q, k, v, o, g, lse, dq, dk, dv, delta, BH, L, D, scale, dtype, stream,
+    # mask arguments
+    "azula_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
     # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream

@@ -13,6 +13,12 @@ entry, writing the rows' log-sum-exp (`_pallas_attention(with_lse=True)`),
 and whose backward is the FlashAttention-2 pair of `csrc/attention_bwd.cu`
 (`_pallas_attention_bwd` and `_pallas_attention_batched_bwd`).
 
+Boolean masks and attention dropout take the same kernels, as JAX's
+`_flash_biased`, `_flash_dropout` and `_flash_dropout_biased` take its: a
+mask becomes an additive bias (`_mask_to_bias`), and the dropout keep mask
+is a counter hash of two seed words and the absolute (pair, row, column)
+(:func:`dropout_keep_mask`), which the backward regenerates per tile.
+
 Also :func:`_flash_blhd`, the differentiable flash attention on the
 projection layout :math:`(B, L, H D)` that fused MSA's training route runs:
 hand-written forward and backward kernels (`csrc/flash_blhd_fwd.cu`,
@@ -34,7 +40,13 @@ from torch import Tensor
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 192, 256)
+
+# JAX's `_MASKED_OUT`: the bias of a masked key
+_MASKED_OUT = -1e30
+
+# the hash runs on int64 lanes holding uint32 values
+_M32 = 0xFFFFFFFF
 
 # JAX's `_MAX_FREE_CLAMP`: the logit clamp of the max-free softmax
 _MAX_FREE_CLAMP = 80.0
@@ -49,6 +61,22 @@ _BLHD_HEAD_DIMS = (64, 128, 192, 256)
 _BLHD_MAX_L = 512
 
 
+def _masked_logits(q: Tensor, k: Tensor, mask: Tensor | None, scale: float) -> Tensor:
+    r"""The float32 logits of the XLA path, -inf where a boolean mask is
+    False, plus an additive mask (which keeps its gradient)."""
+
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    logits = logits * scale
+
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, -math.inf)
+        else:
+            logits = logits + mask
+
+    return logits
+
+
 def _attention_plain(
     q: Tensor,
     k: Tensor,
@@ -59,19 +87,14 @@ def _attention_plain(
     r"""Plain PyTorch version of `_xla_attention` (azula_tpu/ops/attention.py):
     float32 logits; the value product takes the *unnormalized* exp-weights
     (cast to the input dtype below float32, with float32 accumulation) and the
-    denominator divides afterwards."""
+    denominator divides afterwards. A row that a boolean mask masks
+    everywhere gives NaN, as on XLA (the kernels' -1e30 bias gives the mean
+    of v, as the TPU kernels do)."""
 
     if scale is None:
         scale = 1 / math.sqrt(q.shape[-1])
 
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    logits = logits * scale
-
-    if mask is not None:
-        if mask.dtype == torch.bool:
-            logits = logits.masked_fill(~mask, -math.inf)
-        else:
-            logits = logits + mask
+    logits = _masked_logits(q, k, mask, scale)
 
     m = logits.amax(dim=-1, keepdim=True)
     weights = torch.exp(logits - m)
@@ -84,6 +107,135 @@ def _attention_plain(
         out = out / denom[..., None]
 
     return out.to(q.dtype)
+
+
+def _attention_dropout_plain(
+    q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None, rate: float, generator: torch.Generator, scale: float
+) -> Tensor:
+    r"""Plain PyTorch version of the dropout fallback of JAX's
+    `dot_product_attention` (every dropout call off the TPU, and the shapes
+    its kernels do not take): the float32 softmax of the masked logits, a
+    Bernoulli keep mask drawn from `generator` (of the tensors' device), kept
+    weights scaled by 1 / (1 - rate) and rounded to q's dtype before the
+    value product."""
+
+    weights = torch.softmax(_masked_logits(q, k, mask, scale), dim=-1)
+    keep = torch.rand(weights.shape, generator=generator, device=weights.device) < 1 - rate
+    weights = torch.where(keep, weights / (1 - rate), 0.0)
+
+    return torch.matmul(weights.to(q.dtype), v)
+
+
+def _dropout_threshold(rate: float) -> int:
+    r"""JAX's `_dropout_threshold`: the *signed* int32 threshold t with
+    P(bits >= t) = 1 - rate for uniform bits read as int32 (the uint32
+    threshold moved down by 2^31, so that rate 0.5 gives 0 and does not wrap
+    to INT32_MIN)."""
+
+    return min(int(rate * 2**32), 2**32 - 1) - 2**31
+
+
+def _mul32(h: Tensor, c: int) -> Tensor:
+    r"""h c mod 2^32 for uint32 values h on int64 lanes and a constant
+    c < 2^32: c times each 16-bit half of h stays below 2^48, so nothing
+    overflows int64."""
+
+    return ((h & 0xFFFF) * c + ((((h >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h: Tensor) -> Tensor:
+    r"""JAX's `_fmix32`, the murmur3 finalizer, on uint32 values held in
+    int64 lanes: the shifts are logical there (JAX's `shift_right_logical`,
+    where torch's `>>` on int32 is arithmetic), and `_mul32` wraps the
+    products as int32 arithmetic does."""
+
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _keep_mask(rows: Tensor, cols: Tensor, pairs: Tensor, seed: Tensor, rate: float) -> Tensor:
+    r"""JAX's `_keep_mask` at absolute (row, column, pair) coordinates
+    (broadcast int64 tensors): `_hash_bits` of the coordinates and the two
+    int32 seed words, read as int32 and kept where at least
+    `_dropout_threshold(rate)`."""
+
+    s0, s1 = (seed.to(torch.int64) & _M32).unbind()
+    h = ((rows * 0x9E3779B1) & _M32) ^ ((cols * 1000003) & _M32) ^ ((pairs * 0x27D4EB2F) & _M32) ^ s0
+    bits = _fmix32(_fmix32(h) ^ s1)
+
+    return bits - ((bits >> 31) << 32) >= _dropout_threshold(rate)
+
+
+def dropout_keep_mask(B: int, H: int, L: int, seed: Tensor, rate: float) -> Tensor:
+    r"""The (B, H, L, L) keep mask that the dropout kernels apply for two seed
+    words: port of :func:`azula_tpu.ops.attention.dropout_keep_mask`, bit
+    for bit, on the seed's device.
+
+    Arguments:
+        B, H, L: Batch, heads, and sequence length.
+        seed: The two int32 seed words, as passed to the kernels.
+        rate: The dropout rate.
+
+    Returns:
+        A boolean tensor of shape :math:`(B, H, L, L)`; True keeps the weight.
+    """
+
+    device = seed.device
+    rows = torch.arange(L, device=device)[:, None]
+    cols = torch.arange(L, device=device)
+    keep = torch.empty((B * H, L, L), dtype=torch.bool, device=device)
+
+    # a few pairs at a time: the int64 lanes take 8 bytes an element
+    step = max(1, 2**24 // (L * L))
+    for p0 in range(0, B * H, step):
+        pairs = torch.arange(p0, min(p0 + step, B * H), device=device)[:, None, None]
+        keep[p0 : p0 + step] = _keep_mask(rows, cols, pairs, seed, rate)
+
+    return keep.reshape(B, H, L, L)
+
+
+def _dropout_seed(generator: torch.Generator, device: torch.device) -> Tensor:
+    r"""Two int32 seed words drawn from `generator`, as JAX draws
+    `jax.random.bits(key, (2,))` and bitcasts them, in a tensor on `device`:
+    the kernels read them through a pointer, so no attention call waits for
+    the host."""
+
+    words = torch.randint(-(2**31), 2**31, (2,), generator=generator, device=generator.device)
+    return words.to(device=device, dtype=torch.int32, non_blocking=True)
+
+
+def _mask_to_bias(mask: Tensor, q: Tensor) -> tuple[Tensor, str]:
+    r"""JAX's `_mask_to_bias`: a boolean mask broadcastable to (B, H, L, L)
+    as a (Gm, L, L) additive bias in q's dtype on q's device (0 where kept,
+    -1e30 where masked) and its mode, "full", "batch", "head" or "one"."""
+
+    L = q.shape[-2]
+    shape = (1,) * (4 - mask.ndim) + tuple(mask.shape)
+    Bm, Hm = shape[:2]
+    mode = {(True, True): "full", (True, False): "batch", (False, True): "head", (False, False): "one"}[(Bm > 1, Hm > 1)]
+
+    bias = torch.where(mask.to(q.device).reshape(shape), 0.0, _MASKED_OUT).to(q.dtype)
+
+    return bias.reshape(Bm * Hm, L, L), mode
+
+
+def _bias_extents(mode: str, B: int, H: int) -> tuple[int, int]:
+    r"""The batch and head extents (Bm, Hm) of a (Bm Hm, L, L) bias in one of
+    the modes of JAX's `_bias_group_fn`."""
+
+    return {"full": (B, H), "batch": (B, 1), "head": (1, H), "one": (1, 1)}[mode]
+
+
+def _bias_bhll(bias: Tensor, mode: str, B: int, H: int) -> Tensor:
+    r"""The (Gm, L, L) bias of `mode` as a tensor that broadcasts to
+    (B, H, L, L)."""
+
+    L = bias.shape[-1]
+
+    return bias.reshape(*_bias_extents(mode, B, H), L, L)
 
 
 def _attention_max_free_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
@@ -102,20 +254,38 @@ def _attention_max_free_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> 
     return (o / l).to(q.dtype)
 
 
-def _attention_lse_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> tuple[Tensor, Tensor]:
+def _attention_lse_plain(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
+) -> tuple[Tensor, Tensor]:
     r"""Plain PyTorch version of `_pallas_attention` with `with_lse=True`
-    (azula_tpu/ops/attention.py): float32 logits, the row max m, the
-    exp-weights p and their sum d; in float32 the weights are normalized
-    before the value product, below float32 they enter it rounded to the
-    input dtype (float32 accumulation) and the product is divided by d.
-    Returns o and the float32 (B, H, L) log-sum-exp :math:`m + \log d`."""
+    (azula_tpu/ops/attention.py): float32 logits plus the (Gm, L, L) `bias`
+    of `mode`, the row max m, the exp-weights p and their sum d; in float32
+    the weights are normalized before the value product, below float32 they
+    enter it rounded to the input dtype (float32 accumulation) and the
+    product is divided by d. With `rate` > 0, `_pallas_attention_blocked`'s
+    dropout: the value product takes p / (1 - rate) where
+    :func:`dropout_keep_mask` of `seed` keeps and 0 elsewhere, rounded to the
+    input dtype, and is divided by the undropped d. Returns o and the float32
+    (B, H, L) log-sum-exp :math:`m + \log d` of the undropped softmax."""
 
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + _bias_bhll(bias, mode, *q.shape[:2]).float()
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     d = p.sum(dim=-1, keepdim=True)
 
-    if q.dtype == torch.float32:
+    if rate > 0:
+        keep = dropout_keep_mask(*q.shape[:3], seed, rate).to(q.device)
+        o = torch.matmul((torch.where(keep, p, 0.0) / (1 - rate)).to(q.dtype).float(), v.float()) / d
+    elif q.dtype == torch.float32:
         o = torch.matmul(p / d, v)
     else:
         o = torch.matmul(p.to(q.dtype).float(), v.float()) / d
@@ -124,39 +294,69 @@ def _attention_lse_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> tuple
 
 
 def _softmax_grads(
-    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, p: Tensor, scale: float, dtype: torch.dtype
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    o: Tensor,
+    g: Tensor,
+    p: Tensor,
+    scale: float,
+    dtype: torch.dtype,
+    keep: Tensor | None = None,
+    rate: float = 0.0,
 ) -> tuple[Tensor, Tensor, Tensor]:
     r"""dq, dk, dv in float32 from float32 (..., L, D) q, k, v, the stored o,
     the cotangent g and the softmax p, with the rounding points of the JAX
     backward kernels: dp = g v^T, delta = rowsum(g o), ds = p (dp - delta)
     scale rounded to `dtype`, then dq = ds k, dk = ds^T q and dv = p16^T g
-    with p rounded to `dtype`, each summed in float32."""
+    with p rounded to `dtype`, each summed in float32. With a dropout `keep`
+    mask (`_p_ds`), dp and the p of dv become M dp / (1 - rate) and
+    M p / (1 - rate)."""
 
     dp = torch.matmul(g, v.transpose(-1, -2))
     delta = torch.sum(g * o, dim=-1, keepdim=True)
 
+    p_tilde = p
+    if keep is not None:
+        p_tilde = torch.where(keep, p, 0.0) / (1 - rate)
+        dp = torch.where(keep, dp, 0.0) / (1 - rate)
+
     ds = (p * (dp - delta) * scale).to(dtype).float()
-    p16 = p.to(dtype).float()
+    p16 = p_tilde.to(dtype).float()
 
     return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), torch.matmul(p16.transpose(-1, -2), g)
 
 
 def _attention_bwd_plain(
-    q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, g: Tensor, scale: float
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    o: Tensor,
+    lse: Tensor,
+    g: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
 ) -> tuple[Tensor, Tensor, Tensor]:
     r"""Plain PyTorch version of `_pallas_attention_bwd` and
     `_pallas_attention_batched_bwd` (azula_tpu/ops/attention.py) on
     (B, H, L, D): g cast to the inputs' dtype, p = exp(s - lse) rebuilt in
-    float32 from the float32 (B, H, L) log-sum-exp, then the rounding points
-    of `_softmax_grads`. Returns dq, dk, dv in the inputs' dtype."""
+    float32 from the scaled scores plus the bias and the float32 (B, H, L)
+    log-sum-exp, then the rounding points of `_softmax_grads`, with the keep
+    mask of `seed` under dropout. Returns dq, dk, dv in the inputs' dtype."""
 
     dtype = q.dtype
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g.to(dtype)))
 
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + _bias_bhll(bias, mode, *q.shape[:2]).float()
     p = torch.exp(s - lse[..., None])
+    keep = dropout_keep_mask(*q.shape[:3], seed, rate).to(q.device) if rate > 0 else None
 
-    return tuple(t.to(dtype) for t in _softmax_grads(qf, kf, vf, of, gf, p, scale, dtype))
+    return tuple(t.to(dtype) for t in _softmax_grads(qf, kf, vf, of, gf, p, scale, dtype, keep, rate))
 
 
 def _check_bhld(tensors: tuple[Tensor, ...], name: str) -> tuple[int, int, int, int]:
@@ -182,25 +382,63 @@ def _check_bhld(tensors: tuple[Tensor, ...], name: str) -> tuple[int, int, int, 
 
     if D not in _HEAD_DIMS:
         raise ValueError(f"the {name} kernel takes head dims {_HEAD_DIMS}, got {D}")
-    if B * H > 65535:
-        raise ValueError(f"the {name} kernel takes at most 65535 (batch, head) pairs, got {B * H}")
 
     return B, H, L, D
 
 
-def _launch_attention(name: str, q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+def _mask_args(q: Tensor, bias: Tensor | None, mode: str, seed: Tensor | None, rate: float) -> tuple:
+    r"""Raises unless the bias and seed are what the kernels take; returns the
+    mask arguments of their C entries: the bias, its group divisor and
+    modulus (pair p = b H + h reads group (p // div) % mod), the seed, the
+    signed keep threshold and 1 - rate."""
+
+    B, H, L, _ = q.shape
+    Bm, Hm = _bias_extents(mode, B, H)
+    groups, div, mod = Bm * Hm, H if Hm == 1 else 1, Bm * Hm
+
+    if bias is not None:
+        if bias.shape != (groups, L, L) or bias.dtype != q.dtype or bias.device != q.device or not bias.is_contiguous():
+            raise ValueError(f"the '{mode}' bias must be a contiguous {(groups, L, L)} tensor of q's dtype and device")
+    if rate <= 0:
+        return (None if bias is None else bias.data_ptr()), div, mod, None, 0, 1.0
+    if seed is None or seed.shape != (2,) or seed.dtype != torch.int32 or seed.device != q.device:
+        raise ValueError(f"dropout takes two int32 seed words on {q.device}")
+
+    return (None if bias is None else bias.data_ptr()), div, mod, seed.data_ptr(), _dropout_threshold(rate), 1 - rate
+
+
+def _form(bias: Tensor | None, rate: float) -> str:
+    r"""The suffix of a kernel form's launch count: "", "_bias", "_dropout"
+    or "_bias_dropout"."""
+
+    return ("_bias" if bias is not None else "") + ("_dropout" if rate > 0 else "")
+
+
+def _launch_attention(
+    name: str,
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
+) -> Tensor:
     r"""Launches the inference entry `azula_<name>` of `csrc/attention_fwd.cu`
-    on CUDA tensors (B, H, L, D)."""
+    on CUDA tensors (B, H, L, D); the exact entry takes a bias and dropout."""
 
     B, H, L, D = _check_bhld((q, k, v), name)
     o = torch.empty_like(q)
 
-    status = getattr(_build.library(), f"azula_{name}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
-    )
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H, L, D, scale, _DTYPES[q.dtype]]
+    args.append(_build.stream(q.device))
+    if name == "attention_fwd":
+        args.extend(_mask_args(q, bias, mode, seed, rate))
+
+    status = getattr(_build.library(), f"azula_{name}")(*args)
     _build.check(status, name)
-    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[name + _form(bias, rate)] += 1
 
     return o
 
@@ -210,10 +448,20 @@ _TRAINING_ROUTE = "under grad, dot_product_attention takes the LSE forward and t
 
 
 @_build.forward_only("attention_fwd", _TRAINING_ROUTE)
-def _attention_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    r"""Launches the exact flash forward of `csrc/attention_fwd.cu`."""
+def _attention_kernel(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
+) -> Tensor:
+    r"""Launches the exact flash forward of `csrc/attention_fwd.cu`, with the
+    (Gm, L, L) `bias` of `mode` and the dropout of `seed` at `rate`."""
 
-    return _launch_attention("attention_fwd", q, k, v, scale)
+    return _launch_attention("attention_fwd", q, k, v, scale, bias, mode, seed, rate)
 
 
 @_build.forward_only("attention_fwd_max_free", _TRAINING_ROUTE)
@@ -223,9 +471,19 @@ def _attention_max_free_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) ->
     return _launch_attention("attention_fwd_max_free", q, k, v, scale)
 
 
-def _attention_lse_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> tuple[Tensor, Tensor]:
-    r"""Launches the LSE entry of `csrc/attention_fwd.cu`; returns o and the
-    float32 (B, H, L) log-sum-exp."""
+def _attention_lse_kernel(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
+) -> tuple[Tensor, Tensor]:
+    r"""Launches the LSE entry of `csrc/attention_fwd.cu`, with the
+    (Gm, L, L) `bias` of `mode` and the dropout of `seed` at `rate`; returns
+    o and the float32 (B, H, L) log-sum-exp."""
 
     B, H, L, D = _check_bhld((q, k, v), "attention_fwd_lse")
     o = torch.empty_like(q)
@@ -234,18 +492,29 @@ def _attention_lse_kernel(q: Tensor, k: Tensor, v: Tensor, scale: float) -> tupl
     status = _build.library().azula_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
+        *_mask_args(q, bias, mode, seed, rate),
     )
     _build.check(status, "attention_fwd_lse")
-    _build.LAUNCHES["attention_fwd_lse"] += 1
+    _build.LAUNCHES["attention_fwd_lse" + _form(bias, rate)] += 1
 
     return o, lse
 
 
 def _attention_bwd_kernel(
-    q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, g: Tensor, scale: float
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    o: Tensor,
+    lse: Tensor,
+    g: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
 ) -> tuple[Tensor, Tensor, Tensor]:
     r"""Launches `csrc/attention_bwd.cu` (its dq and dk/dv kernels, counted as
-    one launch); returns dq, dk, dv."""
+    one launch), with the forward's bias and dropout; returns dq, dk, dv."""
 
     B, H, L, D = _check_bhld((q, k, v, o, g), "attention_bwd")
     if lse.shape != (B, H, L) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
@@ -258,52 +527,71 @@ def _attention_bwd_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
+        *_mask_args(q, bias, mode, seed, rate),
     )
     _build.check(status, "attention_bwd")
-    _build.LAUNCHES["attention_bwd"] += 1
+    _build.LAUNCHES["attention_bwd" + _form(bias, rate)] += 1
 
     return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
-    r"""JAX's `_flash` with its custom vjp (`_flash_fwd`, `_flash_bwd`) as a
-    node of the autograd graph: the forward saves q, k, v, o and the rows'
-    log-sum-exp, the backward rebuilds the softmax from them; the kernels on
-    the card, or the plain versions on the CPU. Like the custom vjp, it has
-    no second derivative."""
+    r"""JAX's `_flash`, `_flash_biased`, `_flash_dropout` and
+    `_flash_dropout_biased` with their custom vjps as a node of the autograd
+    graph: the forward saves q, k, v, o, the rows' log-sum-exp, the bias and
+    the seed, the backward rebuilds the softmax (and the keep mask) from
+    them; the kernels on the card, or the plain versions on the CPU. The
+    bias, which comes from a boolean mask, and the seed get no gradient.
+    Like the custom vjps, it has no second derivative."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, kernel):
-        o, lse = (_attention_lse_kernel if kernel else _attention_lse_plain)(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.kernel = scale, kernel
+    def forward(ctx, q, k, v, scale, kernel, bias=None, mode="one", seed=None, rate=0.0):
+        lse_fn = _attention_lse_kernel if kernel else _attention_lse_plain
+        o, lse = lse_fn(q, k, v, scale, bias, mode, seed, rate)
+        ctx.save_for_backward(q, k, v, o, lse, bias, seed)
+        ctx.scale, ctx.kernel, ctx.mode, ctx.rate = scale, kernel, mode, rate
 
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, bias, seed = ctx.saved_tensors
         g = g.to(q.dtype)  # as `_pallas_attention_bwd` casts the cotangent
 
         if ctx.kernel:
-            dq, dk, dv = _attention_bwd_kernel(q, k, v, o, lse, g.contiguous(), ctx.scale)
+            bwd_fn, g = _attention_bwd_kernel, g.contiguous()
         else:
-            dq, dk, dv = _attention_bwd_plain(q, k, v, o, lse, g, ctx.scale)
+            bwd_fn = _attention_bwd_plain
+        dq, dk, dv = bwd_fn(q, k, v, o, lse, g, ctx.scale, bias, ctx.mode, seed, ctx.rate)
 
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def _flash(q: Tensor, k: Tensor, v: Tensor, scale: float, implementation: str | None = None) -> Tensor:
+def _flash(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    scale: float,
+    implementation: str | None = None,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
+) -> Tensor:
     r"""Differentiable flash attention over :math:`(B, H, L, D)` tensors, for
-    unmasked, dropout-free self-attention.
+    self-attention with an optional additive bias and attention dropout.
 
-    Port of `azula_tpu.ops.attention._flash` under `jax.grad`: the forward
-    writes the rows' log-sum-exp, and the backward casts the cotangent to the
-    inputs' dtype and returns dq, dk, dv. JAX's `_flash_fwd` writes the LSE
-    above :math:`L = 512` only and its batched backward recomputes the
-    softmax below; here the LSE is written at every length, which gives the
-    same function. `max_free` does not apply: `_flash_fwd` ignores it.
+    Port of `azula_tpu.ops.attention._flash` under `jax.grad`, and of
+    `_flash_biased`, `_flash_dropout` and `_flash_dropout_biased`: the
+    forward writes the rows' log-sum-exp, and the backward casts the
+    cotangent to the inputs' dtype and returns dq, dk, dv. JAX's
+    `_flash_fwd` writes the LSE above :math:`L = 512` only and its batched
+    backward recomputes the softmax below; here the LSE is written at every
+    length, which gives the same function. `max_free` does not apply:
+    `_flash_fwd` ignores it. JAX's dropout forward is
+    `_pallas_attention_blocked`, whose weights the LSE entry rounds as it
+    does.
 
     Arguments:
         q, k, v: Queries, keys and values, with shape :math:`(B, H, L, D)`.
@@ -311,6 +599,12 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, scale: float, implementation: str | 
         implementation: :py:`None` or `'auto'` (the kernels for CUDA tensors,
             the plain versions for CPU tensors), `'kernel'` (raises on the
             CPU) or `'plain'`.
+        bias: An optional (Gm, L, L) additive bias in q's dtype, from
+            `_mask_to_bias`.
+        mode: The bias's broadcast mode: `'full'`, `'batch'`, `'head'` or
+            `'one'`.
+        seed: The two int32 seed words of the dropout, on q's device.
+        rate: The dropout rate.
 
     Returns:
         The attention output, with shape :math:`(B, H, L, D)`.
@@ -326,7 +620,48 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, scale: float, implementation: str | 
     if kernel:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
 
-    return _Flash.apply(q, k, v, scale, kernel)
+    return _Flash.apply(q, k, v, scale, kernel, bias, mode, seed, rate)
+
+
+def _self_attention(q: Tensor, k: Tensor, v: Tensor) -> bool:
+    r"""Whether the attention kernels take (q, k, v) at all: (B, H, L, D)
+    self-attention of one shape, dtype and device, in float32 or bfloat16,
+    with D one of the kernels' head dims (what JAX's kernels take: D of 64,
+    128, 192 or 256, and also 32)."""
+
+    return (
+        q.ndim == 4
+        and k.shape == v.shape == q.shape
+        and q.dtype in _DTYPES
+        and k.dtype == v.dtype == q.dtype
+        and k.device == v.device == q.device
+        and q.shape[-1] in _HEAD_DIMS
+    )
+
+
+def _use_kernels(q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None, floor: int) -> bool:
+    r"""JAX's `_use_pallas` without its TPU check, for masked or dropout
+    calls: self-attention with :math:`L \geq \max(floor, 128)`,
+    :math:`L \bmod 128 = 0`, :math:`D \bmod 64 = 0`, :math:`D \leq 256`,
+    and no mask or a boolean one that broadcasts to (B, H, L, L) along B
+    and H. Float masks keep the plain route, where they have a gradient."""
+
+    if not _self_attention(q, k, v):
+        return False
+
+    B, H, L, D = q.shape
+
+    if not (L >= max(floor, 128) and L % 128 == 0 and D % 64 == 0 and D <= 256):
+        return False
+
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.ndim > 4:
+            return False
+        shape = (1,) * (4 - mask.ndim) + tuple(mask.shape)
+        if shape[2:] != (L, L) or shape[0] not in (1, B) or shape[1] not in (1, H):
+            return False
+
+    return True
 
 
 def _max_free_route(q: Tensor) -> bool:
@@ -360,21 +695,40 @@ def dot_product_attention(
 
     .. math:: \mathrm{softmax}\left(\frac{q k^\top}{\sqrt{D}}\right) v
 
+    The route is chosen from the shapes before any launch, as the JAX
+    package chooses between its kernels and XLA. Unmasked, dropout-free
+    self-attention of a kernel head dim (32, 64, 128, 192 or 256) in float32
+    or bfloat16 takes the kernels at every length. A boolean mask (as an
+    additive bias, `_mask_to_bias`) or dropout takes them where JAX's
+    `_use_pallas` admits the call: self-attention, :math:`L \bmod 128 = 0`,
+    :math:`D \in \{64, 128, 192, 256\}`, :math:`L \geq 512` (128 with
+    dropout), a mask that broadcasts along B and H. Everything else (cross
+    attention, other head dims or dtypes, float masks, which keep their
+    gradient there) takes the plain version, and dropout its Bernoulli
+    fallback. A row that a boolean mask masks everywhere gives the mean of
+    v on the kernels' route (as on the TPU) and NaN on the plain one (as on
+    XLA).
+
     Arguments:
         q: Queries, with shape :math:`(*, H, L, D)`.
-        k: Keys, with shape :math:`(*, H, L, D)`.
-        v: Values, with shape :math:`(*, H, L, D)`.
-        mask: Optional boolean or additive mask, broadcastable to :math:`(L, L)`.
-            Only the plain version takes it.
-        dropout_rate: Attention-weight dropout rate. Not ported yet: must be 0.
-        generator: The generator of the dropout mask (the JAX `key`).
+        k: Keys, with shape :math:`(*, H, S, D)`.
+        v: Values, with shape :math:`(*, H, S, D)`.
+        mask: Optional boolean or additive mask, broadcastable to :math:`(L, S)`.
+        dropout_rate: Attention-weight dropout rate.
+        generator: The generator of the dropout (the JAX `key`), required
+            when `dropout_rate > 0`, on the tensors' device: the kernels'
+            hash takes two seed words from it, the Bernoulli fallback its
+            mask.
         scale: Logit scale; defaults to :math:`1 / \sqrt{D}`.
         implementation: :py:`None` or `'auto'` (the kernels for CUDA
-            tensors, the plain version for CPU tensors), `'kernel'` (raises on
-            the CPU) or `'plain'`. When autograd records a kernel call (grad
+            tensors, the plain version for CPU tensors, but for dropout at
+            the kernels' shapes, where the CPU runs the kernels' plain
+            versions, so that one seed drops the same weights on both
+            devices), `'kernel'` (raises on the CPU) or `'plain'` (JAX's
+            path off the TPU). When autograd records a kernel call (grad
             enabled and any of q, k, v requiring it), the call goes to
             :func:`_flash`, the LSE forward and the backward kernels, as
-            JAX's `_flash` custom vjp runs under `jax.grad`; otherwise to the
+            JAX's custom vjps run under `jax.grad`; otherwise to the
             inference forward. The plain version is differentiated by
             autograd, the counterpart of JAX's XLA path on the CPU.
         max_free: The softmax without a row max, for logits bounded by
@@ -394,27 +748,40 @@ def dot_product_attention(
     if implementation not in (None, "auto", "kernel", "plain"):
         raise ValueError(f"unknown attention implementation '{implementation}'")
 
-    if dropout_rate > 0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (the dropout hash, ROADMAP A17 (c))"
-        )
+    if dropout_rate > 0 and generator is None:
+        raise ValueError("attention dropout requires a `generator`")
 
     if scale is None:
         scale = 1 / math.sqrt(q.shape[-1])
 
-    if implementation in (None, "auto"):
-        implementation = "kernel" if q.device.type == "cuda" else "plain"
+    masked = mask is not None or dropout_rate > 0
+    if masked:
+        covered = _use_kernels(q, k, v, mask, floor=128 if dropout_rate > 0 else 512)
+    else:
+        covered = _self_attention(q, k, v)
 
-    if implementation == "plain":
+    if implementation == "plain" or not covered:
+        if dropout_rate > 0:
+            return _attention_dropout_plain(q, k, v, mask, dropout_rate, generator, scale)
         return _attention_plain(q, k, v, mask=mask, scale=scale)
 
-    if mask is not None:
-        raise NotImplementedError(
-            "the attention kernels take no mask yet (the bias modes, ROADMAP A17 (c))"
-        )
+    on_card = implementation == "kernel" or q.device.type == "cuda"
+    if not on_card and dropout_rate == 0:
+        return _attention_plain(q, k, v, mask=mask, scale=scale)
+
+    bias, mode = (None, "one") if mask is None else _mask_to_bias(mask, q)
+    seed = _dropout_seed(generator, q.device) if dropout_rate > 0 else None
+
+    if not on_card:
+        return _flash(q, k, v, scale, "plain", bias, mode, seed, dropout_rate)
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if masked:
+            return _flash(q, k, v, scale, implementation="kernel", bias=bias, mode=mode, seed=seed, rate=dropout_rate)
         return _flash(q, k, v, scale, implementation="kernel")
+
+    if masked:
+        return _attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale, bias, mode, seed, dropout_rate)
 
     kernel = _attention_max_free_kernel if max_free and _max_free_route(q) else _attention_kernel
 

@@ -107,7 +107,9 @@ class Sampler(abc.ABC):
         if self.requires_generator and generator is None:
             raise ValueError(f"{type(self).__name__} is stochastic: a `generator` is required.")
 
-        time = _linspace(self.start, self.stop, self.steps + 1, x.dtype, x.device)
+        # in float32, then cast, as JAX builds the grid: a bf16 linspace
+        # rounds its points one by one, and at 250 steps gives zero-length steps
+        time = _linspace(self.start, self.stop, self.steps + 1, torch.float32, x.device).to(x.dtype)
 
         for i in range(self.steps):
             x = self.step(x, time[i], time[i + 1], generator=generator, **kwargs)

@@ -91,7 +91,31 @@ Phases, each of which raises on failure:
    tokens), bf16, batch 128, AdamW, as phase 12: exactly 12 LSE forwards and
    12 backward launches per step and no other kernel. Prints train images/s,
    ms/step, peak memory and a profile of one step.
-19. the kernels line `{"kernels": [...]}`, then the result line.
+19. attention masks and dropout: the exact, LSE and backward kernels with a
+   bias (a boolean mask in the "full", "batch", "head" and "one" modes) or
+   dropout or both, against their plain versions in bf16 and float32: masks
+   in each mode at L = 1024, 512 and 256, a mask at (1, 24, 4608, 128),
+   dropout 0.1 at dit64's (128, 6, 1024, 64) with and without a key-padding
+   mask, D = 192 and 256 and ragged L. The keep mask is read out bit for bit
+   (q = k = 0, v = I) from the forward and the backward and held against
+   `dropout_keep_mask` on the card and on the CPU. Each form is timed at
+   dit64's shape beside its unmasked, dropout-free form, SDPA with the same
+   mask and dropout, the plain version and the bound.
+20. routes: cross-attention (77 keys, heads of 40), heads of 80 and a float
+   mask on CUDA tensors through `dot_product_attention` take the plain
+   version with finite gradients; D = 192 and 256 and 70,000 (batch, head)
+   pairs take the kernels.
+21. the dropout and mask slices: the 64 x 64 ViT of phase 17 with dropout
+   0.1 on the CPU and on the card with injected seed words and FFN masks
+   (loss and gradients, exactly 2 dropout forwards and backwards per step);
+   `checkpointing=True` against `False` on the card; a masked
+   `MultiheadSelfAttention` at L = 1024, CPU against card, through each
+   biased and dropout form.
+22. dit64 training with dropout 0.1 at full width, as phase 18: exactly 12
+   dropout forwards and 12 dropout backwards per step and no other kernel;
+   prints train images/s, ms/step, peak memory and a profile beside phase
+   18's numbers.
+23. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -176,6 +200,20 @@ DIT64_SHAPE = (
     (DIT64_SIDE // DIT32["patch_size"]) ** 2,
     DIT32["hid_channels"] // DIT32["attention_heads"],
 )
+
+# attention masks and dropout (phases 19-22): DiT's training dropout rate; the
+# nine forms of the attention kernels with a bias (a boolean mask), dropout or
+# both, each counted under its own name; dit64 training with dropout: one
+# dropout LSE forward and one dropout backward per block and step; the seed
+# words injected where the CPU and the card must drop the same weights
+DROPOUT = 0.1
+MASKED_FORMS = tuple(
+    f"{entry}{form}"
+    for entry in ("attention_fwd", "attention_fwd_lse", "attention_bwd")
+    for form in ("_bias", "_dropout", "_bias_dropout")
+)
+DIT64_DROPOUT_CALLS_PER_STEP = {"attention_fwd_lse_dropout": 12, "attention_bwd_dropout": 12}
+SEED_WORDS = (-1640531527, 1013904223)
 
 # FLUX.1-dev (the `FluxTransformer` defaults, 19 dual-stream and 38
 # single-stream blocks, 24 heads of 128) at 1024 x 1024: a (1, 64, 64, 64)
@@ -312,9 +350,9 @@ def recording():
         affine.setdefault(key, (P.clone(), Q.clone(), eps))
         return gn_kernel(x, P, Q, groups, eps, silu)
 
-    def attn(q, k, v, scale):
+    def attn(q, k, v, scale, *masked):
         calls[("attn", tuple(q.shape), q.dtype, scale)] += 1
-        return attn_kernel(q, k, v, scale)
+        return attn_kernel(q, k, v, scale, *masked)
 
     def msa(qkv, cos2, sin2, heads, eps, scale):
         calls[("msa", tuple(qkv.shape), qkv.dtype, heads, eps, scale, cos2 is not None)] += 1
@@ -541,11 +579,12 @@ def check_slice() -> None:
         raise AssertionError("the card path did not run every kernel")
 
 
-def dit32_model(generator: torch.Generator) -> KarrasDenoiser:
+def dit32_model(generator: torch.Generator, **kwargs) -> KarrasDenoiser:
     r"""bench.py's dit32 denoiser, with the modules' own initialization drawn
-    from `generator`, cast to bf16 as a whole."""
+    from `generator`, cast to bf16 as a whole; `kwargs` go to the blocks
+    (`dropout`)."""
 
-    vit = ViT(3, 3, **DIT32, device="cuda", generator=generator)
+    vit = ViT(3, 3, **DIT32, device="cuda", generator=generator, **kwargs)
     backbone = Modulated(vit, DIT32["mod_features"], device="cuda", generator=generator)
 
     return KarrasDenoiser(backbone.to(torch.bfloat16), VPSchedule())
@@ -768,8 +807,12 @@ def profile_step(step) -> None:
         launched += event.count
         if "gn_partial_kernel" in name or "gn_fold_kernel" in name or "gn_apply_kernel" in name:
             kind = "group_norm (ours)"
+        elif "attention_fwd_lse_kernel" in name and "true" in name:
+            kind = "attention dropout forward (ours)"
         elif "attention_fwd_lse_kernel" in name:
             kind = "attention LSE forward (ours)"
+        elif ("attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name) and "true" in name:
+            kind = "attention dropout backward (ours)"
         elif "attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name:
             kind = "attention backward (ours)"
         elif "attention_fwd_kernel" in name and "true" in name:
@@ -999,26 +1042,46 @@ def check_train_slice(side: int, calls_per_step: dict) -> None:
         raise AssertionError("the training slice on the card did not run exactly its route's kernels")
 
 
-def train_full_width(side: int, calls_per_step: dict, generator) -> dict:
+def train_full_width(side: int, calls_per_step: dict, generator, dropout: float | None = None) -> dict:
     r"""`bench.py`'s dit32_train on `side` x `side` images: the bf16 dit32
     model, batch 128, fixed x and t, fresh noise every step, AdamW with
     optax's settings, through `TrainState.step`: warm-up steps, then timed
     steps with finite losses and exactly `calls_per_step` launches per step
-    and no other kernel. Prints train images/s, ms/step, peak memory and a
-    profile of one step; returns the timed steps' launches."""
+    and no other kernel. With `dropout`, the blocks drop attention weights
+    and FFN activations at that rate, drawn from `generator`: JAX's `loss`
+    spends its key on the noise, so the step hands the generator to the
+    denoiser and takes the weighted loss itself (`_loss` on fresh noise).
+    Prints train images/s, ms/step, peak memory and a profile of one step;
+    returns the timed steps' launches, ms/step, train images/s and peak
+    memory."""
 
-    dit = dit32_model(generator)
+    dit = dit32_model(generator, dropout=dropout)
     x_train = torch.randn((DIT_BATCH, side, side, 3), generator=generator, device="cuda")
     t_train = torch.rand((DIT_BATCH,), generator=generator, device="cuda")
-    state = train.TrainState(dit, torch.optim.AdamW(dit.parameters(), **train.OPTAX_ADAMW))
+    optimizer = torch.optim.AdamW(dit.parameters(), **train.OPTAX_ADAMW)
+
+    if dropout is None:
+        state = train.TrainState(dit, optimizer)
+
+        def step():
+            return state.step(x_train, t_train, generator)
+    else:
+        def step():
+            z = torch.randn(x_train.shape, generator=generator, device="cuda")
+            loss = dit._loss(x_train, t_train, z, generator=generator)
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            return loss.detach()
+
     for _ in range(DIT_TRAIN_WARMUP):
-        state.step(x_train, t_train, generator)
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     _build.LAUNCHES.clear()
     t0 = time.perf_counter()
-    losses = [state.step(x_train, t_train, generator) for _ in range(DIT_TRAIN_STEPS)]
+    losses = [step() for _ in range(DIT_TRAIN_STEPS)]
     torch.cuda.synchronize()
     train_seconds = time.perf_counter() - t0
     train_launches = dict(_build.LAUNCHES)
@@ -1031,16 +1094,21 @@ def train_full_width(side: int, calls_per_step: dict, generator) -> dict:
     log(f"launches {train_launches}, expected {expected}")
     if train_launches != expected:
         raise AssertionError(f"the {side}x{side} training path's launch counts are not exact")
-    log(f"{side}x{side} training {train_seconds:.3f} s for {DIT_TRAIN_STEPS} steps: "
-        f"{DIT_BATCH * DIT_TRAIN_STEPS / train_seconds:.4f} train images/s, "
-        f"{train_seconds / DIT_TRAIN_STEPS * 1e3:.3f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
-        f"loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
-    profile_step(lambda: state.step(x_train, t_train, generator))
+    result = dict(  # noqa: C408
+        launches=train_launches,
+        ms=train_seconds / DIT_TRAIN_STEPS * 1e3,
+        images_s=DIT_BATCH * DIT_TRAIN_STEPS / train_seconds,
+        peak_gib=peak / 2**30,
+    )
+    log(f"{side}x{side} training{'' if dropout is None else f' with dropout {dropout}'} {train_seconds:.3f} s for "
+        f"{DIT_TRAIN_STEPS} steps: {result['images_s']:.4f} train images/s, {result['ms']:.3f} ms/step, "
+        f"peak memory {result['peak_gib']:.2f} GiB; loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
+    profile_step(step)
 
-    del state, dit, x_train, t_train
+    del step, optimizer, dit, x_train, t_train
     torch.cuda.empty_cache()
 
-    return train_launches
+    return result
 
 
 def check_attention_training(generator) -> dict:
@@ -1257,6 +1325,396 @@ def check_flux_slice() -> None:
         raise AssertionError("the tiny Flux slice's launch counts are not exact")
 
 
+def mode_mask(mode: str, B: int, H: int, L: int, generator) -> torch.Tensor:
+    r"""A random boolean mask of one broadcast mode over (B, H) that keeps
+    ~70% of the keys and the first key of every row."""
+
+    shape = {"full": (B, H), "batch": (B, 1), "head": (1, H), "one": (1, 1)}[mode]
+    mask = torch.rand((*shape, L, L), generator=generator, device="cuda") < 0.7
+    mask[..., 0] = True
+    return mask
+
+
+def padding_mask(B: int, L: int, generator) -> torch.Tensor:
+    r"""A (B, 1, L, L) key-padding mask, the "batch" mode: batch row b attends
+    to its first n_b keys, n_b uniform in [L / 2, L]."""
+
+    lengths = torch.randint(L // 2, L + 1, (B,), generator=generator, device="cuda")
+    keys = torch.arange(L, device="cuda")
+    return (keys < lengths[:, None])[:, None, None, :].expand(B, 1, L, L)
+
+
+def masked_case(shape, dtype, mask, rate, generator, backward=True) -> dict:
+    r"""The LSE entry, the exact entry and the backward with the bias of
+    `mask` (or none) and dropout at `rate` (seed `SEED_WORDS`) against their
+    plain versions; the plain backward takes the kernel's own o and lse.
+    Raises past the tolerance; returns the errors by output."""
+
+    B, H, L, D = shape
+    scale = 1 / math.sqrt(D)
+    q, k, v, g = (torch.randn(shape, generator=generator, device="cuda").to(dtype) for _ in range(4))
+    bias, mode = (None, "one") if mask is None else attention._mask_to_bias(mask, q)
+    seed = torch.tensor(SEED_WORDS, dtype=torch.int32, device="cuda") if rate > 0 else None
+    masked = (bias, mode, seed, rate)
+
+    o, lse = attention._attention_lse_kernel(q, k, v, scale, *masked)
+    want_o, want_lse = attention._attention_lse_plain(q, k, v, scale, *masked)
+    errs = {"o": errors(o, want_o), "lse": errors(lse, want_lse)}
+    errs["o of the exact entry"] = errors(attention._attention_kernel(q, k, v, scale, *masked), want_o)
+    del want_o, want_lse
+    if backward:
+        grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale, *masked)
+        want_grads = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, *masked)
+        errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
+        del grads, want_grads
+
+    tol = TOL_ATTN[dtype]
+    label = f"{'no mask' if mask is None else f'{mode} mask'}{f', dropout {rate}' if rate else ''}"
+    log(f"  {shape} {str(dtype)[6:]}, {label}: rel err "
+        + ", ".join(f"{name} {rel:.3e}" for name, (_, rel) in errs.items()) + f" (tol {tol})")
+    bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
+    if bad:
+        raise AssertionError(f"masked attention kernels {shape} {dtype} {label}: {bad} > {tol}")
+
+    del q, k, v, g, o, lse, bias
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_keep_readout() -> None:
+    r"""The kernels' dropout keep mask read out bit for bit: at q = k = 0 and
+    v = I (L = D = 128) every weight is 1 / L, so the forward's output is
+    M / (L (1 - r)); with the cotangent g = I the backward's dv is its
+    transpose, the mask that the dk/dv kernel regenerated. Both must equal
+    `dropout_keep_mask` of the same seed words, on the card and on the CPU."""
+
+    B, H, L = 2, 3, 128
+    seed = torch.tensor(SEED_WORDS, dtype=torch.int32, device="cuda")
+    want = attention.dropout_keep_mask(B, H, L, seed, DROPOUT)
+    want_cpu = attention.dropout_keep_mask(B, H, L, seed.cpu(), DROPOUT)
+    if not torch.equal(want.cpu(), want_cpu):
+        raise AssertionError("dropout_keep_mask differs between the card and the CPU")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((B, H, L, L), dtype=dtype, device="cuda")
+        eye = torch.eye(L, dtype=dtype, device="cuda").expand(B, H, L, L).contiguous()
+        masked = (None, "one", seed, DROPOUT)
+
+        o, lse = attention._attention_lse_kernel(q, q, eye, 1.0, *masked)
+        exact = attention._attention_kernel(q, q, eye, 1.0, *masked)
+        _, _, dv = attention._attention_bwd_kernel(q, q, eye, o, lse, eye, 1.0, *masked)
+        reads = {"LSE entry": o > 0, "exact entry": exact > 0, "backward": dv.transpose(-1, -2) > 0}
+
+        for name, keep in reads.items():
+            if not torch.equal(keep, want):
+                raise AssertionError(f"the {name}'s keep mask ({str(dtype)[6:]}) differs from dropout_keep_mask "
+                                     f"in {int((keep != want).sum())} of {want.numel()} weights")
+        kept = o[want].float()
+        log(f"  keep mask read out bit for bit ({str(dtype)[6:]}): LSE entry, exact entry and backward equal "
+            f"dropout_keep_mask on the card and on the CPU, {want.float().mean().item():.4f} kept "
+            f"(rate {DROPOUT}); kept outputs {kept.min().item():.6g} to {kept.max().item():.6g}, "
+            f"1 / (L (1 - r)) = {1 / (L * (1 - DROPOUT)):.6g}")
+
+
+def check_masked_kernels(generator) -> dict:
+    r"""Phase 19: the nine masked and dropout forms of the attention kernels
+    against their plain versions, in bf16 and float32: masks in the four
+    modes at L = 1024, 512 and 256; a mask at FLUX.1's (1, 24, 4608, 128),
+    the blocked TPU kernel's length; dropout at dit64's shape with and
+    without a padding mask; D = 192 and 256; ragged L; the keep mask read
+    out bit for bit. Then each form, timed at dit64's shape in bf16 beside
+    its unmasked, dropout-free form, SDPA with the same mask and dropout,
+    the plain version and the bound."""
+
+    for L in (1024, 512, 256):
+        for mode in ("full", "batch", "head", "one"):
+            for dtype in (torch.bfloat16, torch.float32):
+                masked_case((4, 6, L, 64), dtype, mode_mask(mode, 4, 6, L, generator), 0.0, generator)
+    errs = {}  # by form, at dit64's shape in bf16
+    for dtype in (torch.bfloat16, torch.float32):
+        masked_case(FLUX_SHAPE, dtype, mode_mask("one", *FLUX_SHAPE[:3], generator), 0.0, generator)
+        pad = padding_mask(DIT_BATCH, DIT64_SHAPE[2], generator)
+        for form, (mask, rate) in {"_bias": (pad, 0.0), "_dropout": (None, DROPOUT), "_bias_dropout": (pad, DROPOUT)}.items():
+            case = masked_case(DIT64_SHAPE, dtype, mask, rate, generator)
+            if dtype == torch.bfloat16:
+                errs[form] = case
+        for D in (192, 256):
+            masked_case((2, 4, 512, D), dtype, mode_mask("head", 2, 4, 512, generator), DROPOUT, generator)
+        masked_case((2, 3, 1000, 64), dtype, mode_mask("full", 2, 3, 1000, generator), DROPOUT, generator)
+        masked_case((2, 4, 777, 32), dtype, None, DROPOUT, generator)
+    check_keep_readout()
+
+    # the timed forms at dit64's shape, bf16, with a key-padding mask
+    B, H, L, D = DIT64_SHAPE
+    dtype, scale = torch.bfloat16, 1 / math.sqrt(D)
+    q, k, v, g = (torch.randn(DIT64_SHAPE, generator=generator, device="cuda").to(dtype) for _ in range(4))
+    pad = padding_mask(B, L, generator)
+    bias, mode = attention._mask_to_bias(pad, q)
+    seed = torch.tensor(SEED_WORDS, dtype=torch.int32, device="cuda")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n, elt = q.numel(), q.element_size()
+    ops = {"fwd": 4 * B * H * L * L * D, "bwd": 10 * B * H * L * L * D}
+
+    entries = {}
+    baseline = {}
+    for form, (b, s, rate) in {
+        "": (None, None, 0.0),
+        "_bias": (bias, None, 0.0),
+        "_dropout": (None, seed, DROPOUT),
+        "_bias_dropout": (bias, seed, DROPOUT),
+    }.items():
+        masked = (b, mode, s, rate)
+        sdpa = dict(attn_mask=None if b is None else pad, dropout_p=rate, scale=scale)  # noqa: C408
+        o, lse = attention._attention_lse_kernel(q, k, v, scale, *masked)
+        out = F.scaled_dot_product_attention(*leaves, **sdpa)
+        # q, k, v read and o written once (the lse too, where written); a
+        # bias read once; the seed's 8 bytes; the hash's integer work is not
+        # counted (the peak table has no int32 rate)
+        extra = (0 if b is None else b.numel() * elt) + (0 if s is None else 8)
+
+        timings = {
+            "attention_fwd": (
+                elapsed_ms(lambda: attention._attention_kernel(q, k, v, scale, *masked)),
+                elapsed_ms(lambda: attention._attention_lse_plain(q, k, v, scale, *masked), reps=3, warmup=1),
+                elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)),
+                bound_ms(4 * n * elt + extra, ops["fwd"], dtype),
+            ),
+            "attention_fwd_lse": (
+                elapsed_ms(lambda: attention._attention_lse_kernel(q, k, v, scale, *masked)),
+                elapsed_ms(lambda: attention._attention_lse_plain(q, k, v, scale, *masked), reps=3, warmup=1),
+                elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)),
+                bound_ms(4 * n * elt + lse.numel() * 4 + extra, ops["fwd"], dtype),
+            ),
+            "attention_bwd": (
+                elapsed_ms(lambda: attention._attention_bwd_kernel(q, k, v, o, lse, g, scale, *masked)),
+                elapsed_ms(lambda: attention._attention_bwd_plain(q, k, v, o, lse, g, scale, *masked),
+                           reps=3, warmup=1),
+                elapsed_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)),
+                bound_ms(8 * n * elt + lse.numel() * 4 + extra, ops["bwd"], dtype),
+            ),
+        }
+        del out
+        for entry, (ms, plain, library, (bound, by)) in timings.items():
+            kind = "bwd" if entry == "attention_bwd" else "fwd"
+            name = entry + form
+            line = (f"  {name} at {DIT64_SHAPE} bf16{'' if b is None else ' (batch padding mask)'}: {ms:.4f} ms "
+                    f"({ops[kind] / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+                    f"bound {bound:.4f} ms ({by})")
+            if not form:
+                baseline[entry] = ms
+                log(line)
+                continue
+            log(line + f"; {ms / baseline[entry]:.3f}x the unmasked, dropout-free form's {baseline[entry]:.4f} ms")
+            # per call, but for the dit64 dropout path's forms: per train step
+            calls = DIT64_DROPOUT_CALLS_PER_STEP.get(name, 1)
+            entries[name] = dict(ms=calls * ms, plain_ms=calls * plain, library_ms=calls * library,  # noqa: C408
+                                 bound_ms=calls * bound, bound_by=collections.Counter({by: calls * bound}))
+        del o, lse
+
+    # each form's errors at dit64's shape in bf16
+    outputs = {"attention_fwd": ("o of the exact entry",), "attention_fwd_lse": ("o", "lse"),
+               "attention_bwd": ("dq", "dk", "dv")}
+    for name, entry in entries.items():
+        kernel, form = next((k, name[len(k):]) for k in ("attention_fwd_lse", "attention_bwd", "attention_fwd")
+                            if name.startswith(k))
+        abs_err, rel_err = max((errs[form][output] for output in outputs[kernel]), key=lambda e: e[1])
+        entry.update(max_abs_err=abs_err, max_err=rel_err)
+
+    del q, k, v, g, leaves, bias, pad
+    torch.cuda.empty_cache()
+    return entries
+
+
+def check_routes(generator) -> None:
+    r"""Phase 20: calls that the JAX package computes, on CUDA tensors
+    through `dot_product_attention`, each on the route `_use_pallas` gives:
+    SD's cross-attention (77 text tokens, heads of 40), JiT-H's heads of 80
+    and a float (additive) mask take the plain version, with finite
+    gradients (the mask's too); D = 192 and 256 and 70,000 (batch, head)
+    pairs take the kernels and agree with the plain version."""
+
+    def run(name, q, k, v, expected, mask=None, grad=True):
+        leaves = [t.requires_grad_(grad) for t in (q, k, v)] + ([mask] if mask is not None and grad else [])
+        before = collections.Counter(_build.LAUNCHES)
+        with torch.set_grad_enabled(grad):
+            y = attention.dot_product_attention(q, k, v, mask=mask)
+            grads = torch.autograd.grad(y.float().square().sum(), [t for t in leaves if t.requires_grad]) if grad else ()
+        launched = dict(collections.Counter(_build.LAUNCHES) - before)
+        if launched != expected:
+            raise AssertionError(f"{name}: launches {launched}, expected {expected}")
+        want = attention._attention_plain(q.detach(), k.detach(), v.detach(), mask=mask, scale=1 / math.sqrt(q.shape[-1]))
+        _, rel_err = errors(y.detach(), want)
+        finite = all(bool(torch.isfinite(t).all()) for t in grads)
+        tol = TOL_ATTN[q.dtype]
+        log(f"  {name}: q {tuple(q.shape)}, k {tuple(k.shape)} {str(q.dtype)[6:]}, launches {launched or 'none'}, "
+            f"rel err {rel_err:.3e} against the plain version (tol {tol}), {len(grads)} finite gradients: {finite}")
+        if rel_err > tol or not finite:
+            raise AssertionError(f"{name}: the attention or its gradients disagree")
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=generator, device="cuda").to(dtype)
+
+    run("SD cross-attention", randn(2, 8, 1024, 40), randn(2, 8, 77, 40), randn(2, 8, 77, 40), {})
+    run("JiT-H heads of 80", randn(2, 16, 256, 80), randn(2, 16, 256, 80), randn(2, 16, 256, 80), {})
+    mask = (2 * torch.randn((512, 512), generator=generator, device="cuda")).requires_grad_()
+    run("float mask", randn(2, 3, 512, 64), randn(2, 3, 512, 64), randn(2, 3, 512, 64), {}, mask=mask)
+    for D in (192, 256):
+        x = [randn(2, 4, 512, D) for _ in range(3)]
+        run(f"D = {D}, training", *x, {"attention_fwd_lse": 1, "attention_bwd": 1})
+        run(f"D = {D}, inference", *(t.detach() for t in x), {"attention_fwd": 1}, grad=False)
+    run("70,000 (batch, head) pairs", *(randn(35000, 2, 64, 32) for _ in range(3)), {"attention_fwd": 1}, grad=False)
+
+
+class InjectedDropout(torch.nn.Module):
+    r"""The FFN's `Dropout` with its keep masks drawn on the CPU from a numpy
+    generator shared by the CPU and card models, call by call, so that both
+    drop the same activations (as the attention's seed words are injected)."""
+
+    def __init__(self, rate: float, rng: np.random.Generator) -> None:
+        super().__init__()
+        self.rate, self.rng = rate, rng
+
+    def forward(self, x, generator=None):
+        keep = torch.from_numpy(self.rng.random(tuple(x.shape)) >= self.rate).to(x.device)
+        return torch.where(keep, x / (1 - self.rate), 0.0).to(x.dtype)
+
+
+def check_masked_slice(generator) -> dict:
+    r"""Phase 21: the ViT of phase 17 (64 x 64 images, 1024 tokens) with
+    attention and FFN dropout 0.1, on the CPU and on the card, float32, same
+    weights, noise and injected seed words and FFN masks: the loss and every
+    parameter's gradient of two steps, with exactly 2 dropout forwards and 2
+    dropout backwards per step; then `checkpointing=True` against `False` on
+    the card for one generator state. Then a `MultiheadSelfAttention` at
+    L = 1024 with a key-padding mask, CPU against card: with and without
+    dropout under grad (the biased forms' forward and backward), and the
+    three inference forms. Returns the launches of the slice's run."""
+
+    config, _ = DIT_SLICES[1]
+    rng = np.random.default_rng(2)
+    words = torch.tensor(SEED_WORDS, dtype=torch.int32)
+    _build.LAUNCHES.clear()
+    injected = attention._dropout_seed
+    attention._dropout_seed = lambda generator, device: words.to(device)
+    try:
+        def make(device, masks):
+            vit = ViT(3, 3, **config, dropout=DROPOUT, device=device)
+            for block in vit.blocks:
+                block.drop = InjectedDropout(DROPOUT, masks)
+            return KarrasDenoiser(Modulated(vit, config["mod_features"], device=device), VPSchedule())
+
+        cpu, card = make("cpu", np.random.default_rng(3)), make("cuda", np.random.default_rng(3))
+        state = {}
+        for key, value in cpu.backbone.state_dict().items():
+            scale = 0.2 if key.endswith("bias") else 1 / math.sqrt(value.shape[-1])
+            state[key] = torch.from_numpy((scale * rng.standard_normal(value.shape)).astype(np.float32))
+        cpu.backbone.load_state_dict(state)
+        card.backbone.load_state_dict(state)
+        x = torch.from_numpy(rng.standard_normal((4, DIT64_SIDE, DIT64_SIDE, 3)).astype(np.float32))
+        t = torch.from_numpy(rng.uniform(0.05, 0.95, 4).astype(np.float32))
+
+        for i in range(2):
+            z = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+            losses = {}
+            for device, denoiser in (("cpu", cpu), ("cuda", card)):
+                denoiser.zero_grad(set_to_none=True)
+                generator_ = torch.Generator(device=device)
+                loss = denoiser._loss(x.to(device), t.to(device), z.to(device), generator=generator_)
+                loss.backward()
+                losses[device] = loss.item()
+            loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            worst, worst_name = 0.0, ""
+            for (name, a), (_, b) in zip(cpu.named_parameters(), card.named_parameters()):
+                _, err = errors(b.grad.cpu(), a.grad)
+                worst, worst_name = max((worst, worst_name), (err, name))
+            log(f"  dropout slice {DIT64_SIDE}x{DIT64_SIDE}, step {i}: loss {losses['cpu']:.6f}, rel err {loss_err:.3e}; "
+                f"worst parameter gradient rel err {worst:.3e} ({worst_name}) (tol {TOL_SLICE})")
+            if loss_err > TOL_SLICE or worst > TOL_SLICE:
+                raise AssertionError("the dropout slice's loss or gradients on the card disagree with the CPU")
+        expected = {name: 2 * n for name, n in {"attention_fwd_lse_dropout": 2, "attention_bwd_dropout": 2}.items()}
+        if dict(_build.LAUNCHES) != expected:
+            raise AssertionError(f"the dropout slice launched {dict(_build.LAUNCHES)}, expected {expected}")
+        log(f"  kernel launches of the dropout slice on the card: {dict(_build.LAUNCHES)}, expected {expected}")
+    finally:
+        attention._dropout_seed = injected
+
+    # checkpointing on the card: the recompute drops what the forward dropped
+    grads = []
+    for checkpointing in (False, True):
+        torch.manual_seed(0)
+        vit = ViT(3, 3, **config, dropout=DROPOUT, checkpointing=checkpointing, device="cuda")
+        denoiser = KarrasDenoiser(Modulated(vit, config["mod_features"], device="cuda"), VPSchedule())
+        denoiser.backbone.load_state_dict(state)
+        loss = denoiser._loss(x.cuda(), t.cuda(), z.cuda(), generator=torch.Generator(device="cuda").manual_seed(7))
+        loss.backward()
+        grads.append([p.grad for p in denoiser.parameters()])
+    worst = max(errors(b, a)[1] for a, b in zip(*grads))
+    log(f"  checkpointing=True against False on the card, dropout {DROPOUT}: worst gradient rel err {worst:.3e} "
+        f"(tol {TOL_ATTN[torch.float32]})")
+    if worst > TOL_ATTN[torch.float32]:
+        raise AssertionError("the gradients under checkpointing differ: the recompute dropped other weights")
+
+    # a masked MSA layer at L = 1024: the biased forms under grad and the
+    # inference forms, CPU against card, injected seed words
+    before = collections.Counter(_build.LAUNCHES)
+    attention._dropout_seed = lambda generator, device: words.to(device)
+    try:
+        msa = {d: MultiheadSelfAttention(128, attention_heads=2, dropout=DROPOUT, device=d) for d in ("cpu", "cuda")}
+        msa["cuda"].load_state_dict(msa["cpu"].state_dict())
+        xs = torch.from_numpy(rng.standard_normal((4, 1024, 128)).astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal((4, 1024, 128)).astype(np.float32))
+        pad = padding_mask(4, 1024, torch.Generator(device="cuda").manual_seed(1))
+        for label, masked, dropped, grad, launched in (
+            ("mask, grad", True, False, True, {"attention_fwd_lse_bias": 1, "attention_bwd_bias": 1}),
+            ("mask and dropout, grad", True, True, True,
+             {"attention_fwd_lse_bias_dropout": 1, "attention_bwd_bias_dropout": 1}),
+            ("mask, inference", True, False, False, {"attention_fwd_bias": 1}),
+            ("mask and dropout, inference", True, True, False, {"attention_fwd_bias_dropout": 1}),
+            ("dropout, inference", False, True, False, {"attention_fwd_dropout": 1}),
+        ):
+            outs = {}
+            for device, layer in msa.items():
+                layer.zero_grad(set_to_none=True)
+                xd = xs.detach().to(device).requires_grad_(grad)
+                mask = pad.to(device) if masked else None
+                generator_ = torch.Generator(device=device) if dropped else None
+                start = collections.Counter(_build.LAUNCHES)
+                with torch.set_grad_enabled(grad):
+                    y = layer(xd, mask=mask, generator=generator_)
+                    if grad:
+                        (y * w.to(device)).sum().backward()
+                if device == "cpu" and collections.Counter(_build.LAUNCHES) != start:
+                    raise AssertionError("a kernel ran on the CPU path")
+                if device == "cuda" and dict(collections.Counter(_build.LAUNCHES) - start) != launched:
+                    raise AssertionError(f"masked MSA ({label}) launched "
+                                         f"{dict(collections.Counter(_build.LAUNCHES) - start)}, expected {launched}")
+                outs[device] = [y.detach().cpu()] + ([xd.grad.cpu()] + [p.grad.cpu() for p in layer.parameters()]
+                                                     if grad else [])
+            worst = max(errors(b, a)[1] for a, b in zip(outs["cpu"], outs["cuda"]))
+            log(f"  masked MSA (4, 1024, 128), batch padding mask, {label}: worst rel err of the output"
+                f"{' and gradients' if grad else ''} {worst:.3e} (tol {TOL_SLICE}); launches {launched}")
+            if worst > TOL_SLICE:
+                raise AssertionError(f"masked MSA ({label}) on the card disagrees with the CPU")
+    finally:
+        attention._dropout_seed = injected
+
+    launches = dict(collections.Counter(_build.LAUNCHES) - before)
+    return launches
+
+
+def masked_source(name: str) -> tuple[str, str]:
+    r"""The source and the TPU kernel of a masked or dropout form."""
+
+    entry = name.split("_bias")[0].split("_dropout")[0]
+    if entry == "attention_bwd":
+        return "attention_bwd.cu", "azula_tpu/ops/attention.py:1102 (_pallas_attention_bwd, bias and dropout)"
+    lse = ", with_lse=True" if entry == "attention_fwd_lse" else ""
+    if "dropout" in name:
+        return "attention_fwd.cu", f"azula_tpu/ops/attention.py:337 (_pallas_attention_blocked, dropout{lse})"
+    return "attention_fwd.cu", (f"azula_tpu/ops/attention.py:92 (_pallas_attention, bias{lse}), "
+                                f"azula_tpu/ops/attention.py:566 (_pallas_attention_batched, bias{lse})")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
@@ -1395,7 +1853,7 @@ def main() -> None:
     log(f"== 12. dit32 training at full width: bf16, batch {DIT_BATCH}, AdamW, "
         f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
     del dit
-    train_launches = train_full_width(32, DIT_TRAIN_CALLS_PER_STEP, generator)
+    train_launches = train_full_width(32, DIT_TRAIN_CALLS_PER_STEP, generator)["launches"]
 
     log("== 13. the max-free attention kernel against its plain version at the FLUX.1 shapes")
     with torch.inference_mode():
@@ -1466,9 +1924,27 @@ def main() -> None:
 
     log(f"== 18. dit64 training at full width: {DIT64_SIDE}x{DIT64_SIDE} images, bf16, batch {DIT_BATCH}, AdamW, "
         f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
-    dit64_launches = train_full_width(DIT64_SIDE, DIT64_TRAIN_CALLS_PER_STEP, generator)
+    dit64 = train_full_width(DIT64_SIDE, DIT64_TRAIN_CALLS_PER_STEP, generator)
+    dit64_launches = dit64["launches"]
 
-    log("== 19. result")
+    log("== 19. attention masks and dropout: the kernel forms against their plain versions")
+    masked = check_masked_kernels(generator)
+
+    log("== 20. calls without a kernel form, and D = 192, 256, on the card through dot_product_attention")
+    check_routes(generator)
+
+    log("== 21. the dropout and mask slices: CPU plain versions against the card's kernels, float32")
+    slice_launches = check_masked_slice(generator)
+
+    log(f"== 22. dit64 training with dropout {DROPOUT} at full width: {DIT64_SIDE}x{DIT64_SIDE} images, bf16, "
+        f"batch {DIT_BATCH}, AdamW, {DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
+    dit64_dropout = train_full_width(DIT64_SIDE, DIT64_DROPOUT_CALLS_PER_STEP, generator, dropout=DROPOUT)
+    log(f"dit64 training with dropout {DROPOUT}: {dit64_dropout['ms']:.3f} ms/step, "
+        f"{dit64_dropout['images_s']:.4f} train images/s, peak {dit64_dropout['peak_gib']:.2f} GiB; without "
+        f"(phase 18, this run): {dit64['ms']:.3f} ms/step, {dit64['images_s']:.4f} train images/s, "
+        f"peak {dit64['peak_gib']:.2f} GiB; ratio {dit64_dropout['ms'] / dit64['ms']:.3f}")
+
+    log("== 23. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -1480,6 +1956,12 @@ def main() -> None:
         ("attention_fwd_max_free", mf, flux_launches, FLUX_CALLS_PER_FORWARD),
         ("attention_fwd_lse", lse_bwd["attention_fwd_lse"], dit64_launches, DIT64_TRAIN_CALLS_PER_STEP),
         ("attention_bwd", lse_bwd["attention_bwd"], dit64_launches, DIT64_TRAIN_CALLS_PER_STEP),
+        *(
+            (name, masked[name], dit64_dropout["launches"], DIT64_DROPOUT_CALLS_PER_STEP)
+            if name in DIT64_DROPOUT_CALLS_PER_STEP
+            else (name, masked[name], slice_launches, {name: 1})
+            for name in MASKED_FORMS
+        ),
     ):
         source, replaces = {
             "group_norm_silu": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
@@ -1513,7 +1995,7 @@ def main() -> None:
                 "azula_tpu/ops/attention.py:1102 (_pallas_attention_bwd; dq_kernel :1200, dkv_kernel :1275), "
                 "azula_tpu/ops/attention.py:966 (_pallas_attention_batched_bwd)",
             ),
-        }[name]
+        }.get(name) or masked_source(name)
         tol = TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
         kernels.append({
             "name": name,
@@ -1521,14 +2003,17 @@ def main() -> None:
             "source": f"azula_tpu_torch/csrc/{source}",
             "replaces": replaces,
             # launches in the run of the kernel's own main path (ADM-256
-            # sampling, dit32 sampling, dit32 training, FLUX.1-dev sampling
-            # or dit64 training)
+            # sampling, dit32 sampling, dit32 training, FLUX.1-dev sampling,
+            # dit64 training, dit64 training with dropout, or for the other
+            # masked forms the masked slice of phase 21)
             "launches": path_launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_err": entry["max_err"],
             "tol": tol,
             # times of the calls of one forward (flash_blhd, attention_fwd_lse,
-            # attention_bwd: of one train step), summed over their shapes
+            # attention_bwd and their dropout forms: of one train step), summed
+            # over their shapes; the other masked forms: one call at dit64's
+            # shape with a key-padding mask
             "ms": entry["ms"],
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
@@ -1536,10 +2021,15 @@ def main() -> None:
             "bound_by": entry["bound_by"].most_common(1)[0][0],
             # fused_msa: SDPA on the normalized attention core only (no norm,
             # no layout); flash_blhd, attention_fwd_lse, attention_bwd: SDPA's
-            # forward, or its autograd backward
+            # forward, or its autograd backward; the masked forms: SDPA with
+            # the same boolean mask and dropout rate
             "library_ms": entry["library_ms"] if name != "group_norm_silu" else None,
             "calls_per_forward": per_forward[name],
         })
+
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on their main path: {idle}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -263,15 +263,95 @@ def test_kernel_route(monkeypatch, requires, mode, max_free, route):
         assert calls[0][1] == {"implementation": "kernel"}
 
 
-def test_kernel_route_refuses_mask_and_dropout():
-    _, (q, k, v, _) = _inputs(128, "float32", seed=8)
-    q.requires_grad_()
-    mask = torch.ones(128, 128, dtype=torch.bool)
+# (q shape, k shape, dtype, mask shape or "float", dropout rate, autograd
+# mode) -> the route JAX's dispatch gives: the kernels' autograd function
+# ("flash") or inference forward ("attention_fwd") with the bias mode and
+# dropout, or the plain versions ("plain", or "dropout_plain", the Bernoulli
+# fallback)
+ROUTES = {
+    "mask_batch_grad": ((2, 3, 512, 64), None, torch.float32, (2, 1, 512, 512), 0.0, "grad", ("flash", "batch", False)),
+    "mask_full_no_grad": ((2, 3, 512, 64), None, torch.float32, (2, 3, 512, 512), 0.0, "no_grad",
+                          ("attention_fwd", "full", False)),
+    "mask_one_grad": ((1, 2, 1024, 128), None, torch.bfloat16, (1024, 1024), 0.0, "grad", ("flash", "one", False)),
+    "mask_head_d256": ((2, 2, 512, 256), None, torch.float32, (2, 512, 512), 0.0, "no_grad",
+                       ("attention_fwd", "head", False)),
+    # without dropout, masked calls below L = 512 take XLA in JAX
+    "mask_below_floor": ((2, 3, 256, 64), None, torch.float32, (2, 1, 256, 256), 0.0, "grad", ("plain",)),
+    # float masks keep their gradient on the plain route
+    "float_mask": ((2, 3, 512, 64), None, torch.float32, "float", 0.0, "grad", ("plain",)),
+    # a mask that broadcasts to (L, L) only along its keys
+    "mask_rows": ((2, 3, 512, 64), None, torch.float32, (512, 1), 0.0, "grad", ("plain",)),
+    "dropout_grad": ((2, 3, 128, 64), None, torch.float32, None, 0.1, "grad", ("flash", None, True)),
+    "dropout_no_grad": ((2, 3, 128, 64), None, torch.bfloat16, None, 0.1, "no_grad", ("attention_fwd", None, True)),
+    "dropout_mask_grad": ((2, 3, 256, 192), None, torch.float32, (2, 1, 256, 256), 0.1, "grad",
+                          ("flash", "batch", True)),
+    "dropout_ragged": ((2, 3, 100, 64), None, torch.float32, None, 0.1, "grad", ("dropout_plain",)),
+    "dropout_d32": ((2, 3, 128, 32), None, torch.float32, None, 0.1, "grad", ("dropout_plain",)),
+    # cross-attention (SD's 77 text tokens, heads of 40) and JiT-H's heads of 80
+    "cross_attention": ((2, 8, 256, 40), (2, 8, 77, 40), torch.float32, None, 0.0, "grad", ("plain",)),
+    "d80": ((1, 16, 256, 80), None, torch.bfloat16, None, 0.0, "no_grad", ("plain",)),
+    "ndim3": ((6, 256, 64), None, torch.float32, None, 0.0, "no_grad", ("plain",)),
+    "float16": ((1, 2, 256, 64), None, torch.float16, None, 0.0, "no_grad", ("plain",)),
+    # unmasked self-attention keeps the kernels at every L and head dim
+    "d192_grad": ((1, 2, 256, 192), None, torch.float32, None, 0.0, "grad", ("flash", None, False)),
+    "d256_no_grad": ((1, 2, 200, 256), None, torch.bfloat16, None, 0.0, "no_grad", ("attention_fwd", None, False)),
+    # more (batch, head) pairs than a grid's y dimension takes
+    "many_pairs": ((35000, 2, 1, 32), None, torch.float32, None, 0.0, "no_grad", ("attention_fwd", None, False)),
+}
 
-    with pytest.raises(NotImplementedError, match=r"A17 \(c\)"):
-        tattention.dot_product_attention(q, k, v, mask=mask, implementation="kernel")
-    with pytest.raises(NotImplementedError, match=r"A17 \(c\)"):
-        tattention.dot_product_attention(q, k, v, dropout_rate=0.1, generator=torch.Generator())
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_kernel_route_masks_and_dropout(monkeypatch, case):
+    # the card's route for masks, dropout and the shapes no kernel takes, as
+    # JAX's `_use_pallas` decides it (CPU tensors stand in for CUDA ones with
+    # implementation='kernel'); nothing launches
+    q_shape, k_shape, dtype, mask_shape, rate, mode, route = ROUTES[case]
+    calls = []
+
+    def flash(q, k, v, scale, implementation=None, bias=None, mode="one", seed=None, rate=0.0):
+        calls.append(("flash", None if bias is None else mode, seed is not None))
+
+    def attention_fwd(q, k, v, scale, bias=None, mode="one", seed=None, rate=0.0):
+        calls.append(("attention_fwd", None if bias is None else mode, seed is not None))
+
+    monkeypatch.setattr(tattention, "_flash", flash)
+    monkeypatch.setattr(tattention, "_attention_kernel", attention_fwd)
+    monkeypatch.setattr(tattention, "_attention_max_free_kernel", lambda *a: pytest.fail("the max-free kernel ran"))
+    monkeypatch.setattr(tattention, "_attention_plain", lambda *a, **kw: calls.append(("plain",)))
+    monkeypatch.setattr(tattention, "_attention_dropout_plain", lambda *a, **kw: calls.append(("dropout_plain",)))
+
+    q = torch.zeros(q_shape, dtype=dtype)
+    k = v = torch.zeros(k_shape or q_shape, dtype=dtype)
+    if mask_shape == "float":
+        mask = torch.zeros(q_shape[-2:]).requires_grad_()
+    elif mask_shape is not None:
+        mask = torch.ones(mask_shape, dtype=torch.bool)
+    else:
+        mask = None
+    q.requires_grad_(mode == "grad")
+
+    context = torch.enable_grad if mode == "grad" else torch.no_grad
+    with context():
+        tattention.dot_product_attention(
+            q, k, v, mask=mask, dropout_rate=rate, generator=torch.Generator(), implementation="kernel"
+        )
+
+    assert calls == [route]
+
+
+def test_cpu_dropout_routes():
+    # on the CPU, dropout at the kernels' shapes takes their plain versions
+    # (one seed, one mask on both devices); 'plain' takes JAX's fallback
+    _, (q, k, v, _) = _inputs(128, "float32", seed=8)
+    auto = [tattention.dot_product_attention(q, k, v, dropout_rate=0.5, generator=torch.Generator().manual_seed(i))
+            for i in (0, 0, 1)]
+    plain = tattention.dot_product_attention(
+        q, k, v, dropout_rate=0.5, generator=torch.Generator().manual_seed(0), implementation="plain"
+    )
+
+    assert torch.equal(auto[0], auto[1]) and not torch.equal(auto[0], auto[2])
+    assert not torch.equal(auto[0], plain)
+    assert torch.isfinite(plain).all()
 
 
 @pytest.mark.parametrize("rope", [False, True], ids=["no_rope", "rope"])

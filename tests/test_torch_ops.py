@@ -209,7 +209,8 @@ def test_attention_scale_and_implementations():
         tattention.dot_product_attention(q, k, v, implementation="kernel")
     with pytest.raises(ValueError):
         tattention.dot_product_attention(q, k, v, implementation="xla")
-    with pytest.raises(NotImplementedError):
+    # as JAX requires a `key`
+    with pytest.raises(ValueError, match="generator"):
         tattention.dot_product_attention(q, k, v, dropout_rate=0.1)
 
 
