@@ -5,8 +5,8 @@ r"""Weight conversion from the JAX package's ADM backbone.
 like `input_blocks.1.0.in_norm.scale`), and returns the state dict of the
 port's :class:`ADMUNet`: Linear weights go from :math:`(C_i, C_o)` to
 :math:`(C_o, C_i)`, convolution kernels from HWIO to OIHW, and GroupNorm
-`scale` becomes `weight`. The Linear rule and the strict check are those of
-:mod:`azula_tpu_torch.nn.convert`.
+`scale` becomes `weight`. The Linear and convolution rules and the strict
+check are those of :mod:`azula_tpu_torch.nn.convert`.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ def _convert(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
     if prefix and leaf == "scale":  # GroupNorm gain
         return f"{prefix}.weight", value
-    if prefix and leaf == "weight" and value.ndim == 4:  # conv HWIO -> OIHW
-        return key, value.transpose(3, 2, 0, 1)
 
     return convert_leaf(key, value)
 

@@ -1,3 +1,3 @@
 r"""Neural-network building blocks."""
 
-from . import attention, dit, embedding, layers, utils, vit  # noqa: F401
+from . import attention, dit, embedding, layers, unet, utils, vit  # noqa: F401

@@ -5,8 +5,10 @@ r"""Weight conversion from the JAX package's `nn` modules.
 `backbone.blocks.3.msa.qkv_proj.weight` or `time_embedding.lin1.bias`), and
 returns the state dict of the port's module of the same structure. Linear
 weights go from :math:`(C_i, C_o)` to :math:`(C_o, C_i)` (`theta_proj`
-included); biases and `DiTAdaZero.param` are copied as they are. The ADM
-converter (`models/adm/convert.py`) shares these rules and the strict check.
+included), N-d convolution kernels from :math:`(*k, C_i, C_o)` to
+:math:`(C_o, C_i, *k)`; biases and the `param` of `DiTAdaZero` and the
+UNet's `AdaZero` are copied as they are. The ADM converter
+(`models/adm/convert.py`) shares these rules and the strict check.
 """
 
 from __future__ import annotations
@@ -24,16 +26,18 @@ from collections.abc import Mapping
 
 
 def convert_leaf(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
-    r"""The port's key and array for one leaf of a JAX Linear, bias or
-    `DiTAdaZero.param`; raises :class:`KeyError` on any other leaf."""
+    r"""The port's key and array for one leaf of a JAX Linear, convolution,
+    bias or `AdaZero.param`; raises :class:`KeyError` on any other leaf."""
 
     prefix, _, leaf = key.rpartition(".")
 
     if prefix and leaf == "weight" and value.ndim == 2:  # Linear (in, out) -> (out, in)
         return key, value.T
+    if prefix and leaf == "weight" and value.ndim in (3, 4, 5):  # conv (*k, in, out) -> (out, in, *k)
+        return key, np.moveaxis(value, (-1, -2), (0, 1))
     if prefix and leaf == "bias" and value.ndim == 1:
         return key, value
-    if prefix and leaf == "param" and value.ndim == 2:  # DiTAdaZero without modulation
+    if prefix and leaf == "param" and value.ndim == 2:  # AdaZero without modulation
         return key, value
 
     raise KeyError(f"unexpected key '{key}' of shape {value.shape} in the JAX state dict")
@@ -67,8 +71,8 @@ def check_state_dict(state: Mapping[str, torch.Tensor], module: torch.nn.Module)
 def from_jax_state_dict(
     sd: Mapping[str, np.ndarray], module: torch.nn.Module | None = None
 ) -> dict[str, torch.Tensor]:
-    r"""Converts the state dict of a JAX `nn` module (DiT, ViT, `Modulated`,
-    `MultiheadSelfAttention`, ...) to the port's layout.
+    r"""Converts the state dict of a JAX `nn` module (DiT, ViT, UNet,
+    `Modulated`, `MultiheadSelfAttention`, ...) to the port's layout.
 
     Arguments:
         sd: The JAX state dict, as numpy arrays.

@@ -19,14 +19,13 @@ __all__ = [
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from torch import Tensor, nn
 from typing import Literal
 
 from .attention import MultiheadSelfAttention
 from .layers import Dropout, Linear, RMSNorm, SineEncoding, relu2, swiglu
-from .utils import default_device
+from .utils import checkpoint, default_device
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -182,24 +181,7 @@ class DiTBlock(nn.Module):
         """
 
         if self.checkpointing and torch.is_grad_enabled():
-            if generator is None:
-                return torch.utils.checkpoint.checkpoint(self._forward, x, mod, pos, mask, use_reentrant=False)
-
-            # the checkpoint restores the global RNG states only: the forward
-            # draws from `generator`, and the recompute from a copy of its
-            # state before the block, so it drops what the forward dropped
-            state = generator.get_state()
-            runs = []
-
-            def run(x, mod, pos, mask):
-                g = generator
-                if runs:
-                    g = torch.Generator(device=generator.device)
-                    g.set_state(state)
-                runs.append(g)
-                return self._forward(x, mod, pos, mask, g)
-
-            return torch.utils.checkpoint.checkpoint(run, x, mod, pos, mask, use_reentrant=False)
+            return checkpoint(self._forward)(x, mod, pos, mask, generator=generator)
 
         return self._forward(x, mod, pos, mask, generator)
 

@@ -1,16 +1,18 @@
 r"""Common layers, channels-last.
 
-Port of the ADM and transformer subsets of :mod:`azula_tpu.nn.layers`. Tensors are
-:math:`(B, *, C)`, as in the JAX package; weights are stored in PyTorch's
-layouts (Linear :math:`(C_o, C_i)`, convolution :math:`(C_o, C_i, k_h, k_w)`)
-so that `F.linear` and `F.conv2d` take them as they are. A channels-last image
-permuted to (B, C, H, W) is already `channels_last` memory for cuDNN.
+Port of :mod:`azula_tpu.nn.layers` (ADM, UNet and transformer layers).
+Tensors are :math:`(B, *, C)`, as in the JAX package; weights are stored in
+PyTorch's layouts (Linear :math:`(C_o, C_i)`, convolution
+:math:`(C_o, C_i, *k)`) so that `F.linear` and `F.conv{1,2,3}d` take them as
+they are. A channels-last image permuted to (B, C, H, W) is already
+`channels_last` memory for cuDNN.
 """
 
 from __future__ import annotations
 
 __all__ = [
     "Conv",
+    "ConvNd",
     "Dropout",
     "GroupNorm",
     "Identity",
@@ -22,6 +24,7 @@ __all__ = [
     "SineEncoding",
     "SwiGLU",
     "Unpatchify",
+    "Upsample",
     "layer_norm",
     "relu2",
     "rms_norm",
@@ -71,15 +74,19 @@ class Linear(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
 class Conv(nn.Module):
-    r"""2-d convolution in channels-last layout with zero padding.
+    r"""N-dimensional convolution in channels-last layout.
 
     Arguments:
         in_channels: The number of input channels :math:`C_i`.
         out_channels: The number of output channels :math:`C_o`.
-        kernel_size: The kernel shape :math:`(k_h, k_w)`.
+        kernel_size: The kernel shape, one entry per spatial dimension (1 to 3).
         stride: The stride per spatial dimension.
-        padding: `(lo, hi)` zero padding per spatial dimension.
+        padding: `(lo, hi)` padding per spatial dimension.
+        periodic: Whether padding wraps around (circular) or zero-fills.
         bias: Whether to add a bias or not.
     """
 
@@ -90,6 +97,7 @@ class Conv(nn.Module):
         kernel_size: Sequence[int],
         stride: Sequence[int] | None = None,
         padding: Sequence[tuple[int, int]] | None = None,
+        periodic: bool = False,
         bias: bool = True,
         *,
         device=None,
@@ -99,8 +107,9 @@ class Conv(nn.Module):
         super().__init__()
 
         kernel_size = tuple(kernel_size)
-        if len(kernel_size) != 2:
-            raise NotImplementedError("only 2-d convolutions are ported")
+        spatial = len(kernel_size)
+        if spatial not in _CONV:
+            raise NotImplementedError(f"{spatial}-d convolutions are not supported")
 
         bound = 1 / math.sqrt(in_channels * math.prod(kernel_size))
         self.weight = _uniform(
@@ -108,23 +117,114 @@ class Conv(nn.Module):
         )
         self.bias = _uniform((out_channels,), bound, device, dtype, generator) if bias else None
 
-        self.stride = tuple(stride) if stride is not None else (1, 1)
-        self.padding = tuple(tuple(p) for p in padding) if padding is not None else ((0, 0),) * 2
+        self.stride = tuple(stride) if stride is not None else (1,) * spatial
+        self.padding = tuple(tuple(p) for p in padding) if padding is not None else ((0, 0),) * spatial
+        self.periodic = periodic
+
+    @torch.no_grad()
+    def identity_init_(self) -> None:
+        r"""Re-initializes the convolution as a (pseudo-)identity: the first
+        :math:`C_i` output filters are scaled by :math:`10^{-2}` and a
+        center-tap identity is added."""
+
+        out_channels, in_channels, *kernel_size = self.weight.shape
+        center = tuple(k // 2 for k in kernel_size)
+
+        self.weight[:in_channels].mul_(1e-2)
+        for i in range(min(in_channels, out_channels)):
+            self.weight[(i, i, *center)] += 1.0
 
     def forward(self, x: Tensor) -> Tensor:
-        h = x.permute(0, 3, 1, 2)  # (B, C, H, W) view of channels-last memory
+        h = x.movedim(-1, 1)  # (B, C, *spatial) view of channels-last memory
 
-        (top, bottom), (left, right) = self.padding
-        if top == bottom and left == right:
-            padding = (top, left)
+        # F.pad takes (lo, hi) pairs from the last dimension to the first
+        pads = [p for pair in reversed(self.padding) for p in pair]
+        if self.periodic:
+            h = F.pad(h, pads, mode="circular")
+            padding = 0
+        elif all(lo == hi for lo, hi in self.padding):
+            padding = tuple(lo for lo, _ in self.padding)
         else:
-            h = F.pad(h, (left, right, top, bottom))
-            padding = (0, 0)
+            h = F.pad(h, pads)
+            padding = 0
 
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(h, self.weight.to(x.dtype), bias, stride=self.stride, padding=padding)
+        y = _CONV[len(self.stride)](h, self.weight.to(x.dtype), bias, stride=self.stride, padding=padding)
 
-        return y.permute(0, 2, 3, 1)
+        return y.movedim(1, -1)
+
+
+def ConvNd(
+    in_channels: int,
+    out_channels: int,
+    spatial: int = 2,
+    identity_init: bool = False,
+    kernel_size: int | Sequence[int] = 1,
+    stride: int | Sequence[int] = 1,
+    padding: int | Sequence[tuple[int, int]] | None = None,
+    periodic: bool = False,
+    bias: bool = True,
+    *,
+    device=None,
+    dtype=None,
+    generator: torch.Generator | None = None,
+) -> nn.Module:
+    r"""Returns an N-dimensional convolutional layer (a :class:`Linear` when
+    :py:`spatial == 0`).
+
+    Arguments:
+        in_channels: The number of input channels :math:`C_i`.
+        out_channels: The number of output channels :math:`C_o`.
+        spatial: The number of spatial dimensions :math:`N`.
+        identity_init: Initialize the convolution as a (pseudo-)identity.
+        kernel_size, stride, padding, periodic, bias: As :class:`Conv`; an
+            integer stands for every spatial dimension.
+        device, dtype, generator: The parameters' device, dtype and
+            initial-value generator.
+    """
+
+    factory = dict(device=device, dtype=dtype, generator=generator)  # noqa: C408
+
+    if spatial == 0:
+        return Linear(in_channels, out_channels, bias=bias, **factory)
+
+    if isinstance(kernel_size, int):
+        kernel_size = (kernel_size,) * spatial
+    if isinstance(stride, int):
+        stride = (stride,) * spatial
+    if padding is None:
+        padding = ((0, 0),) * spatial
+    elif isinstance(padding, int):
+        padding = ((padding, padding),) * spatial
+
+    conv = Conv(
+        in_channels, out_channels, kernel_size, stride=stride, padding=padding, periodic=periodic, bias=bias, **factory
+    )
+
+    if identity_init:
+        conv.identity_init_()
+
+    return conv
+
+
+class Upsample(nn.Module):
+    r"""Nearest-neighbor upsampling over the spatial dimensions,
+    channels-last: each of the last :math:`N` non-channel axes is repeated
+    by its factor."""
+
+    def __init__(self, factor: Sequence[int]) -> None:
+        super().__init__()
+
+        self.factor = tuple(factor)
+
+    def forward(self, x: Tensor) -> Tensor:
+        N = len(self.factor)
+
+        for i, f in enumerate(self.factor):
+            if f > 1:
+                x = x.repeat_interleave(f, dim=x.ndim - 1 - N + i)
+
+        return x
 
 
 class GroupNorm(nn.Module):

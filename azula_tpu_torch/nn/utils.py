@@ -3,6 +3,7 @@ r"""Module and dtype utilities."""
 from __future__ import annotations
 
 __all__ = [
+    "checkpoint",
     "default_device",
     "get_module_dtype",
     "promote_dtype",
@@ -10,6 +11,7 @@ __all__ = [
 
 import functools
 import torch
+import torch.utils.checkpoint
 
 from collections.abc import Callable
 from torch import Tensor, nn
@@ -91,5 +93,46 @@ def promote_dtype(fn: Callable | None = None, min_dtype: torch.dtype = torch.flo
         out = fn(*args, **kwargs)
 
         return _map(lambda a: a.to(in_dtype) if _floating(a) else a, out)
+
+    return wrapper
+
+
+def checkpoint(f: Callable, reentrant: bool = False) -> Callable:
+    r"""Applies activation rematerialization to a function: the backward
+    recomputes `f`'s activations instead of keeping them.
+
+    Port of :func:`azula_tpu.nn.utils.checkpoint`, through
+    `torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`: gradients
+    flow to every input, explicit or captured. `reentrant` is accepted for
+    the JAX package's signature and ignored, as there.
+
+    `torch.utils.checkpoint` restores the global RNG states only. A
+    generator that `f` takes as its `generator` keyword is replayed instead:
+    the forward draws from it, and the recompute from a copy of its state
+    before the call, so it draws what the forward drew.
+
+    Arguments:
+        f: A function.
+        reentrant: Ignored.
+    """
+
+    del reentrant
+
+    def wrapper(*args, generator: torch.Generator | None = None):
+        if generator is None:
+            return torch.utils.checkpoint.checkpoint(f, *args, use_reentrant=False)
+
+        state = generator.get_state()
+        runs = []
+
+        def run(*args):
+            g = generator
+            if runs:
+                g = torch.Generator(device=generator.device)
+                g.set_state(state)
+            runs.append(g)
+            return f(*args, generator=g)
+
+        return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
     return wrapper

@@ -10,9 +10,12 @@ A missing `nvcc`, a failed build or a failed launch raises: no caller falls
 back to a plain version. Two pairs of forward and backward kernels form
 autograd functions with their own backward (`ops/attention.py`):
 `_flash_blhd` (`flash_blhd_fwd.cu`, `flash_blhd_bwd.cu`) and `_flash`
-(`attention_fwd.cu`'s LSE entry, `attention_bwd.cu`). The other kernel
-wrappers are forward-only, and `forward_only` makes a backward through one
-of their launches raise.
+(`attention_fwd.cu`'s LSE entry, `attention_bwd.cu`). `group_norm`,
+`group_stats` and `conv3x3` are autograd functions whose backward is plain
+PyTorch (the analytic GroupNorm and statistics gradients, the library
+convolution's gradient), as the JAX package's custom vjps are XLA. The
+wrappers of the kernels without a backward kernel are forward-only: called
+directly, `forward_only` makes a backward through their launch raise.
 """
 
 from __future__ import annotations
@@ -64,6 +67,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, dtype, stream
     "azula_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # x, partial, out, B, HW, C, G, rows, dtype, stream
+    "azula_group_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, B, H, W, C, K, dtype, stream
+    "azula_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, L, D, scale, dtype, stream, then the mask arguments
     # bias, bias_div, bias_mod, seed, threshold, retain
     "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],

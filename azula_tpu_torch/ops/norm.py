@@ -1,7 +1,9 @@
-r"""Channels-last group normalization, fused with modulation and SiLU.
+r"""Channels-last group normalization, fused with modulation and SiLU, and
+the group statistics.
 
 Port of :mod:`azula_tpu.ops.norm` (`group_norm`, `group_norm_silu`,
-`_compose_affine`). Every GroupNorm site reduces to
+`_compose_affine`, `group_stats` and its implementations, the analytic
+backwards). Every GroupNorm site reduces to
 
 .. math:: y = \mathrm{silu}?((x - \mu) A + Q), \quad A = P / \sqrt{\mathrm{var} + \epsilon}
 
@@ -13,7 +15,20 @@ stay exact when :math:`|\mu| \gg \sigma`; the raw
 
 Two versions compute it: the hand-written CUDA kernel
 (`csrc/group_norm.cu`) for tensors on the card, and a plain PyTorch version
-for tensors on the CPU.
+for tensors on the CPU. The backward is JAX's `_gn_fused_bwd` in plain
+PyTorch, with the statistics that the forward saves from
+:func:`group_stats`.
+
+:func:`group_stats` gives per-(batch, group) float32 (mean, variance). Its
+implementations are JAX's (`twopass`, `pilot`, `guarded`, `raw`, `lazy`),
+as plain PyTorch, and the statistics kernel (`csrc/group_stats.cu`, the
+port of `_stats_pallas`), whose arithmetic `_stats_kernel_plain` repeats.
+`'auto'` is the kernel on the card and `lazy` on the CPU: the JAX package
+keeps `lazy` because its raw fold fuses with the producer of `x` under XLA,
+which no kernel can; in eager PyTorch every input is already in memory, and
+the kernel reads it once, exactly centered. JAX's environment overrides
+(`AZULA_GN_STATS`, `AZULA_GN_LAZY_MIN_BYTES`) are not ported. The backward
+is JAX's analytic `_stats_bwd`.
 """
 
 from __future__ import annotations
@@ -21,12 +36,15 @@ from __future__ import annotations
 __all__ = [
     "group_norm",
     "group_norm_silu",
+    "group_stats",
+    "stats_kernel_eligible",
 ]
 
 import math
 import torch
 
 from torch import Tensor
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -114,22 +132,22 @@ def _group_norm_plain(
     return y.to(x.dtype)
 
 
-def _rows_per_block(B: int, HW: int, C: int, itemsize: int) -> int:
+def _rows_per_block(B: int, HW: int, C: int, itemsize: int, min_bytes: int = 32768) -> int:
     r"""Rows of x summed by one block of the statistics launch: at least
-    32 KiB of x (and a whole pass of the block's row threads), with about
-    eight blocks per SM of the card over the batch."""
+    `min_bytes` of x (and a whole pass of the block's row threads), with
+    about eight blocks per SM of the card over the batch."""
 
     vec = 16 // itemsize
     while C % vec:
         vec //= 2
     threads_per_row = min(C // vec, 256)
-    min_rows = max(256 // threads_per_row, math.ceil(32768 / (C * itemsize)))
+    min_rows = max(256 // threads_per_row, math.ceil(min_bytes / (C * itemsize)))
     nblk = max(1, min(math.ceil(HW / min_rows), math.ceil(1056 / B)))
 
     return math.ceil(HW / nblk)
 
 
-@_build.forward_only("group_norm", "the GroupNorm backward, ROADMAP A16")
+@_build.forward_only("group_norm", "under grad, call group_norm or group_norm_silu: their backward is the analytic one")
 def _group_norm_kernel(
     x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool
 ) -> Tensor:
@@ -171,14 +189,300 @@ def _group_norm_kernel(
     return y
 
 
-def _gn_fused(
-    x: Tensor,
-    P: Tensor,
-    Q: Tensor,
-    groups: int,
-    eps: float,
-    silu: bool,
-    implementation: str | None,
+# --- group statistics --------------------------------------------------------
+
+
+def _stats_twopass(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
+    r"""Mean, then the centered sum of squares: exact at any magnitude, two
+    reads of the input."""
+
+    B, HW, C = x.shape
+    n = HW * (C // groups)
+
+    xf = x.float()
+    mean = xf.sum(dim=1).reshape(B, groups, -1).sum(dim=-1) / n  # (B, G)
+
+    mc = mean.repeat_interleave(C // groups, dim=-1)[:, None, :]
+    d2 = (xf - mc).square().sum(dim=1)
+    var = (d2.reshape(B, groups, -1).sum(dim=-1) / n).clamp_min(0.0)
+
+    return mean, var
+
+
+def _stats_pilot(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
+    r"""One pass of shifted moments about the first spatial row (the pilot),
+    each term of the recombination O(n var): exact at any magnitude."""
+
+    B, HW, C = x.shape
+    n = HW * (C // groups)
+
+    xf = x.float()
+    shift = xf[:, :1, :]
+    d = xf - shift
+    t1 = d.sum(dim=1).reshape(B, groups, -1)
+    t2 = d.square().sum(dim=1).reshape(B, groups, -1)
+    Kg = shift.reshape(B, groups, -1)
+
+    mean = (t1 + HW * Kg).sum(dim=-1) / n
+
+    # sum (x - mean)^2 = sum d^2 + 2 sum_c e_c t1_c + HW sum_c e_c^2, e_c = K_c - mean
+    e = Kg - mean[..., None]
+    var = (t2.sum(dim=-1) + 2 * (e * t1).sum(dim=-1) + HW * e.square().sum(dim=-1)) / n
+
+    return mean, var.clamp_min(0.0)
+
+
+def _stats_guarded(x: Tensor, groups: int, stride: int = 16) -> tuple[Tensor, Tensor]:
+    r"""The raw fold, with the variance replaced by shifted moments of a
+    `stride`-subsampled view where it falls below its float32 noise floor."""
+
+    B, HW, C = x.shape
+    n = HW * (C // groups)
+
+    xf = x.float()
+    g1 = xf.sum(dim=1).reshape(B, groups, -1).sum(dim=-1)
+    g2 = xf.square().sum(dim=1).reshape(B, groups, -1).sum(dim=-1)
+    mean = g1 / n
+    var_raw = g2 / n - mean.square()
+
+    xs = xf[:, ::stride, :]
+    m_rows = xs.shape[1]
+    m = m_rows * (C // groups)
+    shift = xs[:, :1, :]
+    d = xs - shift
+    t1 = d.sum(dim=1).reshape(B, groups, -1)
+    t2 = d.square().sum(dim=1).reshape(B, groups, -1)
+    Kg = shift.reshape(B, groups, -1)
+    mean_sub = (t1 + m_rows * Kg).sum(dim=-1) / m
+    e = Kg - mean_sub[..., None]
+    var_sub = (t2.sum(dim=-1) + 2 * (e * t1).sum(dim=-1) + m_rows * e.square().sum(dim=-1)) / m
+
+    floor = 1e-5 * mean.square()
+    var = torch.where(var_raw > floor, var_raw, var_sub.clamp_min(0.0))
+
+    return mean, var.clamp_min(0.0)
+
+
+def _stats_raw(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
+    r"""One pass of raw moments: E[x^2] - E[x]^2, cancellation-prone."""
+
+    B, HW, C = x.shape
+    n = HW * (C // groups)
+
+    xf = x.float()
+    mean = xf.sum(dim=1).reshape(B, groups, -1).sum(dim=-1) / n
+    g2 = xf.square().sum(dim=1).reshape(B, groups, -1).sum(dim=-1)
+
+    return mean, (g2 / n - mean.square()).clamp_min(0.0)
+
+
+# the lazy fold keeps the raw variance only where every group has
+# var > _RESCUE_FLOOR * mean^2 (|mean| / std < ~32), and takes the pilot pass
+# below _LAZY_MIN_BYTES of input, as the JAX package's defaults
+_RESCUE_FLOOR = 1e-3
+_LAZY_MIN_BYTES = 1 << 24
+
+
+def _stats_lazy(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
+    r"""The raw fold with an exact rescue (JAX's `_stats_lazy`).
+
+    JAX branches with `lax.cond`; here both branches run and a select keeps
+    one, as JAX's `cond` does under `vmap`: the same values, at two-pass
+    cost, and no sync with the host on the card.
+    """
+
+    if x.numel() * x.element_size() < _LAZY_MIN_BYTES:
+        return _stats_pilot(x, groups)
+
+    mean, var_raw = _stats_raw(x, groups)
+
+    B, HW, C = x.shape
+    n = HW * (C // groups)
+
+    mc = mean.repeat_interleave(C // groups, dim=-1)[:, None, :]
+    d2 = (x.float() - mc).square().sum(dim=1)
+    rescue = (d2.reshape(B, groups, -1).sum(dim=-1) / n).clamp_min(0.0)
+
+    ok = (var_raw > _RESCUE_FLOOR * mean.square()).all()
+
+    return mean, torch.where(ok, var_raw, rescue)
+
+
+def _stats_block(HW: int, C: int) -> int | None:
+    r"""The spatial tile of JAX's TPU statistics kernel: `HW` when the whole
+    row fits its VMEM cap, else the largest multiple-of-8 divisor of `HW`
+    under the cap, or `None` when there is none."""
+
+    cap = max(128, (1 << 19) // C)
+    if HW <= cap:
+        return HW
+
+    for s in range(cap - cap % 8, 7, -8):
+        if HW % s == 0:
+            return s
+
+    return None
+
+
+def stats_kernel_eligible(shape: tuple[int, ...]) -> bool:
+    r"""Whether JAX's TPU statistics kernel (`_stats_pallas`) covers a
+    `(B, HW, C)` shape: JAX takes its two-pass XLA fold elsewhere.
+
+    The card's kernel has neither the TPU's lane rule (`C % 128 == 0`) nor
+    its tiling rule: it covers every shape with :math:`C / G \leq 256`.
+    """
+
+    _, HW, C = shape
+    S_BLK = _stats_block(HW, C)
+
+    return C % 128 == 0 and S_BLK is not None and (S_BLK == HW or (S_BLK % 8 == 0 and HW % S_BLK == 0))
+
+
+def _stats_rows(B: int, HW: int, C: int, itemsize: int) -> int:
+    r"""Rows of x in one tile of the statistics kernel: at least 8 KiB of x
+    and 64 bytes a channel, so that the tile's partials (two float32 rows)
+    add at most an eighth to what it reads; about eight blocks per SM of the
+    card over the batch."""
+
+    return _rows_per_block(B, HW, C, itemsize, min_bytes=max(8192, 64 * C))
+
+
+def _stats_kernel_plain(x: Tensor, groups: int, rows: int) -> tuple[Tensor, Tensor]:
+    r"""Plain PyTorch version of the statistics kernel, with its arithmetic:
+    x shifted by the pilot row K (`x[:, 0]`); per tile of `rows` rows and
+    per channel, the mean and the centered sum of squares of x - K; tiles
+    and then channels combined by Chan's formula, each tile weighted by its
+    row count (the last tile may be short), the channel means taken about
+    the group's first pilot."""
+
+    B, HW, C = x.shape
+    cpg = C // groups
+
+    xf = x.float()
+    K = xf[:, :1, :]
+    tiles = torch.split(xf - K, rows, dim=1)
+
+    counts = torch.tensor([t.shape[1] for t in tiles], dtype=torch.float32, device=x.device)[None, :, None]
+    means = torch.stack([t.mean(dim=1) for t in tiles], dim=1)  # (B, nblk, C)
+    m2s = torch.stack([(t - t.mean(dim=1, keepdim=True)).square().sum(dim=1) for t in tiles], dim=1)
+
+    m = (counts * means).sum(dim=1) / HW  # (B, C), mean of x - K
+    M2 = m2s.sum(dim=1) + (counts * (means - m[:, None]).square()).sum(dim=1)
+
+    Kg = K[:, 0].reshape(B, groups, cpg)
+    e = (Kg - Kg[..., :1]) + m.reshape(B, groups, cpg)  # channel mean - the group's first pilot
+    dm = e.mean(dim=-1)
+    mean = Kg[..., 0] + dm
+    var = (M2.reshape(B, groups, cpg).sum(dim=-1) + HW * (e - dm[..., None]).square().sum(dim=-1)) / (HW * cpg)
+
+    return mean, var.clamp_min(0.0)
+
+
+@_build.forward_only("group_stats", "under grad, call group_stats: its backward is the analytic one")
+def _stats_kernel(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
+    r"""Launches `csrc/group_stats.cu` on a CUDA tensor (B, HW, C)."""
+
+    if x.device.type != "cuda":
+        raise ValueError(f"the group-statistics kernel needs a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the group-statistics kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError("the group-statistics kernel takes a contiguous (B, HW, C) tensor")
+
+    B, HW, C = x.shape
+
+    if C % groups or C // groups > 256:
+        raise ValueError(f"unsupported channels per group: C={C}, groups={groups}")
+    if x.data_ptr() % 16:
+        raise ValueError("the group-statistics kernel needs a 16-byte aligned input")
+
+    rows = _stats_rows(B, HW, C, x.element_size())
+    nblk = math.ceil(HW / rows)
+
+    partial = torch.empty(B, nblk, 2, C, dtype=torch.float32, device=x.device)
+    out = torch.empty(2, B, groups, dtype=torch.float32, device=x.device)
+
+    status = _build.library().azula_group_stats(
+        x.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        B, HW, C, groups, rows, _DTYPES[x.dtype], _build.stream(x.device),
+    )
+    _build.check(status, "group_stats")
+    _build.LAUNCHES["group_stats"] += 1
+
+    return out[0], out[1]
+
+
+_STATS = {
+    "lazy": _stats_lazy,
+    "pilot": _stats_pilot,
+    "raw": _stats_raw,
+    "guarded": _stats_guarded,
+    "twopass": _stats_twopass,
+    "kernel": _stats_kernel,
+    "plain": lambda x, groups: _stats_kernel_plain(x, groups, _stats_rows(*x.shape, x.element_size())),
+}
+
+
+def _stats_impl(x: Tensor, groups: int, implementation: str | None) -> tuple[Tensor, Tensor]:
+    if implementation in (None, "auto"):
+        implementation = "kernel" if x.device.type == "cuda" else "lazy"
+
+    if implementation not in _STATS:
+        raise ValueError(f"unknown group_stats implementation '{implementation}'")
+
+    return _STATS[implementation](x, groups)
+
+
+class _GroupStats(torch.autograd.Function):
+    r"""`group_stats` with JAX's analytic vjp (`_stats_bwd`):
+    d mean / dx = 1 / n and d var / dx = 2 (x - mean) / n within each group."""
+
+    @staticmethod
+    def forward(ctx, x, groups, implementation):
+        mean, var = _stats_impl(x, groups, implementation)
+        ctx.groups = groups
+        ctx.save_for_backward(x, mean)
+        return mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mean, g_var):
+        x, mean = ctx.saved_tensors
+        B, HW, C = x.shape
+        cpg = C // ctx.groups
+        n = HW * cpg
+
+        a = (g_mean / n).repeat_interleave(cpg, dim=-1)[:, None, :]
+        b = (2.0 * g_var / n).repeat_interleave(cpg, dim=-1)[:, None, :]
+        mc = mean.repeat_interleave(cpg, dim=-1)[:, None, :]
+
+        return (a + b * (x.float() - mc)).to(x.dtype), None, None
+
+
+def group_stats(x: Tensor, groups: int, implementation: str | None = None) -> tuple[Tensor, Tensor]:
+    r"""Per-(batch, group) float32 (mean, variance) of a channels-last tensor.
+
+    Arguments:
+        x: The input, with shape :math:`(B, HW, C)`.
+        groups: The number of groups :math:`G` (must divide :math:`C`).
+        implementation: :py:`None` or `'auto'` (the kernel for a CUDA tensor,
+            `'lazy'` for a CPU tensor), `'kernel'` (raises on the CPU),
+            `'plain'` (the kernel's arithmetic in PyTorch), or one of the
+            JAX package's `'lazy'`, `'raw'`, `'pilot'`, `'guarded'` and
+            `'twopass'`.
+
+    Returns:
+        Tensors `(mean, var)`, each with shape :math:`(B, G)`.
+    """
+
+    if x.shape[-1] % groups:
+        raise ValueError(f"channels ({x.shape[-1]}) must be divisible by groups ({groups})")
+
+    return _GroupStats.apply(x, groups, implementation)
+
+
+def _gn_forward(
+    x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool, implementation: str | None
 ) -> Tensor:
     if implementation in (None, "auto"):
         implementation = "kernel" if x.device.type == "cuda" else "plain"
@@ -189,6 +493,72 @@ def _gn_fused(
         return _group_norm_plain(x, P, Q, groups, eps, silu)
 
     raise ValueError(f"unknown group-norm implementation '{implementation}'")
+
+
+class _GroupNorm(torch.autograd.Function):
+    r"""The fused GroupNorm with JAX's custom vjp (`_gn_fused_fwd`,
+    `_gn_fused_bwd`): the forward saves `group_stats(x, groups)` (on the card,
+    the statistics kernel), and the backward is the standard GroupNorm
+    gradient through y = silu?(P u + Q), u = (x - mean) / sqrt(var + eps),
+    in float32 PyTorch, as JAX computes it in XLA."""
+
+    @staticmethod
+    def forward(ctx, x, P, Q, groups, eps, silu, implementation):
+        y = _gn_forward(x, P, Q, groups, eps, silu, implementation)
+        mean, var = _stats_impl(x, groups, None)
+        ctx.groups, ctx.eps, ctx.silu = groups, eps, silu
+        ctx.save_for_backward(x, P, Q, mean, var)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, P, Q, mean, var = ctx.saved_tensors
+        B, HW, C = x.shape
+        cpg = C // ctx.groups
+        n = HW * cpg
+
+        inv_c = torch.rsqrt(var + ctx.eps).repeat_interleave(cpg, dim=-1)[:, None, :]  # (B, 1, C)
+        mean_c = mean.repeat_interleave(cpg, dim=-1)[:, None, :]
+        P, Q = P[:, None, :], Q[:, None, :]
+
+        u = (x.float() - mean_c) * inv_c  # normalized activations
+        g = g.float()
+
+        if ctx.silu:
+            yv = P * u + Q
+            sig = torch.sigmoid(yv)
+            g = g * sig * (1.0 + yv * (1.0 - sig))
+
+        g_P = (g * u).sum(dim=1)
+        g_Q = g.sum(dim=1)
+
+        gu = g * P
+
+        def gmean(v):  # mean over each (batch, group), per channel
+            s = v.sum(dim=1).reshape(B, ctx.groups, cpg).sum(dim=-1) / n
+            return s.repeat_interleave(cpg, dim=-1)[:, None, :]
+
+        g_x = inv_c * (gu - gmean(gu) - u * gmean(gu * u))
+
+        return g_x.to(x.dtype), g_P, g_Q, None, None, None, None
+
+
+def _gn_fused(
+    x: Tensor,
+    P: Tensor,
+    Q: Tensor,
+    groups: int,
+    eps: float,
+    silu: bool,
+    implementation: str | None,
+) -> Tensor:
+    # the autograd function only where autograd records the call: its
+    # forward also takes the statistics for the backward
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, P, Q)):
+        return _GroupNorm.apply(x, P, Q, groups, eps, silu, implementation)
+
+    return _gn_forward(x, P, Q, groups, eps, silu, implementation)
 
 
 def group_norm(

@@ -29,9 +29,11 @@ Phases, each of which raises on failure:
    backward through `fused_msa_attention` must succeed (it takes the flash
    route of phase 9), and so must one through `dot_product_attention`, with
    and without `max_free` (the LSE forward and backward kernels of phase
-   16), while one through the GroupNorm kernel, through the attention or
-   max-free attention kernel called directly, or through the serving fused
-   MSA kernel called directly, must raise.
+   16), and one through `group_norm` and `group_norm_silu` (the GroupNorm
+   and statistics kernels, the analytic backward of phase 23), while one
+   through the GroupNorm, attention or max-free attention kernel called
+   directly, or through the serving fused MSA kernel called directly, must
+   raise.
 7. dit32 slices: the tiny ViT denoiser of the CPU tests (8 x 8 images, which
    takes the unfused route) and one of 32 x 32 images (256 tokens, two heads
    of 64, the fused route), each with the same random weights on the CPU
@@ -115,7 +117,37 @@ Phases, each of which raises on failure:
    dropout forwards and 12 dropout backwards per step and no other kernel;
    prints train images/s, ms/step, peak memory and a profile beside phase
    18's numbers.
-23. the kernels line `{"kernels": [...]}`, then the result line.
+23. group statistics: the statistics kernel (`csrc/group_stats.cu`) against
+   its plain version on 100 + 3 N inputs in bf16 and float32, at unet32's
+   three GroupNorm shapes (batch 256, 16 groups) and the JAX package's
+   production shapes, (8, 66049, 256) and (2, 4096, 192) included, and
+   against the exact statistics in float64; timed beside the plain version,
+   `torch.var_mean` and the bound. Then `group_stats`' gradient on the card
+   against the plain route's, and `group_norm` / `group_norm_silu` forward
+   and backward on the card against autograd through the plain version, at
+   unet32's and ADM's shapes, with exact launches.
+24. conv3x3: the kernel (`csrc/conv3x3.cu`) against its plain version in
+   bf16 and float32 at unet32's admitted shapes, the JAX package's test
+   shapes and a ragged shape; timed beside the plain version, `F.conv2d`
+   and the bound; its gradient against `F.conv2d`'s; then the entry point at
+   the 25 convolutions of a unet32 forward that `can_use_conv3x3` admits, on
+   their own inputs and weights, against the layers' outputs (exactly 25
+   launches).
+25. the tiny UNet slice: `Modulated(UNet(3, 3, mod_features=16,
+   hid_channels=(16, 32), hid_blocks=(1, 1)))` on 32 x 32 images, batch 4,
+   with norm="group" and norm="layer", on the CPU (plain versions) and on the
+   card, float32, same weights and injected noise: the denoiser's output, a
+   4-step DDIM trajectory, the loss and every gradient, the parameters after
+   three AdamW steps, `checkpointing=True` against False, exact launches.
+26. unet32 at full width as `bench.py` builds it (norm="layer"): DDIM-64
+   from `sampler.init` noise at batch 256 in bf16, finite, with no launch of
+   our kernels; prints images/s, ms/step, peak memory and a profile.
+27. unet32 training at full width (`bench.py`'s `_train32` recipe: bf16,
+   batch 256, fixed x and t, fresh noise every step, AdamW) with
+   norm="group": exactly 18 `group_norm` + 18 `group_stats` launches per
+   step and no other kernel; then bench's norm="layer": none. Prints train
+   images/s, ms/step, peak memory and a profile of one step of each.
+28. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -146,9 +178,11 @@ from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
 from azula_tpu_torch.models.utils import load_cards
 from azula_tpu_torch.nn.attention import MultiheadSelfAttention
 from azula_tpu_torch.nn.embedding import Modulated
+from azula_tpu_torch.nn.layers import Conv
+from azula_tpu_torch.nn.unet import UNet, UNetBlock
 from azula_tpu_torch.nn.vit import ViT
 from azula_tpu_torch.noise import DecaySchedule, VPSchedule
-from azula_tpu_torch.ops import _build, attention, fused_msa, norm
+from azula_tpu_torch.ops import _build, attention, conv, fused_msa, norm
 from azula_tpu_torch.sample import DDIMSampler
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory, bf16 tensor cores,
@@ -243,6 +277,28 @@ TINY_FLUX = dict(  # noqa: C408
 TINY_FLUX_SIDE = 24
 TINY_FLUX_TEXT = 64
 
+# unet32 (bench.py's `_unet32`): `Modulated(UNet(3, 3, mod_features=64,
+# hid_channels=(64, 128, 256), hid_blocks=(3, 3, 3)), 64)` under
+# `KarrasDenoiser(VPSchedule())`, bf16, batch 256 of 32 x 32 x 3, DDIM-64.
+# As the bench builds it (norm="layer") it runs no kernel of ours. Trained
+# with norm="group", each of its 18 blocks runs one GroupNorm (16 groups),
+# 6 each at (256, 1024, 64), (256, 256, 128) and (256, 64, 256), and under
+# grad one group_stats for the backward
+UNET32 = dict(mod_features=64, hid_channels=(64, 128, 256), hid_blocks=(3, 3, 3))  # noqa: C408
+UNET_BATCH = 256
+UNET_STEPS = 64
+UNET_GROUPS = 16
+UNET_GN_SHAPES = ((UNET_BATCH, 1024, 64), (UNET_BATCH, 256, 128), (UNET_BATCH, 64, 256))
+UNET_TRAIN_CALLS_PER_STEP = {"group_norm": 18, "group_stats": 18}
+# the 3x3 convolutions of one unet32 forward that `can_use_conv3x3` admits:
+# 12 at (256, 16, 16, 128 -> 128), 12 at (256, 8, 8, 256 -> 256), 1 at
+# (256, 16, 16, 384 -> 128)
+UNET_CONV3X3_CALLS = {"conv3x3": 25}
+# the tiny UNet slice: two depths of 16 and 32 channels, one block each (4
+# GroupNorms per forward with norm="group"), batch 4 of 32 x 32 x 3
+TINY_UNET = dict(mod_features=16, hid_channels=(16, 32), hid_blocks=(1, 1))  # noqa: C408
+TINY_UNET_NORMS = 4
+
 # tolerances, as max |kernel - plain| / max |plain|
 TOL_GN = {
     # same float32 arithmetic, summed in another order
@@ -258,6 +314,18 @@ TOL_ATTN = {
     # the row's final max
     torch.bfloat16: 2e-2,
 }
+# group statistics, kernel against plain version on the same inputs: both
+# center every tile exactly in float32 and sum in other orders; the var
+# elementwise relative. bf16 inputs are exact in float32, so the 1e-4 on
+# their var only leaves room for sums over 2^24 and more rows
+TOL_STATS = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# conv3x3: float32 sums of 9 C products in another order (TF32 off); bf16
+# adds the output's rounding (2^-8) on each side
+TOL_CONV = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the GroupNorm backward on the card (kernel forward, statistics kernel,
+# analytic backward) against autograd through the plain version: float32
+# sums in other orders; bf16 rounds x's gradient to 8 bits
+TOL_GN_GRAD = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # |mean| / std = 1e4 in float32: the rounding of x itself (ulp(1e4) ~ 1e-3)
 # passes through x * A + B on both sides; absolute, on outputs of order 1
 TOL_GN_LARGE_MEAN = 5e-3
@@ -326,6 +394,26 @@ def bound_ms(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def new_entry() -> dict:
+    r"""A kernel's entry of the kernels line, before its timings."""
+
+    return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,  # noqa: C408
+                bound_by=collections.Counter())
+
+
+def add_timing(entry: dict, count: int, ms: float, plain: float, library: float, bound: float, by: str,
+               abs_err: float, rel_err: float) -> None:
+    r"""Adds `count` calls of one timed shape to a kernel's entry."""
+
+    entry["ms"] += count * ms
+    entry["plain_ms"] += count * plain
+    entry["library_ms"] += count * library
+    entry["bound_ms"] += count * bound
+    entry["bound_by"][by] += count * bound
+    entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+    entry["max_err"] = max(entry["max_err"], rel_err)
 
 
 @contextlib.contextmanager
@@ -410,8 +498,7 @@ def check_group_norm(calls, affine, generator) -> dict:
     main path's dtype, timed) and float32; plus a large-mean input."""
 
     per_kernel = {
-        name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
-                   bound_by=collections.Counter())
+        name: new_entry()
         for name in ("group_norm_silu", "group_norm")
     }
 
@@ -488,8 +575,7 @@ def check_attention(calls, generator) -> dict:
     (timed, with SDPA as the library yardstick) and at a ragged length and
     the other head dims, in bf16 and float32."""
 
-    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
-                 bound_by=collections.Counter())
+    entry = new_entry()
 
     recorded = {k[1]: (calls[k], k[3]) for k in calls if k[0] == "attn"}
     extra = {(8, 16, 100, 64): (0, 0.125), (4, 8, 256, 32): (0, 32**-0.5), (2, 4, 200, 128): (0, 128**-0.5)}
@@ -511,14 +597,7 @@ def check_attention(calls, generator) -> dict:
                 library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
                 B, H, L, D = shape
                 bound, by = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * L * L * D, dtype)
-                entry["bound_by"][by] += count * bound
-
-                entry["ms"] += count * ms
-                entry["plain_ms"] += count * plain
-                entry["library_ms"] += count * library
-                entry["bound_ms"] += count * bound
-                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-                entry["max_err"] = max(entry["max_err"], rel_err)
+                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
                 line += f"; {ms:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, bound {bound:.4f} ms ({by})"
 
             log(line)
@@ -596,8 +675,7 @@ def check_fused_msa(calls, generator) -> dict:
     yardstick), in bf16 and float32; and at the same shape with RoPE, without
     the QK-norm, and at scale 1 with the QK-norm."""
 
-    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
-                 bound_by=collections.Counter())
+    entry = new_entry()
 
     (key,) = [k for k in calls if k[0] == "msa"]
     _, shape, dtype, heads, eps, scale, _ = key
@@ -670,11 +748,13 @@ def check_fused_msa(calls, generator) -> dict:
 
 def check_forward_only(generator) -> None:
     r"""Under grad, a backward through `fused_msa_attention` runs the flash
-    route's two kernels, and one through `dot_product_attention` (with and
+    route's two kernels, one through `dot_product_attention` (with and
     without `max_free`, which the training route ignores) runs the LSE
-    forward and backward kernels, each giving its inputs finite gradients;
-    one through each forward-only kernel (GroupNorm, the attention and
-    max-free attention kernels and the serving fused MSA kernel, each called
+    forward and backward kernels, and one through `group_norm` or
+    `group_norm_silu` runs the GroupNorm and statistics kernels forward and
+    the analytic backward, each giving its inputs finite gradients; one
+    through each forward-only kernel (the GroupNorm, attention and max-free
+    attention kernels and the serving fused MSA kernel, each called
     directly) must raise rather than give its inputs no gradient."""
 
     def rand(*shape):
@@ -693,6 +773,14 @@ def check_forward_only(generator) -> None:
             lambda *a: attention.dot_product_attention(*a, max_free=True), [(1, 2, 640, 64)] * 3,
             {"attention_fwd_lse": 1, "attention_bwd": 1},
         ),
+        "group_norm_silu": (
+            lambda x, s, t: norm.group_norm_silu(x, GROUPS, mod_scale=s, mod_shift=t), [(2, 64, 64), (2, 64), (2, 64)],
+            {"group_norm_silu": 1, "group_stats": 1},
+        ),
+        "group_norm": (
+            lambda x: norm.group_norm(x, GROUPS), [(2, 64, 64)],
+            {"group_norm": 1, "group_stats": 1},
+        ),
     }
     for name, (call, shapes, expected) in runs.items():
         inputs = [rand(*shape) for shape in shapes]
@@ -706,7 +794,9 @@ def check_forward_only(generator) -> None:
         log(f"  {name} under grad: the backward runs, launches {launched}")
 
     cases = {
-        "group_norm": lambda: norm.group_norm_silu(rand(2, 64, 64), GROUPS),
+        "group_norm (called directly)": lambda: norm._group_norm_kernel(
+            rand(2, 64, 64), torch.ones(2, 64, device="cuda"), torch.zeros(2, 64, device="cuda"), GROUPS, 1e-5, True
+        ),
         "attention_fwd (called directly)": lambda: attention._attention_kernel(
             *(rand(1, 2, 64, 32) for _ in range(3)), 32**-0.5
         ),
@@ -807,6 +897,10 @@ def profile_step(step) -> None:
         launched += event.count
         if "gn_partial_kernel" in name or "gn_fold_kernel" in name or "gn_apply_kernel" in name:
             kind = "group_norm (ours)"
+        elif "gs_partial_kernel" in name or "gs_fold_kernel" in name:
+            kind = "group_stats (ours)"
+        elif "conv3x3_kernel" in name:
+            kind = "conv3x3 (ours)"
         elif "attention_fwd_lse_kernel" in name and "true" in name:
             kind = "attention dropout forward (ours)"
         elif "attention_fwd_lse_kernel" in name:
@@ -856,8 +950,7 @@ def check_flash_blhd(generator) -> dict:
     backward takes the kernel's own o, as autograd hands it the forward's."""
 
     entries = {
-        name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
-                   bound_by=collections.Counter())
+        name: new_entry()
         for name in DIT_TRAIN_CALLS_PER_STEP
     }
 
@@ -914,13 +1007,7 @@ def check_flash_blhd(generator) -> dict:
                 }
                 for name, (ms, plain, library, (bound, by), (abs_err, rel_err)) in times.items():
                     entry = entries[name]
-                    entry["ms"] += count * ms
-                    entry["plain_ms"] += count * plain
-                    entry["library_ms"] += count * library
-                    entry["bound_ms"] += count * bound
-                    entry["bound_by"][by] += count * bound
-                    entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-                    entry["max_err"] = max(entry["max_err"], rel_err)
+                    add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
                     line += (f"\n    {name}: {ms:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, "
                              f"bound {bound:.4f} ms ({by})")
                 del out, leaves
@@ -1042,33 +1129,31 @@ def check_train_slice(side: int, calls_per_step: dict) -> None:
         raise AssertionError("the training slice on the card did not run exactly its route's kernels")
 
 
-def train_full_width(side: int, calls_per_step: dict, generator, dropout: float | None = None) -> dict:
-    r"""`bench.py`'s dit32_train on `side` x `side` images: the bf16 dit32
-    model, batch 128, fixed x and t, fresh noise every step, AdamW with
+def train_full_width(denoiser, batch: int, side: int, calls_per_step: dict, generator, dropout: bool = False) -> dict:
+    r"""`bench.py`'s train recipe for `denoiser` (bf16) on `side` x `side`
+    images: batch `batch`, fixed x and t, fresh noise every step, AdamW with
     optax's settings, through `TrainState.step`: warm-up steps, then timed
     steps with finite losses and exactly `calls_per_step` launches per step
-    and no other kernel. With `dropout`, the blocks drop attention weights
-    and FFN activations at that rate, drawn from `generator`: JAX's `loss`
-    spends its key on the noise, so the step hands the generator to the
-    denoiser and takes the weighted loss itself (`_loss` on fresh noise).
-    Prints train images/s, ms/step, peak memory and a profile of one step;
-    returns the timed steps' launches, ms/step, train images/s and peak
-    memory."""
+    and no other kernel. With `dropout`, the blocks drop at their rate,
+    drawn from `generator`: JAX's `loss` spends its key on the noise, so the
+    step hands the generator to the denoiser and takes the weighted loss
+    itself (`_loss` on fresh noise). Prints train images/s, ms/step, peak
+    memory and a profile of one step; returns the timed steps' launches,
+    ms/step, train images/s and peak memory."""
 
-    dit = dit32_model(generator, dropout=dropout)
-    x_train = torch.randn((DIT_BATCH, side, side, 3), generator=generator, device="cuda")
-    t_train = torch.rand((DIT_BATCH,), generator=generator, device="cuda")
-    optimizer = torch.optim.AdamW(dit.parameters(), **train.OPTAX_ADAMW)
+    x_train = torch.randn((batch, side, side, 3), generator=generator, device="cuda")
+    t_train = torch.rand((batch,), generator=generator, device="cuda")
+    optimizer = torch.optim.AdamW(denoiser.parameters(), **train.OPTAX_ADAMW)
 
-    if dropout is None:
-        state = train.TrainState(dit, optimizer)
+    if not dropout:
+        state = train.TrainState(denoiser, optimizer)
 
         def step():
             return state.step(x_train, t_train, generator)
     else:
         def step():
             z = torch.randn(x_train.shape, generator=generator, device="cuda")
-            loss = dit._loss(x_train, t_train, z, generator=generator)
+            loss = denoiser._loss(x_train, t_train, z, generator=generator)
             loss.backward()
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
@@ -1097,15 +1182,15 @@ def train_full_width(side: int, calls_per_step: dict, generator, dropout: float 
     result = dict(  # noqa: C408
         launches=train_launches,
         ms=train_seconds / DIT_TRAIN_STEPS * 1e3,
-        images_s=DIT_BATCH * DIT_TRAIN_STEPS / train_seconds,
+        images_s=batch * DIT_TRAIN_STEPS / train_seconds,
         peak_gib=peak / 2**30,
     )
-    log(f"{side}x{side} training{'' if dropout is None else f' with dropout {dropout}'} {train_seconds:.3f} s for "
+    log(f"{side}x{side} training{' with dropout' if dropout else ''} {train_seconds:.3f} s for "
         f"{DIT_TRAIN_STEPS} steps: {result['images_s']:.4f} train images/s, {result['ms']:.3f} ms/step, "
         f"peak memory {result['peak_gib']:.2f} GiB; loss first {losses[0].item():.5f}, last {losses[-1].item():.5f}")
     profile_step(step)
 
-    del step, optimizer, dit, x_train, t_train
+    del step, optimizer, denoiser, x_train, t_train
     torch.cuda.empty_cache()
 
     return result
@@ -1121,8 +1206,7 @@ def check_attention_training(generator) -> dict:
     forward's."""
 
     entries = {
-        name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
-                   bound_by=collections.Counter())
+        name: new_entry()
         for name in DIT64_TRAIN_CALLS_PER_STEP
     }
     count = DIT64_TRAIN_CALLS_PER_STEP["attention_fwd_lse"]
@@ -1182,13 +1266,7 @@ def check_attention_training(generator) -> dict:
                     if shape != DIT64_SHAPE:
                         continue
                     entry = entries[name]
-                    entry["ms"] += count * ms
-                    entry["plain_ms"] += count * plain
-                    entry["library_ms"] += count * library
-                    entry["bound_ms"] += count * bound
-                    entry["bound_by"][by] += count * bound
-                    entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-                    entry["max_err"] = max(entry["max_err"], rel_err)
+                    add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
                 del out, leaves
 
             log(line)
@@ -1204,8 +1282,7 @@ def check_max_free(generator) -> dict:
     bound), in float32, at ragged lengths called directly (the dispatch takes
     the kernel only at L % 128 = 0), and with logits above the clamp."""
 
-    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,
-                 bound_by=collections.Counter())
+    entry = new_entry()
     count = FLUX_CALLS_PER_FORWARD["attention_fwd_max_free"]
 
     cases = [
@@ -1253,13 +1330,7 @@ def check_max_free(generator) -> dict:
                      f"bound {bound:.4f} ms ({by})")
 
             if shape == FLUX_SHAPE:
-                entry["ms"] += count * ms
-                entry["plain_ms"] += count * plain
-                entry["library_ms"] += count * library
-                entry["bound_ms"] += count * bound
-                entry["bound_by"][by] += count * bound
-                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-                entry["max_err"] = max(entry["max_err"], rel_err)
+                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
 
         log(line)
 
@@ -1702,6 +1773,407 @@ def check_masked_slice(generator) -> dict:
     return launches
 
 
+def unet32_model(generator: torch.Generator, norm: str) -> KarrasDenoiser:
+    r"""bench.py's unet32 denoiser with `norm`, the modules' own
+    initialization drawn from `generator`, cast to bf16 as a whole."""
+
+    unet = UNet(3, 3, **UNET32, norm=norm, device="cuda", generator=generator)
+    backbone = Modulated(unet, UNET32["mod_features"], device="cuda", generator=generator)
+
+    return KarrasDenoiser(backbone.to(torch.bfloat16), VPSchedule())
+
+
+def check_group_stats(generator) -> dict:
+    r"""The statistics kernel against its plain version on 100 + 3 N inputs
+    (|mean| / std ~ 33), in bf16 and float32, at unet32's three GroupNorm
+    shapes (timed in bf16 beside the plain version, `torch.var_mean` and the
+    bound; the entry sums the 18 calls of one train step) and at the JAX
+    package's production shapes (tests/test_ops_tpu.py), and both against
+    the exact statistics in float64."""
+
+    entry = new_entry()
+    count = UNET_TRAIN_CALLS_PER_STEP["group_stats"] // len(UNET_GN_SHAPES)
+
+    cases = [(shape, UNET_GROUPS, True) for shape in UNET_GN_SHAPES] + [
+        ((8, 65536, 256), 32, False),
+        ((8, 16384, 512), 32, False),
+        ((2, 4096, 1024), 32, False),
+        ((4, 9216, 384), 32, False),
+        ((8, 66049, 256), 32, False),
+        ((2, 4096, 192), 24, False),
+    ]
+    for shape, groups, timed in cases:
+        B, HW, C = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (100 + 3 * torch.randn(shape, generator=generator, device="cuda")).to(dtype)
+            rows = norm._stats_rows(B, HW, C, x.element_size())
+            mean, var = norm._stats_kernel(x, groups)
+            want_mean, want_var = norm._stats_kernel_plain(x, groups, rows)
+            exact_var, exact_mean = torch.var_mean(x.double().view(B, HW, groups, -1), dim=(1, 3), correction=0)
+
+            mean_abs, mean_rel = errors(mean, want_mean)
+            var_rel = ((var.double() - want_var.double()).abs() / want_var.double()).max().item()
+            exact_rel = ((var.double() - exact_var).abs() / exact_var).max().item()
+            exact_mean_rel = errors(mean, exact_mean)[1]
+            tol = TOL_STATS[dtype]
+            line = (f"  group_stats {shape} G={groups} {str(dtype)[6:]} ({math.ceil(HW / rows)} tiles of {rows} rows; "
+                    f"JAX's TPU kernel {'covers' if norm.stats_kernel_eligible(shape) else 'does not cover'} it): "
+                    f"mean rel {mean_rel:.3e}, var rel {var_rel:.3e}; against float64 mean {exact_mean_rel:.3e}, "
+                    f"var {exact_rel:.3e} (tol {tol})")
+            if max(mean_rel, var_rel, exact_rel, exact_mean_rel) > tol:
+                raise AssertionError(line)
+
+            if timed and dtype == torch.bfloat16:
+                xv = x.view(B, HW, groups, C // groups)
+                ms = elapsed_ms(lambda: norm._stats_kernel(x, groups))
+                plain = elapsed_ms(lambda: norm._stats_kernel_plain(x, groups, rows))
+                library = elapsed_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0))
+                # x read once and (mean, var) written once; a subtraction, a
+                # square and two sums per element, float32 on the CUDA cores
+                bound, by = bound_ms(x.numel() * x.element_size() + 2 * B * groups * 4, 4 * x.numel(), torch.float32)
+                add_timing(entry, count, ms, plain, library, bound, by, mean_abs, max(mean_rel, var_rel))
+                line += (f"; {ms:.4f} ms ({x.numel() * x.element_size() / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
+                         f"torch.var_mean {library:.4f} ms, bound {bound:.4f} ms ({by})")
+            log(line)
+            del x
+        torch.cuda.empty_cache()
+
+    return entry
+
+
+def check_group_norm_training(generator) -> None:
+    r"""`group_stats`'s gradient on the card (the kernel's statistics)
+    against the plain route's, and `group_norm` / `group_norm_silu` forward
+    and backward on the card (the GroupNorm and statistics kernels, the
+    analytic backward) against autograd through the plain version, at
+    unet32's and ADM's shapes, float32 and bf16, with exact launches."""
+
+    B, HW, C = UNET_GN_SHAPES[0]
+    x = (100 + 3 * torch.randn((B, HW, C), generator=generator, device="cuda")).requires_grad_()
+    gm, gv = (torch.randn((B, UNET_GROUPS), generator=generator, device="cuda") for _ in range(2))
+    grads = []
+    for implementation in (None, "plain"):
+        before = collections.Counter(_build.LAUNCHES)
+        mean, var = norm.group_stats(x, UNET_GROUPS, implementation)
+        (grad,) = torch.autograd.grad((mean, var), x, (gm, gv))
+        grads.append(grad)
+        launched = dict(collections.Counter(_build.LAUNCHES) - before)
+        if launched != ({"group_stats": 1} if implementation is None else {}):
+            raise AssertionError(f"group_stats({implementation}) launched {launched}")
+    _, err = errors(*grads)
+    log(f"  group_stats gradient {(B, HW, C)} G={UNET_GROUPS}, kernel route against plain: rel err {err:.3e} "
+        f"(tol {TOL_GN_GRAD[torch.float32]})")
+    if err > TOL_GN_GRAD[torch.float32]:
+        raise AssertionError("group_stats' gradient on the card disagrees with the plain route")
+    del x, grads
+
+    # (shape, groups, silu, modulated): unet32's three, ADM's ResBlock
+    # prologue (SiLU, scale-shift) and attention pre-norm
+    cases = [(shape, UNET_GROUPS, False, False) for shape in UNET_GN_SHAPES] + [
+        ((8, 4096, 256), 32, True, True),
+        ((8, 1024, 512), 32, False, False),
+    ]
+    for (B, HW, C), groups, silu, modulated in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((B, HW, C), generator=generator, device="cuda") * 2 + 0.5).to(dtype)
+            g = torch.randn((B, HW, C), generator=generator, device="cuda").to(dtype)
+            scale = 1 + 0.5 * torch.randn(C, generator=generator, device="cuda")
+            bias = 0.5 * torch.randn(C, generator=generator, device="cuda")
+            mods = [0.3 * torch.randn((B, C), generator=generator, device="cuda") for _ in range(2)] if modulated else [None, None]
+
+            leaves = [t.detach().clone().requires_grad_() for t in (x, scale, bias, *(m for m in mods if m is not None))]
+            ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+
+            def inputs(ts):
+                ms = ts[3:] if modulated else (None, None)
+                return dict(scale=ts[1], bias=ts[2], mod_scale=ms[0], mod_shift=ms[1])
+
+            before = collections.Counter(_build.LAUNCHES)
+            fn = norm.group_norm_silu if silu else norm.group_norm
+            y = fn(leaves[0], groups, **inputs(leaves))
+            y.backward(g)
+            launched = dict(collections.Counter(_build.LAUNCHES) - before)
+            expected = {"group_norm_silu" if silu else "group_norm": 1, "group_stats": 1}
+            if launched != expected:
+                raise AssertionError(f"group_norm under grad launched {launched}, expected {expected}")
+
+            # autograd through the plain version, no custom backward
+            xf, P, Q = norm._compose_affine(ref_leaves[0], groups, *inputs(ref_leaves).values())
+            want = norm._group_norm_plain(xf, P, Q, groups, 1e-5, silu).reshape(x.shape)
+            want.backward(g)
+
+            tol = TOL_GN_GRAD[dtype]
+            errs = {"y": errors(y, want)[1]}
+            errs.update({name: errors(a.grad, b.grad)[1] for name, a, b in
+                         zip(("x", "scale", "bias", "mod_scale", "mod_shift"), leaves, ref_leaves)})
+            line = (f"  group_norm{'_silu' if silu else ''} {(B, HW, C)} G={groups} mod={modulated} {str(dtype)[6:]} "
+                    f"forward and backward on the card against autograd through the plain version: "
+                    + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {tol}; y {TOL_GN[dtype]})")
+            if errs.pop("y") > TOL_GN[dtype] or max(errs.values()) > tol:
+                raise AssertionError(line)
+            log(line)
+            del x, g, y, want, leaves, ref_leaves
+        torch.cuda.empty_cache()
+
+
+def unet32_conv_calls(generator) -> list:
+    r"""The convolutions of one full-width unet32 forward (bf16, batch 256)
+    that `can_use_conv3x3` admits: (layer, input, the layer's output)."""
+
+    denoiser = unet32_model(generator, "layer")
+    calls = []
+    hooks = [
+        m.register_forward_hook(lambda m, args, out: calls.append((m, args[0], out)))
+        for m in denoiser.modules() if isinstance(m, Conv)
+    ]
+    x = torch.randn((UNET_BATCH, 32, 32, 3), generator=generator, device="cuda")
+    with torch.inference_mode():
+        denoiser(x, torch.full((UNET_BATCH,), 0.5, device="cuda"))
+    for hook in hooks:
+        hook.remove()
+
+    admitted = [
+        (m, h, out) for m, h, out in calls
+        if conv.can_use_conv3x3(tuple(h.shape), (*m.weight.shape[2:], *m.weight.shape[1::-1]), m.stride, m.padding,
+                                m.periodic)
+    ]
+    shapes = collections.Counter((tuple(h.shape), m.weight.shape[0]) for m, h, _ in admitted)
+    log(f"  {len(calls)} convolutions per unet32 forward, {len(admitted)} admitted by can_use_conv3x3: {dict(shapes)}")
+    if len(admitted) != UNET_CONV3X3_CALLS["conv3x3"]:
+        raise AssertionError(f"expected {UNET_CONV3X3_CALLS} admitted convolutions per unet32 forward")
+
+    return admitted
+
+
+def check_conv3x3(generator) -> tuple[dict, dict]:
+    r"""The conv3x3 kernel against its plain version at unet32's admitted
+    shapes (timed in bf16 beside the plain version, `F.conv2d` on
+    `channels_last` and the bound; the entry sums one forward's 25 calls),
+    at the JAX package's test shapes and at a ragged shape, in bf16 and
+    float32; its autograd gradient against `F.conv2d`'s; then the entry
+    point driven at the 25 admitted calls of one unet32 forward, on their
+    own inputs and weights, against the layers' cuDNN outputs. Returns the
+    entry and that run's launches."""
+
+    entry = new_entry()
+    admitted = unet32_conv_calls(generator)
+    counts = collections.Counter((tuple(h.shape), m.weight.shape[0]) for m, h, _ in admitted)
+
+    cases = [(*x_shape, K) for x_shape, K in counts] + [(2, 32, 32, 256, 256), (1, 64, 64, 128, 128), (3, 13, 11, 40, 70)]
+    for B, H, W, C, K in cases:
+        count = counts.get(((B, H, W, C), K), 0)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((B, H, W, C), generator=generator, device="cuda").to(dtype)
+            w = (torch.randn((3, 3, C, K), generator=generator, device="cuda") / math.sqrt(9 * C)).to(dtype)
+            got = conv._conv3x3_kernel(x, w)
+            want = conv._conv3x3_plain(x, w)
+            abs_err, rel_err = errors(got, want)
+            tol = TOL_CONV[dtype]
+            line = (f"  conv3x3 (B, H, W, C, K) = {(B, H, W, C, K)} {str(dtype)[6:]} x{count}/fwd: "
+                    f"max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {tol})")
+            if rel_err > tol:
+                raise AssertionError(line)
+
+            if count and dtype == torch.bfloat16:
+                xc = x.permute(0, 3, 1, 2)  # channels_last memory, cuDNN's NHWC
+                wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                ops = 2 * B * H * W * C * K * 9
+                ms = elapsed_ms(lambda: conv._conv3x3_kernel(x, w))
+                plain = elapsed_ms(lambda: conv._conv3x3_plain(x, w))
+                library = elapsed_ms(lambda: F.conv2d(xc, wc, padding=1))
+                bound, by = bound_ms((x.numel() + w.numel() + got.numel()) * x.element_size(), ops, dtype)
+                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
+                line += (f"; {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                         f"F.conv2d {library:.4f} ms, bound {bound:.4f} ms ({by})")
+            log(line)
+            del x, w, got, want
+
+    # the gradient: the library convolution's, as JAX's custom vjp
+    x = torch.randn((2, 16, 16, 128), generator=generator, device="cuda", requires_grad=True)
+    w = (torch.randn((3, 3, 128, 128), generator=generator, device="cuda") / 34).requires_grad_()
+    g = torch.randn((2, 16, 16, 128), generator=generator, device="cuda")
+    got = torch.autograd.grad(conv.conv3x3(x, w), (x, w), g)
+    want = torch.autograd.grad(
+        F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1), (x, w), g
+    )
+    errs = [errors(a, b)[1] for a, b in zip(got, want)]
+    log(f"  conv3x3 gradient (2, 16, 16, 128 -> 128) float32 against F.conv2d's: dx {errs[0]:.3e}, "
+        f"dw {errs[1]:.3e} (tol {TOL_CONV[torch.float32]})")
+    if max(errs) > TOL_CONV[torch.float32]:
+        raise AssertionError("conv3x3's gradient disagrees with F.conv2d's")
+
+    # the entry point at unet32's admitted calls: the main path of the kernel
+    with torch.inference_mode():
+        _build.LAUNCHES.clear()
+        worst = 0.0
+        for m, h, out in admitted:
+            y = conv.conv3x3(h, m.weight.permute(2, 3, 1, 0).contiguous()) + m.bias
+            worst = max(worst, errors(y, out)[1])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    log(f"  conv3x3 at the {len(admitted)} admitted calls of a unet32 forward, plus the layer's bias, against its "
+        f"cuDNN output: worst rel err {worst:.3e} (tol {TOL_CONV[torch.bfloat16]}); launches {launches}")
+    if worst > TOL_CONV[torch.bfloat16] or launches != UNET_CONV3X3_CALLS:
+        raise AssertionError("conv3x3 at unet32's calls disagrees with the layers, or its launches are not exact")
+    del admitted
+    torch.cuda.empty_cache()
+
+    return entry, launches
+
+
+def check_unet_slice() -> None:
+    r"""The tiny UNet denoiser on the CPU (plain versions) and on the card
+    (kernels), same random weights and injected noise, float32, with
+    norm="group" and norm="layer": the denoiser's output and a 4-step DDIM
+    trajectory; the loss and every parameter's gradient of one step, the
+    parameters after three AdamW steps; `checkpointing=True` against False
+    on the card; exact launch counts."""
+
+    rng = np.random.default_rng(2)
+
+    for norm_kind in ("group", "layer"):
+        def make(device):
+            unet = UNet(3, 3, norm=norm_kind, **TINY_UNET, device=device)
+            return KarrasDenoiser(Modulated(unet, TINY_UNET["mod_features"], device=device), VPSchedule())
+
+        cpu, card = make("cpu"), make("cuda")
+        state = {}
+        for key, value in cpu.backbone.state_dict().items():
+            scale = 0.2 if key.endswith("bias") else 1 / math.sqrt(value[0].numel())
+            state[key] = torch.from_numpy((scale * rng.standard_normal(value.shape)).astype(np.float32))
+        cpu.backbone.load_state_dict(state)
+        card.backbone.load_state_dict(state)
+
+        norms = TINY_UNET_NORMS if norm_kind == "group" else 0
+        x = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(np.float32))
+        t = torch.from_numpy(rng.uniform(0.05, 0.95, 4).astype(np.float32))
+
+        _build.LAUNCHES.clear()
+        with torch.inference_mode():
+            for tt in (0.3, 0.9):
+                before = dict(_build.LAUNCHES)
+                want = cpu(x, torch.tensor(tt)).mean
+                if dict(_build.LAUNCHES) != before:
+                    raise AssertionError("a kernel ran on the CPU path")
+                got = card(x.cuda(), torch.tensor(tt, device="cuda")).mean
+                _, err = errors(got.cpu(), want)
+                log(f"  unet denoiser norm={norm_kind} t={tt}: rel err {err:.3e} (tol {TOL_SLICE})")
+                if err > TOL_SLICE:
+                    raise AssertionError("the tiny UNet denoiser on the card disagrees with the CPU")
+
+            want = DDIMSampler(cpu, steps=4)(x)
+            got = DDIMSampler(card, steps=4)(x.cuda())
+            _, err = errors(got.cpu(), want)
+            log(f"  unet DDIM-4 trajectory norm={norm_kind}: rel err {err:.3e} (tol {TOL_TRAJECTORY})")
+            if err > TOL_TRAJECTORY:
+                raise AssertionError("the tiny UNet DDIM trajectory on the card disagrees with the CPU")
+        expected = {"group_norm": norms * 6} if norms else {}
+        log(f"  kernel launches of the inference slice: {dict(_build.LAUNCHES)}, expected {expected}")
+        if dict(_build.LAUNCHES) != expected:
+            raise AssertionError("the tiny UNet's inference launches are not exact")
+
+        optimizers = [torch.optim.AdamW(d.parameters(), **train.OPTAX_ADAMW) for d in (cpu, card)]
+        _build.LAUNCHES.clear()
+        for i in range(3):
+            z = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+            losses = {}
+            for device, denoiser in (("cpu", cpu), ("cuda", card)):
+                before = dict(_build.LAUNCHES)
+                loss = denoiser._loss(x.to(device), t.to(device), z.to(device))
+                loss.backward()
+                if device == "cpu" and dict(_build.LAUNCHES) != before:
+                    raise AssertionError("a kernel ran on the CPU path")
+                losses[device] = loss.item()
+
+            if i == 0:
+                loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+                worst, worst_name = 0.0, ""
+                for (name, a), (_, b) in zip(cpu.named_parameters(), card.named_parameters()):
+                    _, err = errors(b.grad.cpu(), a.grad)
+                    worst, worst_name = max((worst, worst_name), (err, name))
+                log(f"  unet train slice norm={norm_kind}: loss {losses['cpu']:.6f}, rel err {loss_err:.3e}; "
+                    f"worst parameter gradient rel err {worst:.3e} ({worst_name}) (tol {TOL_SLICE})")
+                if loss_err > TOL_SLICE or worst > TOL_SLICE:
+                    raise AssertionError("the tiny UNet's loss or gradients on the card disagree with the CPU")
+
+            for optimizer in optimizers:
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+
+        diff = max((b.detach().cpu() - a.detach()).abs().max().item()
+                   for a, b in zip(cpu.parameters(), card.parameters()))
+        log(f"  unet train slice norm={norm_kind}: parameters after three AdamW steps, max abs diff {diff:.3e} "
+            f"(tol {TOL_TRAIN_PARAMS})")
+        if diff > TOL_TRAIN_PARAMS:
+            raise AssertionError("the tiny UNet's parameters on the card disagree with the CPU")
+
+        # checkpointing on the card: the blocks recompute in the backward,
+        # running their GroupNorm and its statistics again
+        grads = []
+        for checkpointing in (False, True):
+            for module in card.modules():
+                if isinstance(module, UNetBlock):
+                    module.checkpointing = checkpointing
+            card._loss(x.cuda(), t.cuda(), z.cuda()).backward()
+            grads.append([p.grad.clone() for p in card.parameters()])
+            card.zero_grad(set_to_none=True)
+        worst = max(errors(b, a)[1] for a, b in zip(*grads))
+        log(f"  unet checkpointing=True against False on the card, norm={norm_kind}: worst gradient rel err "
+            f"{worst:.3e} (tol {TOL_GN_GRAD[torch.float32]})")
+        if worst > TOL_GN_GRAD[torch.float32]:
+            raise AssertionError("the tiny UNet's gradients under checkpointing differ")
+
+        # 3 steps and the plain run under grad: one GroupNorm and one
+        # statistics launch per norm; the checkpointed run: twice each
+        expected = {"group_norm": norms * 6, "group_stats": norms * 6} if norms else {}
+        log(f"  kernel launches of the training slice: {dict(_build.LAUNCHES)}, expected {expected}")
+        if dict(_build.LAUNCHES) != expected:
+            raise AssertionError("the tiny UNet's training launches are not exact")
+
+
+def unet32_sampling(generator) -> dict:
+    r"""unet32 DDIM-64 at full width as `bench.py` builds it (norm="layer"),
+    bf16, batch 256, from `sampler.init` noise: finite, with no launch of our
+    kernels. Prints images/s, ms/step, peak memory and a profile of one
+    step."""
+
+    denoiser = unet32_model(generator, "layer")
+    n_params = sum(p.numel() for p in denoiser.parameters())
+    sampler = DDIMSampler(denoiser, eta=0.0, steps=UNET_STEPS)
+    x = sampler.init((UNET_BATCH, 32, 32, 3), generator=generator)
+    log(f"unet32: {n_params:,} parameters")
+
+    with torch.inference_mode():
+        grid = sampler.timesteps.cuda()
+        sampler.step(x, grid[0], grid[1])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        y = sampler(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(y).all()) or y.shape != x.shape:
+        raise AssertionError("the unet32 trajectory is not finite")
+    log(f"launches {launches}, expected none (norm='layer' runs no kernel of ours)")
+    if launches:
+        raise AssertionError("the unet32 sampling path launched a kernel")
+    result = dict(images_s=UNET_BATCH / seconds, ms=seconds / UNET_STEPS * 1e3, peak_gib=peak / 2**30)  # noqa: C408
+    log(f"unet32 trajectory {seconds:.3f} s, {result['images_s']:.4f} images/s, {result['ms']:.3f} ms/step, "
+        f"peak memory {result['peak_gib']:.2f} GiB; sample mean {y.float().mean().item():.4f}, "
+        f"std {y.float().std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: sampler.step(x, grid[0], grid[1]))
+    del denoiser, sampler, x, y
+    torch.cuda.empty_cache()
+
+    return result
+
+
 def masked_source(name: str) -> tuple[str, str]:
     r"""The source and the TPU kernel of a masked or dropout form."""
 
@@ -1853,7 +2325,7 @@ def main() -> None:
     log(f"== 12. dit32 training at full width: bf16, batch {DIT_BATCH}, AdamW, "
         f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
     del dit
-    train_launches = train_full_width(32, DIT_TRAIN_CALLS_PER_STEP, generator)["launches"]
+    train_launches = train_full_width(dit32_model(generator), DIT_BATCH, 32, DIT_TRAIN_CALLS_PER_STEP, generator)["launches"]
 
     log("== 13. the max-free attention kernel against its plain version at the FLUX.1 shapes")
     with torch.inference_mode():
@@ -1924,7 +2396,7 @@ def main() -> None:
 
     log(f"== 18. dit64 training at full width: {DIT64_SIDE}x{DIT64_SIDE} images, bf16, batch {DIT_BATCH}, AdamW, "
         f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
-    dit64 = train_full_width(DIT64_SIDE, DIT64_TRAIN_CALLS_PER_STEP, generator)
+    dit64 = train_full_width(dit32_model(generator), DIT_BATCH, DIT64_SIDE, DIT64_TRAIN_CALLS_PER_STEP, generator)
     dit64_launches = dit64["launches"]
 
     log("== 19. attention masks and dropout: the kernel forms against their plain versions")
@@ -1938,13 +2410,37 @@ def main() -> None:
 
     log(f"== 22. dit64 training with dropout {DROPOUT} at full width: {DIT64_SIDE}x{DIT64_SIDE} images, bf16, "
         f"batch {DIT_BATCH}, AdamW, {DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
-    dit64_dropout = train_full_width(DIT64_SIDE, DIT64_DROPOUT_CALLS_PER_STEP, generator, dropout=DROPOUT)
+    dit64_dropout = train_full_width(
+        dit32_model(generator, dropout=DROPOUT), DIT_BATCH, DIT64_SIDE, DIT64_DROPOUT_CALLS_PER_STEP, generator,
+        dropout=True,
+    )
     log(f"dit64 training with dropout {DROPOUT}: {dit64_dropout['ms']:.3f} ms/step, "
         f"{dit64_dropout['images_s']:.4f} train images/s, peak {dit64_dropout['peak_gib']:.2f} GiB; without "
         f"(phase 18, this run): {dit64['ms']:.3f} ms/step, {dit64['images_s']:.4f} train images/s, "
         f"peak {dit64['peak_gib']:.2f} GiB; ratio {dit64_dropout['ms'] / dit64['ms']:.3f}")
 
-    log("== 23. result")
+    log("== 23. group statistics against their plain version; GroupNorm training on the card")
+    stats = check_group_stats(generator)
+    check_group_norm_training(generator)
+
+    log("== 24. conv3x3 against its plain version; the entry point at unet32's admitted convolutions")
+    conv3x3, conv3x3_launches = check_conv3x3(generator)
+
+    log("== 25. the tiny UNet slice: CPU plain versions against the card's kernels, float32")
+    check_unet_slice()
+
+    log(f"== 26. unet32 full width (norm='layer', as bench.py builds it): bf16, batch {UNET_BATCH}, DDIM-{UNET_STEPS}")
+    unet32_sampling(generator)
+
+    log(f"== 27. unet32 training at full width: norm='group', then norm='layer', bf16, batch {UNET_BATCH}, AdamW, "
+        f"{DIT_TRAIN_WARMUP} warm-up + {DIT_TRAIN_STEPS} timed steps")
+    unet_group = train_full_width(unet32_model(generator, "group"), UNET_BATCH, 32, UNET_TRAIN_CALLS_PER_STEP, generator)
+    unet_layer = train_full_width(unet32_model(generator, "layer"), UNET_BATCH, 32, {}, generator)
+    log(f"unet32 training norm='group': {unet_group['ms']:.3f} ms/step, {unet_group['images_s']:.4f} train images/s, "
+        f"peak {unet_group['peak_gib']:.2f} GiB; norm='layer' (bench.py's, this run): {unet_layer['ms']:.3f} ms/step, "
+        f"{unet_layer['images_s']:.4f} train images/s, peak {unet_layer['peak_gib']:.2f} GiB")
+
+    log("== 28. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -1962,6 +2458,8 @@ def main() -> None:
             else (name, masked[name], slice_launches, {name: 1})
             for name in MASKED_FORMS
         ),
+        ("group_stats", stats, unet_group["launches"], UNET_TRAIN_CALLS_PER_STEP),
+        ("conv3x3", conv3x3, conv3x3_launches, UNET_CONV3X3_CALLS),
     ):
         source, replaces = {
             "group_norm_silu": ("group_norm.cu", "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"),
@@ -1995,8 +2493,12 @@ def main() -> None:
                 "azula_tpu/ops/attention.py:1102 (_pallas_attention_bwd; dq_kernel :1200, dkv_kernel :1275), "
                 "azula_tpu/ops/attention.py:966 (_pallas_attention_batched_bwd)",
             ),
+            "group_stats": ("group_stats.cu", "azula_tpu/ops/norm.py:281 (_stats_pallas)"),
+            "conv3x3": ("conv3x3.cu", "azula_tpu/ops/conv.py:53 (_pallas_conv3x3)"),
         }.get(name) or masked_source(name)
-        tol = TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
+        tol = {"group_stats": TOL_STATS[torch.bfloat16], "conv3x3": TOL_CONV[torch.bfloat16]}.get(
+            name, TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
+        )
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2004,16 +2506,18 @@ def main() -> None:
             "replaces": replaces,
             # launches in the run of the kernel's own main path (ADM-256
             # sampling, dit32 sampling, dit32 training, FLUX.1-dev sampling,
-            # dit64 training, dit64 training with dropout, or for the other
-            # masked forms the masked slice of phase 21)
+            # dit64 training, dit64 training with dropout, unet32 training
+            # with norm="group", the conv3x3 entry point at unet32's admitted
+            # calls, or for the other masked forms the masked slice of
+            # phase 21)
             "launches": path_launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_err": entry["max_err"],
             "tol": tol,
             # times of the calls of one forward (flash_blhd, attention_fwd_lse,
-            # attention_bwd and their dropout forms: of one train step), summed
-            # over their shapes; the other masked forms: one call at dit64's
-            # shape with a key-padding mask
+            # attention_bwd and their dropout forms, group_stats: of one train
+            # step), summed over their shapes; the other masked forms: one
+            # call at dit64's shape with a key-padding mask
             "ms": entry["ms"],
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
@@ -2022,7 +2526,8 @@ def main() -> None:
             # fused_msa: SDPA on the normalized attention core only (no norm,
             # no layout); flash_blhd, attention_fwd_lse, attention_bwd: SDPA's
             # forward, or its autograd backward; the masked forms: SDPA with
-            # the same boolean mask and dropout rate
+            # the same boolean mask and dropout rate; group_stats:
+            # torch.var_mean; conv3x3: F.conv2d on channels_last (cuDNN)
             "library_ms": entry["library_ms"] if name != "group_norm_silu" else None,
             "calls_per_forward": per_forward[name],
         })

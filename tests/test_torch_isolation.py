@@ -71,7 +71,8 @@ def test_build_targets_hopper():
 def test_kernel_sources_exist_and_are_packaged():
     csrc = PACKAGE / "csrc"
     kernels = (
-        "group_norm.cu", "attention_fwd.cu", "attention_bwd.cu", "fused_msa.cu", "flash_blhd_fwd.cu", "flash_blhd_bwd.cu"
+        "group_norm.cu", "attention_fwd.cu", "attention_bwd.cu", "fused_msa.cu", "flash_blhd_fwd.cu", "flash_blhd_bwd.cu",
+        "group_stats.cu", "conv3x3.cu",
     )
     for name in (*kernels, "common.cu", "common.cuh"):
         assert (csrc / name).exists(), name
@@ -89,6 +90,10 @@ def test_kernel_sources_exist_and_are_packaged():
     head = (csrc / "attention_bwd.cu").read_text().split("#include")[0]
     assert "Replaces: azula_tpu/ops/attention.py:1102 (_pallas_attention_bwd" in head
     assert "azula_tpu/ops/attention.py:966" in head
+    head = (csrc / "group_stats.cu").read_text().split("#include")[0]
+    assert "Replaces: azula_tpu/ops/norm.py:281 (_stats_pallas)" in head
+    head = (csrc / "conv3x3.cu").read_text().split("#include")[0]
+    assert "Replaces: azula_tpu/ops/conv.py:53 (_pallas_conv3x3)" in head
 
     config = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = config["tool"]["setuptools"]["package-data"]
