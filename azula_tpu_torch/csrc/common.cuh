@@ -131,14 +131,25 @@ struct PairMask {
     return bias == nullptr ? s : __fadd_rn(s, to_float(bias[static_cast<size_t>(row) * L + col]));
   }
 
-  __device__ __forceinline__ bool keep(int row, int col) const {
-    const uint32_t h = static_cast<uint32_t>(row) * 0x9E3779B1u ^ static_cast<uint32_t>(col) * 1000003u ^ pair_bits;
-    return static_cast<int32_t>(fmix32(fmix32(h) ^ s1)) >= threshold;
+  __device__ __forceinline__ bool keep(int row, int col) const { return keep_terms(row_term(row), col_term(col)); }
+
+  // The hash's row and column terms, for a caller that computes them once
+  // per row and per tile: keep(row, col) = keep_terms(row_term(row),
+  // col_term(col)), and col_term(a + b) = col_term(a) + col_term(b) mod 2^32.
+  __device__ __forceinline__ uint32_t row_term(int row) const {
+    return static_cast<uint32_t>(row) * 0x9E3779B1u ^ pair_bits;
+  }
+
+  __device__ __forceinline__ static uint32_t col_term(int col) { return static_cast<uint32_t>(col) * 1000003u; }
+
+  __device__ __forceinline__ bool keep_terms(uint32_t row_term, uint32_t col_term) const {
+    return static_cast<int32_t>(fmix32(fmix32(row_term ^ col_term) ^ s1)) >= threshold;
   }
 };
 
-// The flash-attention forward shared by attention_fwd.cu, fused_msa.cu and
-// flash_blhd_fwd.cu, and the tile products of flash_blhd_bwd.cu.
+// The flash-attention forward shared by attention_fwd.cu (float32),
+// fused_msa.cu and flash_blhd_fwd.cu, and the tile products of
+// flash_blhd_bwd.cu.
 // One block of kThreads threads takes one 64-query tile of one (batch, head)
 // pair and walks 64-key tiles of K and V through shared memory as float32
 // (rows padded by 4 floats to keep vector reads free of bank conflicts),
@@ -215,8 +226,11 @@ __device__ __forceinline__ void start_rows(const Tiles<D>& s, float (&acc)[4][D 
 // out[a][b] = sum over d of A[ty + 16 a][d] * B[tx + 16 b][d], for thread
 // (tx, ty) = (t % 16, t / 16), a < RA and b < 4: one (16 RA, 64) tile of
 // A B^T, for two tiles of rows D + 4 floats apart in shared memory. The sum
-// runs over d in order, one FMA at a time, so every caller gets the same
-// float32 score from the same rows.
+// runs over d in order, one FMA at a time, so the callers of this header get
+// the same float32 score from the same rows; the bf16 forward of
+// attention_fwd.cu sums its scores on the tensor cores in another order, so
+// the backward's rebuilt scores differ from that forward's in the last bits
+// of float32.
 template <int RA, int D>
 __device__ __forceinline__ void dot_rows(const float* A, const float* B, float (&out)[RA][4]) {
   constexpr int LD = D + 4;

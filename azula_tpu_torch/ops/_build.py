@@ -4,7 +4,9 @@ The sources under `azula_tpu_torch/csrc/` have a plain C interface. On first
 use they are compiled for Hopper (`sm_90a`) with `nvcc`, one process per source
 started together, and linked into one shared library under `build/` beside
 the package. The library is named by a hash of the sources and flags, so an
-edit rebuilds it. It is loaded with `ctypes`.
+edit rebuilds it. It is loaded with `ctypes`. What `ptxas -v` said of each
+kernel (registers, spills, shared memory) is kept beside it
+(:func:`ptxas_log`).
 
 A missing `nvcc`, a failed build or a failed launch raises: no caller falls
 back to a plain version. Two pairs of forward and backward kernels form
@@ -26,6 +28,7 @@ __all__ = [
     "check",
     "forward_only",
     "library",
+    "ptxas_log",
     "stream",
 ]
 
@@ -47,7 +50,7 @@ BUILD = PACKAGE.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
@@ -77,6 +80,8 @@ _SIGNATURES = {
     "azula_attention_fwd_max_free": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, lse, BH, L, D, scale, dtype, stream, mask arguments
     "azula_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
+    # D, consumer warpgroups: the bf16 tensor-core forward's shared memory per block
+    "azula_attention_fwd_tc_shared_bytes": [_I, _I],
     # q, k, v, o, g, lse, dq, dk, dv, delta, BH, L, D, scale, dtype, stream,
     # mask arguments
     "azula_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
@@ -127,13 +132,15 @@ def _compile_and_link(nvcc: str, work: Path, out: Path) -> None:
         procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         objects.append(str(obj))
 
-    errors = []
+    errors, logs = [], []
     for src, proc in procs:
-        log, _ = proc.communicate()
+        log = proc.communicate()[0].decode(errors="replace")
+        logs.append(f"== {src.name}\n{log}")
         if proc.returncode != 0:
-            errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+            errors.append(f"{src.name}:\n{log}")
     if errors:
         raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+    _log_path(out).write_text("\n".join(logs))
 
     tmp = work / out.name
     link = subprocess.run(
@@ -147,6 +154,22 @@ def _compile_and_link(nvcc: str, work: Path, out: Path) -> None:
     os.replace(tmp, out)
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.log")
+
+
+def _library_path() -> Path:
+    return BUILD / f"libazula_kernels_{_digest()}.so"
+
+
+def ptxas_log() -> str:
+    r"""What `ptxas -v` printed while the kernel library was built, source by
+    source (each kernel's registers, spill bytes and static shared memory)."""
+
+    library()
+    return _log_path(_library_path()).read_text()
+
+
 def library() -> ctypes.CDLL:
     r"""Returns the kernel library, building it first if its sources changed."""
 
@@ -154,7 +177,7 @@ def library() -> ctypes.CDLL:
 
     with _lock:
         if _lib is None:
-            out = BUILD / f"libazula_kernels_{_digest()}.so"
+            out = _library_path()
             if not out.exists():
                 BUILD.mkdir(parents=True, exist_ok=True)
                 _build(out)

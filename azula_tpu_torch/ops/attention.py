@@ -5,7 +5,11 @@ signature and its (B, H, L, D) layout. Two versions compute it: the
 hand-written flash-attention forward (`csrc/attention_fwd.cu`) for tensors
 on the card, and a plain PyTorch version for tensors on the CPU. The kernel
 has a second entry, the max-free forward of `_pallas_attention_blocked` and
-of `_pallas_attention`'s `max_free` option, with its own plain version.
+of `_pallas_attention`'s `max_free` option, with its own plain version. In
+bf16 the kernel runs on the tensor cores and rounds its exp-weights to bf16
+against the running max of its key tiles, in every form;
+:func:`_attention_tiled_plain` repeats that arithmetic, while the plain
+versions of the JAX functions round against the row's final max.
 
 When autograd records the call on the card, :func:`_flash` runs instead: the
 port of JAX's `_flash` custom vjp, whose forward is the same kernel's third
@@ -293,6 +297,71 @@ def _attention_lse_plain(
     return o.to(q.dtype), (m + torch.log(d)).squeeze(-1)
 
 
+def _key_tile(D: int) -> int:
+    r"""The keys per tile of the bf16 tensor-core forward of
+    `csrc/attention_fwd.cu` (`tc::Tiling<D>::BK`): the width of the running
+    max against which it rounds the exp-weights."""
+
+    return 128 if D <= 128 else 64
+
+
+def _attention_tiled_plain(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    scale: float,
+    bias: Tensor | None = None,
+    mode: str = "one",
+    seed: Tensor | None = None,
+    rate: float = 0.0,
+    max_free: bool = False,
+) -> tuple[Tensor, Tensor | None]:
+    r"""Plain PyTorch version of the bf16 tensor-core forward of
+    `csrc/attention_fwd.cu`, with its rounding points: float32 scores times
+    the scale plus the (Gm, L, L) `bias` of `mode`; an online softmax over
+    key tiles of :func:`_key_tile` width, whose exp-weights enter the value
+    product rounded to the input dtype against the running max, while the
+    denominator sums them unrounded and the float32 accumulator is rescaled
+    as the max grows; o = acc / l. With `rate` > 0 the value product takes
+    p / (1 - rate) where :func:`dropout_keep_mask` of `seed` keeps and 0
+    elsewhere; with `max_free` the weights are :math:`\exp(\min(s, 80))`
+    with no max. In float32 the rounding is the identity.
+
+    Returns o in float32, not rounded to the input dtype, so that a check
+    holds a kernel's output to its own final rounding, and the float32
+    (B, H, L) log-sum-exp of the undropped softmax (None with `max_free`)."""
+
+    dtype = q.dtype
+    B, H, L, D = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + _bias_bhll(bias, mode, B, H).float()
+    vf = v.float()
+
+    if max_free:
+        p = torch.exp(torch.clamp(s, max=_MAX_FREE_CLAMP))
+        return torch.matmul(p.to(dtype).float(), vf) / p.sum(dim=-1, keepdim=True), None
+
+    keep = dropout_keep_mask(B, H, L, seed, rate).to(q.device) if rate > 0 else None
+    m = torch.full((B, H, L, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, H, L, 1), device=q.device)
+    acc = torch.zeros((B, H, L, D), device=q.device)
+
+    bk = _key_tile(D)
+    for k0 in range(0, L, bk):
+        x = s[..., k0 : k0 + bk]
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., k0 : k0 + bk], p, 0.0) / (1 - rate)
+        acc = acc * alpha + torch.matmul(p.to(dtype).float(), vf[..., k0 : k0 + bk, :])
+        m = m_new
+
+    return acc / l, (m + torch.log(l)).squeeze(-1)
+
+
 def _softmax_grads(
     q: Tensor,
     k: Tensor,
@@ -426,7 +495,10 @@ def _launch_attention(
     rate: float = 0.0,
 ) -> Tensor:
     r"""Launches the inference entry `azula_<name>` of `csrc/attention_fwd.cu`
-    on CUDA tensors (B, H, L, D); the exact entry takes a bias and dropout."""
+    on CUDA tensors (B, H, L, D); the exact entry takes a bias and dropout.
+    In bf16 the weights enter the value product rounded to bf16 against the
+    running max of the kernel's key tiles (:func:`_attention_tiled_plain`),
+    in float32 unrounded."""
 
     B, H, L, D = _check_bhld((q, k, v), name)
     o = torch.empty_like(q)
@@ -459,7 +531,10 @@ def _attention_kernel(
     rate: float = 0.0,
 ) -> Tensor:
     r"""Launches the exact flash forward of `csrc/attention_fwd.cu`, with the
-    (Gm, L, L) `bias` of `mode` and the dropout of `seed` at `rate`."""
+    (Gm, L, L) `bias` of `mode` and the dropout of `seed` at `rate`: in bf16
+    the tensor-core forward, whose weights are rounded to bf16 against the
+    running max of its key tiles (:func:`_attention_tiled_plain`); in
+    float32 the CUDA-core forward, which keeps them unrounded."""
 
     return _launch_attention("attention_fwd", q, k, v, scale, bias, mode, seed, rate)
 

@@ -9,11 +9,16 @@ Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit; turn TF32 off
    for the float32 checks.
-2. build: compile the CUDA kernels from `azula_tpu_torch/csrc` and load them.
+2. build: compile the CUDA kernels from `azula_tpu_torch/csrc` and load them;
+   print what `ptxas -v` said of the bf16 tensor-core attention forward
+   (registers and spills of each form, shared memory per block, per D).
 3. kernels: record the kernel calls of one full-width forward (ADM
    `imagenet_256x256`, bf16, batch 8), then hold each kernel against its plain
    PyTorch version on the card at every recorded shape, in bf16 and float32,
-   and time kernel, plain version, library call and bound.
+   and time kernel, plain version, library call and bound. The bf16
+   attention calls (the tensor-core forward) are also held against
+   `_attention_tiled_plain`, their own rounding points, at `TOL_TC`, and
+   print TFLOP/s and their share of the bound.
 4. slice: the tiny ADM of the CPU tests, same random weights, on the CPU
    (plain versions) and on the card (kernels), float32: the denoiser's output
    and a 4-step DDIM trajectory.
@@ -61,10 +66,12 @@ Phases, each of which raises on failure:
    Prints train images/s, ms/step, peak memory and a profile of one step.
 13. max-free attention: the max-free flash kernel against its plain version
    at the FLUX.1 shapes (1, 24, 4608, 128), row 5's route, and
-   (1, 24, 1536, 128), row 3's, in bf16; in float32; at a ragged L called
+   (1, 24, 1536, 128), row 3's, in bf16 (also against
+   `_attention_tiled_plain` at `TOL_TC`); in float32; at a ragged L called
    directly; and with logits above the clamp at 80. Timed against the plain
    version, SDPA (the exact softmax, which equals the max-free function while
-   the logits stay under 80) and the bound.
+   the logits stay under 80) and the bound, with TFLOP/s and the share of
+   the bound.
 14. the tiny Flux slice: a small `FluxTransformer` (2 heads of 64, 24 x 24
    latents and 64 text tokens: L = 640, the max-free route) under
    `FluxDenoiser`, same random weights on the CPU (plain versions) and on the
@@ -80,9 +87,10 @@ Phases, each of which raises on failure:
    entry) and the backward (`attention_bwd.cu`, dq then dk/dv) against their
    plain versions at dit64's shape (128, 6, 1024, 64), at L = 512 and 256
    (the batched TPU kernels' lengths), at ragged L and at D = 32 and 128, in
-   bf16 and float32 (o, lse, and dq, dk, dv for a random cotangent); timed
+   bf16 and float32 (o, lse, and dq, dk, dv for a random cotangent; in bf16
+   also o and lse against `_attention_tiled_plain` at `TOL_TC`); timed
    against the plain versions, SDPA (forward, and its autograd backward) and
-   the bound.
+   the bound, with TFLOP/s and the share of the bound.
 17. the 64 x 64 training slice: the ViT of phase 11 on 64 x 64 images (1024
    tokens, past the fused gate: the unfused route through
    `dot_product_attention`) on the CPU and on the card, float32, same
@@ -100,9 +108,11 @@ Phases, each of which raises on failure:
    dropout 0.1 at dit64's (128, 6, 1024, 64) with and without a key-padding
    mask, D = 192 and 256 and ragged L. The keep mask is read out bit for bit
    (q = k = 0, v = I) from the forward and the backward and held against
-   `dropout_keep_mask` on the card and on the CPU. Each form is timed at
-   dit64's shape beside its unmasked, dropout-free form, SDPA with the same
-   mask and dropout, the plain version and the bound.
+   `dropout_keep_mask` on the card and on the CPU. In bf16 the forward forms
+   are also held against `_attention_tiled_plain` at `TOL_TC`. Each form is
+   timed at dit64's shape beside its unmasked, dropout-free form, SDPA with
+   the same mask and dropout, the plain version and the bound, with TFLOP/s
+   and the share of the bound.
 20. routes: cross-attention (77 keys, heads of 40), heads of 80 and a float
    mask on CUDA tensors through `dot_product_attention` take the plain
    version with finite gradients; D = 192 and 256 and 70,000 (batch, head)
@@ -162,6 +172,7 @@ import contextlib
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -308,12 +319,19 @@ TOL_GN = {
 }
 TOL_ATTN = {
     torch.float32: 1e-5,
-    # the plain version rounds the exp-weights to bf16 before the value product
-    # (as the JAX package does); the attention kernel keeps them in float32,
-    # the fused MSA kernel rounds them after subtracting a running max, not
-    # the row's final max
+    # the attention kernels round the exp-weights to bf16 against a running
+    # max (the tensor-core forward over 128-key tiles, 64 at D = 192 and 256;
+    # the fused MSA and _flash_blhd kernels over 64-key tiles), the plain
+    # versions (`_attention_plain`, `_attention_lse_plain`, ...) against the
+    # row's final max, as the JAX package's single-block kernels do; and each
+    # side rounds o to bf16
     torch.bfloat16: 2e-2,
 }
+# the bf16 tensor-core forward against `_attention_tiled_plain`, its own
+# rounding points, which returns o unrounded in float32: the kernel's final
+# rounding of o to bf16 (half an ulp, at most 2^-8 = 3.9e-3 of max |o|) plus
+# float32 score sums in another order and exp2 against exp (~1e-6)
+TOL_TC = 5e-3
 # group statistics, kernel against plain version on the same inputs: both
 # center every tile exactly in float32 and sum in other orders; the var
 # elementwise relative. bf16 inputs are exact in float32, so the 1e-4 on
@@ -396,6 +414,62 @@ def bound_ms(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def speed(ops: float, ms: float, bound: float) -> str:
+    r"""A timed call's TFLOP/s and share of its bound, as a phase line prints
+    them."""
+
+    return f"{ops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound"
+
+
+def check_tiled(got: torch.Tensor, want: torch.Tensor, label: str, lse=None, want_lse=None) -> float:
+    r"""The bf16 tensor-core forward's o (and LSE) against
+    `_attention_tiled_plain` at `TOL_TC`; returns the relative error of o."""
+
+    _, rel_err = errors(got, want)
+    if rel_err > TOL_TC:
+        raise AssertionError(f"{label}: {rel_err} > {TOL_TC} against its rounding points")
+    if lse is not None:
+        _, lse_err = errors(lse, want_lse)
+        if lse_err > TOL_ATTN[torch.float32]:
+            raise AssertionError(f"{label}: LSE {lse_err} > {TOL_ATTN[torch.float32]} against its rounding points")
+    return rel_err
+
+
+def tc_ptxas_summary() -> str:
+    r"""What `ptxas -v` said of the bf16 tensor-core attention kernels
+    (`tc::attention_fwd_tc_kernel<D, NW, max-free, bias, dropout>` of
+    `csrc/attention_fwd.cu`), per head dim: registers and spill stores of
+    each form, and the dynamic shared memory of its launches."""
+
+    log = _build.ptxas_log().split("== attention_fwd.cu")[1].split("\n== ")[0]
+    forms, name = collections.defaultdict(list), None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = re.search(r"attention_fwd_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", found.group(1))
+            continue
+        if name is None:
+            continue
+        D, nw, max_free, bias, dropout = (int(x) for x in name.groups())
+        form = ("max-free" if max_free else "+".join([f for f, on in (("bias", bias), ("dropout", dropout)) if on])
+                or "exact") + f"/{nw}wg"
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            forms[D].append([form, 0, int(spill.group(1))])
+        used = re.search(r"Used (\d+) registers", line)
+        if used and forms[D]:
+            forms[D][-1][1] = int(used.group(1))
+    lib = _build.library()
+    return "; ".join(
+        f"D = {D}: " + ", ".join(f"{form} {regs} regs {spill} B spilled" for form, regs, spill in forms[D])
+        + "; shared memory per block " + ", ".join(
+            f"{lib.azula_attention_fwd_tc_shared_bytes(D, nw):,} B ({nw}wg)" for nw in (2, 1)
+            if lib.azula_attention_fwd_tc_shared_bytes(D, nw)
+        )
+        for D in sorted(forms)
+    )
+
+
 def new_entry() -> dict:
     r"""A kernel's entry of the kernels line, before its timings."""
 
@@ -404,9 +478,11 @@ def new_entry() -> dict:
 
 
 def add_timing(entry: dict, count: int, ms: float, plain: float, library: float, bound: float, by: str,
-               abs_err: float, rel_err: float) -> None:
-    r"""Adds `count` calls of one timed shape to a kernel's entry."""
+               abs_err: float, rel_err: float, ops: float = 0.0) -> None:
+    r"""Adds `count` calls of one timed shape, of `ops` float operations each
+    where counted, to a kernel's entry."""
 
+    entry["ops"] = entry.get("ops", 0.0) + count * ops
     entry["ms"] += count * ms
     entry["plain_ms"] += count * plain
     entry["library_ms"] += count * library
@@ -590,15 +666,20 @@ def check_attention(calls, generator) -> dict:
                 raise AssertionError(f"attention {shape} {dtype}: {rel_err} > {TOL_ATTN[dtype]}")
 
             line = f"  attention {shape} {str(dtype)[6:]} x{count}/fwd: max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {TOL_ATTN[dtype]})"
+            if dtype == torch.bfloat16:
+                tiled = check_tiled(got, attention._attention_tiled_plain(q, k, v, scale)[0], f"attention {shape}")
+                line += f"; against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
 
             if count and dtype == torch.bfloat16:
                 ms = elapsed_ms(lambda: attention._attention_kernel(q, k, v, scale))
-                plain = elapsed_ms(lambda: attention._attention_plain(q, k, v, scale=scale))
+                plain = elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale))
                 library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
                 B, H, L, D = shape
-                bound, by = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * L * L * D, dtype)
-                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
-                line += f"; {ms:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, bound {bound:.4f} ms ({by})"
+                ops = 4 * B * H * L * L * D
+                bound, by = bound_ms(4 * q.numel() * q.element_size(), ops, dtype)
+                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err, ops)
+                line += (f"; {ms:.4f} ms ({speed(ops, ms, bound)}), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+                         f"bound {bound:.4f} ms ({by})")
 
             log(line)
 
@@ -901,18 +982,17 @@ def profile_step(step) -> None:
             kind = "group_stats (ours)"
         elif "conv3x3_kernel" in name:
             kind = "conv3x3 (ours)"
-        elif "attention_fwd_lse_kernel" in name and "true" in name:
-            kind = "attention dropout forward (ours)"
-        elif "attention_fwd_lse_kernel" in name:
-            kind = "attention LSE forward (ours)"
+        elif "attention_fwd_tc_kernel<" in name or "attention_fwd_kernel<" in name:
+            # the attention forward: <D, warpgroups, max-free, bias, dropout>
+            # in bf16 (tc), <D, max-free, dropout> in float32
+            flags = name.split("_kernel<")[1].split(">")[0].split(", ")
+            max_free, dropout = flags[-3 if "_tc_" in name else -2], flags[-1]
+            kind = {"true": "max-free attention (ours)"}.get(max_free) or {
+                "true": "attention dropout forward (ours)"}.get(dropout, "attention forward (ours)")
         elif ("attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name) and "true" in name:
             kind = "attention dropout backward (ours)"
         elif "attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name:
             kind = "attention backward (ours)"
-        elif "attention_fwd_kernel" in name and "true" in name:
-            kind = "max-free attention (ours)"
-        elif "attention_fwd_kernel" in name:
-            kind = "attention (ours)"
         elif "fused_msa_kernel" in name:
             kind = "fused MSA (ours)"
         elif "flash_blhd_fwd_kernel" in name:
@@ -1235,6 +1315,11 @@ def check_attention_training(generator) -> dict:
             line = f"  attention_fwd_lse + attention_bwd (B, H, L, D) = {shape} {str(dtype)[6:]}: rel err " + ", ".join(
                 f"{name} {rel:.3e}" for name, (_, rel) in errs.items()
             ) + f" (tol {tol})"
+            if dtype == torch.bfloat16:
+                tiled_o, tiled_lse = attention._attention_tiled_plain(q, k, v, scale)
+                tiled = check_tiled(o, tiled_o, f"attention_fwd_lse {shape}", lse, tiled_lse)
+                line += f"; o against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
+                del tiled_o, tiled_lse
 
             if shape in timed and dtype == torch.bfloat16:
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1245,7 +1330,7 @@ def check_attention_training(generator) -> dict:
                 times = {
                     "attention_fwd_lse": (
                         elapsed_ms(lambda: attention._attention_lse_kernel(q, k, v, scale)),
-                        elapsed_ms(lambda: attention._attention_lse_plain(q, k, v, scale)),
+                        elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale)),
                         elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
                         # q, k, v read and o and the float32 lse written once
                         bound_ms(4 * n * elt + lse.numel() * 4, ops["attention_fwd_lse"], dtype),
@@ -1261,12 +1346,12 @@ def check_attention_training(generator) -> dict:
                     ),
                 }
                 for name, (ms, plain, library, (bound, by), (abs_err, rel_err)) in times.items():
-                    line += (f"\n    {name}: {ms:.4f} ms ({ops[name] / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                    line += (f"\n    {name}: {ms:.4f} ms ({speed(ops[name], ms, bound)}), plain {plain:.4f} ms, "
                              f"SDPA {library:.4f} ms, bound {bound:.4f} ms ({by})")
                     if shape != DIT64_SHAPE:
                         continue
                     entry = entries[name]
-                    add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
+                    add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err, ops[name])
                 del out, leaves
 
             log(line)
@@ -1311,6 +1396,11 @@ def check_max_free(generator) -> dict:
 
         line = (f"  attention_fwd_max_free {shape} {str(dtype)[6:]} ({label}): "
                 f"max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {tol})")
+        if dtype == torch.bfloat16:
+            tiled_o = attention._attention_tiled_plain(q, k, v, scale, max_free=True)[0]
+            tiled = check_tiled(got, tiled_o, f"max-free attention {shape} ({label})")
+            line += f"; against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
+            del tiled_o
 
         if q_scale > 1:
             _, exact_err = errors(want, attention._attention_plain(q, k, v, scale=scale))
@@ -1324,13 +1414,13 @@ def check_max_free(generator) -> dict:
             library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
             B, H, L, D = shape
             # q, k, v read and o written once; 4 L^2 D operations per pair
-            bound, by = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * L * L * D, dtype)
-            tflops = 4 * B * H * L * L * D / ms / 1e9
-            line += (f"; {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+            ops = 4 * B * H * L * L * D
+            bound, by = bound_ms(4 * q.numel() * q.element_size(), ops, dtype)
+            line += (f"; {ms:.4f} ms ({speed(ops, ms, bound)}), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
                      f"bound {bound:.4f} ms ({by})")
 
             if shape == FLUX_SHAPE:
-                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
+                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err, ops)
 
         log(line)
 
@@ -1429,10 +1519,18 @@ def masked_case(shape, dtype, mask, rate, generator, backward=True) -> dict:
     masked = (bias, mode, seed, rate)
 
     o, lse = attention._attention_lse_kernel(q, k, v, scale, *masked)
+    exact = attention._attention_kernel(q, k, v, scale, *masked)
     want_o, want_lse = attention._attention_lse_plain(q, k, v, scale, *masked)
     errs = {"o": errors(o, want_o), "lse": errors(lse, want_lse)}
-    errs["o of the exact entry"] = errors(attention._attention_kernel(q, k, v, scale, *masked), want_o)
+    errs["o of the exact entry"] = errors(exact, want_o)
     del want_o, want_lse
+    tiled = {}
+    if dtype == torch.bfloat16:
+        tiled_o, tiled_lse = attention._attention_tiled_plain(q, k, v, scale, *masked)
+        tiled["o"] = check_tiled(o, tiled_o, f"attention_fwd_lse {shape} masked", lse, tiled_lse)
+        tiled["o of the exact entry"] = check_tiled(exact, tiled_o, f"attention_fwd {shape} masked")
+        del tiled_o, tiled_lse
+    del exact
     if backward:
         grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale, *masked)
         want_grads = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, *masked)
@@ -1442,7 +1540,8 @@ def masked_case(shape, dtype, mask, rate, generator, backward=True) -> dict:
     tol = TOL_ATTN[dtype]
     label = f"{'no mask' if mask is None else f'{mode} mask'}{f', dropout {rate}' if rate else ''}"
     log(f"  {shape} {str(dtype)[6:]}, {label}: rel err "
-        + ", ".join(f"{name} {rel:.3e}" for name, (_, rel) in errs.items()) + f" (tol {tol})")
+        + ", ".join(f"{name} {rel:.3e}" for name, (_, rel) in errs.items()) + f" (tol {tol})"
+        + "".join(f"; {name} against its rounding points {rel:.3e} (tol {TOL_TC})" for name, rel in tiled.items()))
     bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
     if bad:
         raise AssertionError(f"masked attention kernels {shape} {dtype} {label}: {bad} > {tol}")
@@ -1546,13 +1645,13 @@ def check_masked_kernels(generator) -> dict:
         timings = {
             "attention_fwd": (
                 elapsed_ms(lambda: attention._attention_kernel(q, k, v, scale, *masked)),
-                elapsed_ms(lambda: attention._attention_lse_plain(q, k, v, scale, *masked), reps=3, warmup=1),
+                elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale, *masked), reps=3, warmup=1),
                 elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)),
                 bound_ms(4 * n * elt + extra, ops["fwd"], dtype),
             ),
             "attention_fwd_lse": (
                 elapsed_ms(lambda: attention._attention_lse_kernel(q, k, v, scale, *masked)),
-                elapsed_ms(lambda: attention._attention_lse_plain(q, k, v, scale, *masked), reps=3, warmup=1),
+                elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale, *masked), reps=3, warmup=1),
                 elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)),
                 bound_ms(4 * n * elt + lse.numel() * 4 + extra, ops["fwd"], dtype),
             ),
@@ -1569,7 +1668,7 @@ def check_masked_kernels(generator) -> dict:
             kind = "bwd" if entry == "attention_bwd" else "fwd"
             name = entry + form
             line = (f"  {name} at {DIT64_SHAPE} bf16{'' if b is None else ' (batch padding mask)'}: {ms:.4f} ms "
-                    f"({ops[kind] / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
+                    f"({speed(ops[kind], ms, bound)}), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
                     f"bound {bound:.4f} ms ({by})")
             if not form:
                 baseline[entry] = ms
@@ -1579,7 +1678,8 @@ def check_masked_kernels(generator) -> dict:
             # per call, but for the dit64 dropout path's forms: per train step
             calls = DIT64_DROPOUT_CALLS_PER_STEP.get(name, 1)
             entries[name] = dict(ms=calls * ms, plain_ms=calls * plain, library_ms=calls * library,  # noqa: C408
-                                 bound_ms=calls * bound, bound_by=collections.Counter({by: calls * bound}))
+                                 bound_ms=calls * bound, bound_by=collections.Counter({by: calls * bound}),
+                                 ops=calls * ops[kind])
         del o, lse
 
     # each form's errors at dit64's shape in bf16
@@ -2209,6 +2309,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"ptxas -v of the bf16 tensor-core attention forward: {tc_ptxas_summary()}")
 
     log("== 3. kernels against their plain versions at the main path's shapes")
     generator = torch.Generator(device="cuda").manual_seed(0)
@@ -2523,6 +2624,10 @@ def main() -> None:
             "bound_ms": entry["bound_ms"],
             # what bounds the larger share of bound_ms
             "bound_by": entry["bound_by"].most_common(1)[0][0],
+            # bound_ms / ms; and the float operations of the timed calls over
+            # their time, where counted (the attention forms)
+            "bound_share": entry["bound_ms"] / entry["ms"],
+            "tflops": entry["ops"] / entry["ms"] / 1e9 if entry.get("ops") else None,
             # fused_msa: SDPA on the normalized attention core only (no norm,
             # no layout); flash_blhd, attention_fwd_lse, attention_bwd: SDPA's
             # forward, or its autograd backward; the masked forms: SDPA with
