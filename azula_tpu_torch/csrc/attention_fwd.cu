@@ -76,11 +76,7 @@
 // tiles through shared memory as float32 with plain FMA (no TF32, which
 // would break the float32 gates); the exact inference entry keeps its
 // weights unrounded.
-#include <dlfcn.h>
-
-#include <atomic>
 #include <climits>
-#include <mutex>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -213,19 +209,6 @@ struct Layout {
 
 static_assert(Layout<128, 2>::kBytes <= 232448 && Layout<256, 1>::kBytes <= 232448, "the tiles fit");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// x / d correctly rounded, given inv = 1 / d correctly rounded: the
-// quotient's error corrected once by FMA (Markstein), without the division
-// routine.
-__device__ __forceinline__ float divide(float x, float d, float inv) {
-  const float q = x * inv;
-  return fmaf(fmaf(-q, d, x), inv, q);
-}
-
 // The softmax step of one key tile [k0, k0 + BK) for one consumer thread
 // (see the kernel for its rows r, r + 8 and columns c, c + 1 of every
 // 8-column chunk).
@@ -299,7 +282,7 @@ struct Tile {
       float w = p;
       if constexpr (kDropout) {
         const uint32_t col_i = col + azula::PairMask<bf16>::col_term(8 * (i / 4) + i % 2);
-        w = mask.keep_terms(rows[h], col_i) ? divide(p, mask.retain, inv_retain) : 0.f;
+        w = mask.keep_terms(rows[h], col_i) ? hw::divide(p, mask.retain, inv_retain) : 0.f;
       }
       sc[i] = w;
     }
@@ -345,7 +328,7 @@ __device__ __forceinline__ void pack_weights(const float (&sc)[BK / 2], uint32_t
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-    for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+    for (int x = 0; x < 4; ++x) pa[kk][x] = hw::pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
   }
 }
 
@@ -528,93 +511,24 @@ attention_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_
   }
 }
 
-// cuTensorMapEncodeTiled of the driver library that the CUDA runtime loaded
-// (looked up at run time, so that the library links without -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// The tensor map of a (BH, L, D) bf16 tensor, read in boxes of `rows` rows
-// of one column panel; the map's dimensions are (D, L, BH), so a box past L
-// is filled with zeros and never reads the next pair's rows. Encoding a map
-// takes some microseconds of host time, as long as a short call takes on
-// the card, and PyTorch's caching allocator hands the same addresses back
-// call after call, so the maps are kept in a small table by what they
-// encode.
-template <int D>
-bool encode(CUtensorMap* map, const void* x, int BH, int L, int rows) {
-  struct Entry {
-    CUtensorMap map;
-    const void* x;
-    int BH, L, rows;
-  };
-  constexpr int kEntries = 64;
-  static Entry table[kEntries] = {};
-  static std::mutex lock;
-
-  Entry& entry = table[(reinterpret_cast<uintptr_t>(x) >> 8 ^ static_cast<uintptr_t>(L) * 40503u ^ rows) % kEntries];
-  {
-    const std::lock_guard<std::mutex> guard(lock);
-    if (entry.x == x && entry.BH == BH && entry.L == L && entry.rows == rows) {
-      *map = entry.map;
-      return true;
-    }
-  }
-
-  using T = Tiling<D>;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(L) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kPanel), static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = T::kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-    return false;
-  }
-
-  const std::lock_guard<std::mutex> guard(lock);
-  entry = {*map, x, BH, L, rows};
-  return true;
-}
-
 template <int D, int NW, bool kMaxFree, bool kBias, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int L, float scale,
                    const azula::MaskArgs& mask, cudaStream_t s) {
   using S = Layout<D, NW>;
+  using T = Tiling<D>;
   const long long blocks = static_cast<long long>(BH) * ((L + S::BM - 1) / S::BM);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
 
   CUtensorMap q_map, k_map, v_map;
-  if (!encode<D>(&q_map, q, BH, L, S::BM) || !encode<D>(&k_map, k, BH, L, Tiling<D>::BK) ||
-      !encode<D>(&v_map, v, BH, L, Tiling<D>::BK)) {
+  if (!hw::encode_panels(&q_map, q, BH, L, D, T::kPanel, S::BM) ||
+      !hw::encode_panels(&k_map, k, BH, L, D, T::kPanel, T::BK) ||
+      !hw::encode_panels(&v_map, v, BH, L, D, T::kPanel, T::BK)) {
     return cudaErrorInvalidValue;
   }
 
-  // the shared-memory limit is an attribute of each device's copy of the
-  // kernel: set once per device (the first 64), on every launch beyond
-  auto* const kernel = attention_fwd_tc_kernel<D, NW, kMaxFree, kBias, kDropout>;
-  static std::atomic<uint64_t> configured{0};
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
+  constexpr auto kernel = attention_fwd_tc_kernel<D, NW, kMaxFree, kBias, kDropout>;
+  const cudaError_t e = hw::allow_shared_memory<kernel>(S::kBytes);
   if (e != cudaSuccess) return e;
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
-  if ((configured.load(std::memory_order_relaxed) & bit) == 0 || bit == 0) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
-    if (e != cudaSuccess) return e;
-    configured.fetch_or(bit, std::memory_order_relaxed);
-  }
 
   kernel<<<static_cast<unsigned>(blocks), S::kThreads, S::kBytes, s>>>(q_map, k_map, v_map, static_cast<bf16*>(o), lse,
                                                                         L, scale, mask);

@@ -1,6 +1,81 @@
-// Error text for the status codes that the kernels' C entry points return.
+// Error text for the status codes that the kernels' C entry points return,
+// and the tensor-map encoder of the tensor-core kernels (hopper.cuh).
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstring>
+#include <mutex>
+
+#include "hopper.cuh"
 
 extern "C" const char* azula_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
+
+namespace azula {
+namespace hopper {
+
+namespace {
+
+// cuTensorMapEncodeTiled of the driver library that the CUDA runtime loaded
+// (looked up at run time, so that the library links without -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// what a map encodes, as words without padding, so that keys compare bytewise
+struct Key {
+  uintptr_t x;
+  int64_t BH, L, D, panel, rows;
+};
+
+}  // namespace
+
+bool encode_panels(CUtensorMap* map, const void* x, int BH, int L, int D, int panel, int rows) {
+  struct Entry {
+    CUtensorMap map;
+    Key key;
+  };
+  constexpr int kEntries = 64;
+  static Entry table[kEntries] = {};
+  static std::mutex lock;
+
+  const Key key = {reinterpret_cast<uintptr_t>(x), BH, L, D, panel, rows};
+  Entry& entry = table[(key.x >> 8 ^ static_cast<uintptr_t>(L) * 40503u ^ D ^ rows) % kEntries];
+  {
+    const std::lock_guard<std::mutex> guard(lock);
+    if (std::memcmp(&entry.key, &key, sizeof(Key)) == 0) {
+      *map = entry.map;
+      return true;
+    }
+  }
+
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || (panel != 32 && panel != 64)) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(L) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(panel), static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = panel == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return false;
+  }
+
+  const std::lock_guard<std::mutex> guard(lock);
+  entry = {*map, key};
+  return true;
+}
+
+}  // namespace hopper
+}  // namespace azula

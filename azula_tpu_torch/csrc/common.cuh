@@ -1,7 +1,7 @@
 // Helpers shared by the kernels: conversion between the storage type and
 // float32, vector loads and stores of N consecutive elements, the
-// flash-attention tile step of the attention forward kernels, and the
-// flash-attention backward of the two backward kernels.
+// flash-attention tile step of the CUDA-core attention forwards, and the
+// CUDA-core flash-attention backward.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -227,10 +227,8 @@ __device__ __forceinline__ void start_rows(const Tiles<D>& s, float (&acc)[4][D 
 // (tx, ty) = (t % 16, t / 16), a < RA and b < 4: one (16 RA, 64) tile of
 // A B^T, for two tiles of rows D + 4 floats apart in shared memory. The sum
 // runs over d in order, one FMA at a time, so the callers of this header get
-// the same float32 score from the same rows; the bf16 forward of
-// attention_fwd.cu sums its scores on the tensor cores in another order, so
-// the backward's rebuilt scores differ from that forward's in the last bits
-// of float32.
+// the same float32 score from the same rows (the bf16 attention kernels sum
+// theirs on the tensor cores, in another order).
 template <int RA, int D>
 __device__ __forceinline__ void dot_rows(const float* A, const float* B, float (&out)[RA][4]) {
   constexpr int LD = D + 4;
@@ -433,13 +431,15 @@ __device__ __forceinline__ void store_rows(const Tiles<D>& s, const float (&acc)
 
 }  // namespace flash
 
-// The flash-attention backward shared by flash_blhd_bwd.cu (the (B, L, H D)
-// layout, statistics m and l) and attention_bwd.cu (the (B H, L, D) layout,
-// the log-sum-exp): dq, dk, dv of o = softmax(q k^T * scale) v per (batch,
-// head) pair, given the cotangent g of o. Rows of a pair's q, k, v, o and g
-// lie C = H D elements apart and its columns start at h D; the (B, H, L, D)
-// layout is the case H = 1 with the pairs as the batch. The arithmetic is the
-// JAX bodies', with their rounding points:
+// The flash-attention backward on the CUDA cores, shared by flash_blhd_bwd.cu
+// (the (B, L, H D) layout, statistics m and l, both dtypes) and the float32
+// forms of attention_bwd.cu (the (B H, L, D) layout, the log-sum-exp; its
+// bf16 forms run a tensor-core kernel of their own): dq, dk, dv of
+// o = softmax(q k^T * scale) v per (batch, head) pair, given the cotangent g
+// of o. Rows of a pair's q, k, v, o and g lie C = H D elements apart and its
+// columns start at h D; the (B, H, L, D) layout is the case H = 1 with the
+// pairs as the batch. The arithmetic is the JAX bodies', with their rounding
+// points:
 //
 //   p     = exp(s - m) / l, or exp(s - lse)   float32, s = (q k^T) * scale
 //   dp    = g v^T                             float32

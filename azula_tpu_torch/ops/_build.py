@@ -55,8 +55,9 @@ NVCC_FLAGS = (
 
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` clears this before the main path
-# and reads it after. A backward entry (`flash_blhd_bwd`, `attention_bwd`)
-# launches two kernels, dq then dk/dv, and counts once. The attention entries
+# and reads it after. A backward entry counts once per call: `flash_blhd_bwd`
+# launches two kernels (dq, then dk/dv), `attention_bwd` three in bf16 (delta,
+# the one-pass backward, dq's rounding) and two in float32. The attention entries
 # count each form under its own name: `attention_fwd_lse`,
 # `attention_fwd_lse_bias`, `attention_fwd_lse_dropout`,
 # `attention_fwd_lse_bias_dropout`, and so on.
@@ -82,9 +83,11 @@ _SIGNATURES = {
     "azula_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
     # D, consumer warpgroups: the bf16 tensor-core forward's shared memory per block
     "azula_attention_fwd_tc_shared_bytes": [_I, _I],
-    # q, k, v, o, g, lse, dq, dk, dv, delta, BH, L, D, scale, dtype, stream,
-    # mask arguments
-    "azula_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
+    # q, k, v, o, g, lse, dq, dk, dv, delta, dq_acc, BH, L, D, scale, dtype,
+    # stream, mask arguments
+    "azula_attention_bwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
+    # D: the bf16 tensor-core backward's shared memory per block
+    "azula_attention_bwd_tc_shared_bytes": [_I],
     # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream

@@ -14,8 +14,9 @@ versions of the JAX functions round against the row's final max.
 When autograd records the call on the card, :func:`_flash` runs instead: the
 port of JAX's `_flash` custom vjp, whose forward is the same kernel's third
 entry, writing the rows' log-sum-exp (`_pallas_attention(with_lse=True)`),
-and whose backward is the FlashAttention-2 pair of `csrc/attention_bwd.cu`
-(`_pallas_attention_bwd` and `_pallas_attention_batched_bwd`).
+and whose backward is `csrc/attention_bwd.cu` (`_pallas_attention_bwd` and
+`_pallas_attention_batched_bwd`): in bf16 one pass on the tensor cores that
+adds dq's tiles by atomics, in float32 the FlashAttention-2 pair.
 
 Boolean masks and attention dropout take the same kernels, as JAX's
 `_flash_biased`, `_flash_dropout` and `_flash_dropout_biased` take its: a
@@ -408,13 +409,16 @@ def _attention_bwd_plain(
     mode: str = "one",
     seed: Tensor | None = None,
     rate: float = 0.0,
+    rounded: bool = True,
 ) -> tuple[Tensor, Tensor, Tensor]:
     r"""Plain PyTorch version of `_pallas_attention_bwd` and
     `_pallas_attention_batched_bwd` (azula_tpu/ops/attention.py) on
     (B, H, L, D): g cast to the inputs' dtype, p = exp(s - lse) rebuilt in
     float32 from the scaled scores plus the bias and the float32 (B, H, L)
     log-sum-exp, then the rounding points of `_softmax_grads`, with the keep
-    mask of `seed` under dropout. Returns dq, dk, dv in the inputs' dtype."""
+    mask of `seed` under dropout. Returns dq, dk, dv in the inputs' dtype,
+    or with `rounded=False` the float32 sums before that last rounding, so
+    that a check can hold a kernel's output to its own final rounding."""
 
     dtype = q.dtype
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g.to(dtype)))
@@ -424,8 +428,9 @@ def _attention_bwd_plain(
         s = s + _bias_bhll(bias, mode, *q.shape[:2]).float()
     p = torch.exp(s - lse[..., None])
     keep = dropout_keep_mask(*q.shape[:3], seed, rate).to(q.device) if rate > 0 else None
+    grads = _softmax_grads(qf, kf, vf, of, gf, p, scale, dtype, keep, rate)
 
-    return tuple(t.to(dtype) for t in _softmax_grads(qf, kf, vf, of, gf, p, scale, dtype, keep, rate))
+    return tuple(t.to(dtype) for t in grads) if rounded else grads
 
 
 def _check_bhld(tensors: tuple[Tensor, ...], name: str) -> tuple[int, int, int, int]:
@@ -575,6 +580,21 @@ def _attention_lse_kernel(
     return o, lse
 
 
+# the query rows per tile of the bf16 tensor-core backward (`tc::BM` of
+# `csrc/attention_bwd.cu`), to which its per-tile LSE and delta rows are padded
+_BWD_QUERY_TILE = 64
+
+
+def _bwd_scratch(B: int, H: int, L: int, D: int, dtype: torch.dtype) -> tuple[int, int]:
+    r"""The float32 scratch of `csrc/attention_bwd.cu`, in elements: each
+    query tile's LSE and delta rows (B H, ceil(L / 64), 2, 64), whose first
+    B H L the float32 kernels take for delta, and in bf16 the (B H, L, D) dq
+    accumulator (0 in float32)."""
+
+    tiles = -(-L // _BWD_QUERY_TILE)
+    return B * H * tiles * 2 * _BWD_QUERY_TILE, B * H * L * D if dtype == torch.bfloat16 else 0
+
+
 def _attention_bwd_kernel(
     q: Tensor,
     k: Tensor,
@@ -588,19 +608,27 @@ def _attention_bwd_kernel(
     seed: Tensor | None = None,
     rate: float = 0.0,
 ) -> tuple[Tensor, Tensor, Tensor]:
-    r"""Launches `csrc/attention_bwd.cu` (its dq and dk/dv kernels, counted as
-    one launch), with the forward's bias and dropout; returns dq, dk, dv."""
+    r"""Launches `csrc/attention_bwd.cu`, counted as one launch, with the
+    forward's bias and dropout; returns dq, dk, dv. In bf16 the one-pass
+    tensor-core backward: a pre-kernel (delta and the rows' LSE, a zeroed
+    float32 dq accumulator), the kernel, whose blocks add their dq tiles to
+    the accumulator by atomics (so dq's float32 sums run in an order that
+    changes from run to run), and dq's rounding; in float32 the CUDA-core
+    FlashAttention-2 pair, dq then dk/dv. Both keep the rounding points of
+    :func:`_attention_bwd_plain`."""
 
     B, H, L, D = _check_bhld((q, k, v, o, g), "attention_bwd")
     if lse.shape != (B, H, L) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"the log-sum-exp must be float32 (B, H, L) = {(B, H, L)} on {q.device}")
 
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty_like(lse)
+    rows, acc = _bwd_scratch(B, H, L, D, q.dtype)
+    delta = torch.empty(rows, dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(acc, dtype=torch.float32, device=q.device) if acc else None
 
     status = _build.library().azula_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
         B * H, L, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
         *_mask_args(q, bias, mode, seed, rate),
     )

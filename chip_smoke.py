@@ -10,8 +10,9 @@ Phases, each of which raises on failure:
 1. device: require CUDA; print the card's name and power limit; turn TF32 off
    for the float32 checks.
 2. build: compile the CUDA kernels from `azula_tpu_torch/csrc` and load them;
-   print what `ptxas -v` said of the bf16 tensor-core attention forward
-   (registers and spills of each form, shared memory per block, per D).
+   print what `ptxas -v` said of the bf16 tensor-core attention forward and
+   backward (registers and spills of each form, shared memory per block,
+   per D) and of the backward's delta and dq-rounding kernels.
 3. kernels: record the kernel calls of one full-width forward (ADM
    `imagenet_256x256`, bf16, batch 8), then hold each kernel against its plain
    PyTorch version on the card at every recorded shape, in bf16 and float32,
@@ -84,13 +85,16 @@ Phases, each of which raises on failure:
    then a timed DDIM-4 trajectory with exactly 57 max-free launches per step.
    Prints ms/step, images/s, peak memory and a profile of one step.
 16. attention training kernels: the LSE forward (`attention_fwd.cu`'s third
-   entry) and the backward (`attention_bwd.cu`, dq then dk/dv) against their
-   plain versions at dit64's shape (128, 6, 1024, 64), at L = 512 and 256
-   (the batched TPU kernels' lengths), at ragged L and at D = 32 and 128, in
-   bf16 and float32 (o, lse, and dq, dk, dv for a random cotangent; in bf16
-   also o and lse against `_attention_tiled_plain` at `TOL_TC`); timed
-   against the plain versions, SDPA (forward, and its autograd backward) and
-   the bound, with TFLOP/s and the share of the bound.
+   entry) and the backward (`attention_bwd.cu`: in bf16 the one-pass
+   tensor-core kernel between its delta and dq-rounding kernels, in float32
+   dq then dk/dv) against their plain versions at dit64's shape
+   (128, 6, 1024, 64), at L = 512 and 256 (the batched TPU kernels'
+   lengths), at ragged L and at D = 32 and 128, in bf16 and float32 (o, lse,
+   and dq, dk, dv for a random cotangent; in bf16 also o and lse against
+   `_attention_tiled_plain` at `TOL_TC`, and dq, dk, dv against
+   `_attention_bwd_plain`'s float32 sums at `TOL_BWD_TC`); timed against the
+   plain versions, SDPA (forward, and its autograd backward) and the bound,
+   with TFLOP/s and the share of the bound.
 17. the 64 x 64 training slice: the ViT of phase 11 on 64 x 64 images (1024
    tokens, past the fused gate: the unfused route through
    `dot_product_attention`) on the CPU and on the card, float32, same
@@ -109,10 +113,11 @@ Phases, each of which raises on failure:
    mask, D = 192 and 256 and ragged L. The keep mask is read out bit for bit
    (q = k = 0, v = I) from the forward and the backward and held against
    `dropout_keep_mask` on the card and on the CPU. In bf16 the forward forms
-   are also held against `_attention_tiled_plain` at `TOL_TC`. Each form is
-   timed at dit64's shape beside its unmasked, dropout-free form, SDPA with
-   the same mask and dropout, the plain version and the bound, with TFLOP/s
-   and the share of the bound.
+   are also held against `_attention_tiled_plain` at `TOL_TC`, and the
+   backward forms against `_attention_bwd_plain`'s float32 sums at
+   `TOL_BWD_TC`. Each form is timed at dit64's shape beside its unmasked,
+   dropout-free form, SDPA with the same mask and dropout, the plain version
+   and the bound, with TFLOP/s and the share of the bound.
 20. routes: cross-attention (77 keys, heads of 40), heads of 80 and a float
    mask on CUDA tensors through `dot_product_attention` take the plain
    version with finite gradients; D = 192 and 256 and 70,000 (batch, head)
@@ -236,7 +241,7 @@ DIT_TRAIN_STEPS = 20
 # dit64: the dit32 model on 64 x 64 x 3 images (the ViT takes its positions
 # from coordinates), 1024 tokens per image, past the fused gate (L <= 512):
 # under grad each block's attention goes through `_flash`, one LSE forward
-# and one backward (dq then dk/dv, counted once) per block and step
+# and one backward (its kernels counted once) per block and step
 DIT64_SIDE = 64
 DIT64_TRAIN_CALLS_PER_STEP = {"attention_fwd_lse": 12, "attention_bwd": 12}
 DIT64_SHAPE = (
@@ -332,6 +337,13 @@ TOL_ATTN = {
 # rounding of o to bf16 (half an ulp, at most 2^-8 = 3.9e-3 of max |o|) plus
 # float32 score sums in another order and exp2 against exp (~1e-6)
 TOL_TC = 5e-3
+# the bf16 tensor-core backward against `_attention_bwd_plain`'s float32 sums
+# before their last rounding (`rounded=False`): the same rounding points, so
+# what differs is the kernel's one rounding of dq, dk, dv to bf16 (half an
+# ulp, at most 2^-8 = 3.9e-3 of max |d.|), float32 sums in another order
+# (dq's in an order that changes from run to run) and a ds or p~ that rounds
+# to bf16 either way where the rebuilt scores differ in their last bits
+TOL_BWD_TC = 5e-3
 # group statistics, kernel against plain version on the same inputs: both
 # center every tile exactly in float32 and sum in other orders; the var
 # elementwise relative. bf16 inputs are exact in float32, so the 1e-4 on
@@ -435,39 +447,88 @@ def check_tiled(got: torch.Tensor, want: torch.Tensor, label: str, lse=None, wan
     return rel_err
 
 
-def tc_ptxas_summary() -> str:
-    r"""What `ptxas -v` said of the bf16 tensor-core attention kernels
-    (`tc::attention_fwd_tc_kernel<D, NW, max-free, bias, dropout>` of
-    `csrc/attention_fwd.cu`), per head dim: registers and spill stores of
-    each form, and the dynamic shared memory of its launches."""
+def check_bwd_tc(grads, want, label: str) -> dict:
+    r"""The bf16 tensor-core backward's dq, dk, dv against
+    `_attention_bwd_plain(..., rounded=False)` at `TOL_BWD_TC`; returns the
+    relative errors by output."""
 
-    log = _build.ptxas_log().split("== attention_fwd.cu")[1].split("\n== ")[0]
-    forms, name = collections.defaultdict(list), None
+    rel = {name: errors(a, b)[1] for name, a, b in zip(("dq", "dk", "dv"), grads, want)}
+    bad = {name: err for name, err in rel.items() if err > TOL_BWD_TC}
+    if bad:
+        raise AssertionError(f"{label}: {bad} > {TOL_BWD_TC} against its rounding points")
+    return rel
+
+
+def ptxas_entries(source: str) -> list:
+    r"""[mangled kernel name, registers, spill store bytes] of each kernel
+    that `ptxas -v` reported while compiling `source`."""
+
+    log = _build.ptxas_log().split(f"== {source}")[1].split("\n== ")[0]
+    entries = []
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            name = re.search(r"attention_fwd_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", found.group(1))
+            entries.append([found.group(1), 0, 0])
             continue
-        if name is None:
-            continue
-        D, nw, max_free, bias, dropout = (int(x) for x in name.groups())
-        form = ("max-free" if max_free else "+".join([f for f, on in (("bias", bias), ("dropout", dropout)) if on])
-                or "exact") + f"/{nw}wg"
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if spill:
-            forms[D].append([form, 0, int(spill.group(1))])
         used = re.search(r"Used (\d+) registers", line)
-        if used and forms[D]:
-            forms[D][-1][1] = int(used.group(1))
-    lib = _build.library()
+        if entries and spill:
+            entries[-1][2] = int(spill.group(1))
+        if entries and used:
+            entries[-1][1] = int(used.group(1))
+    return entries
+
+
+def ptxas_summary(entries: list, pattern: str, form_of, shared) -> str:
+    r"""The `ptxas_entries` whose names match `pattern` (the head dim, then
+    flags that `form_of` names), per head dim: registers and spill stores of
+    each form, and `shared(D)`, the dynamic shared memory of their launches."""
+
+    forms = collections.defaultdict(list)
+    for name, regs, spill in entries:
+        found = re.search(pattern, name)
+        if found:
+            D, *flags = (int(x) for x in found.groups())
+            forms[D].append((form_of(*flags), regs, spill))
     return "; ".join(
         f"D = {D}: " + ", ".join(f"{form} {regs} regs {spill} B spilled" for form, regs, spill in forms[D])
-        + "; shared memory per block " + ", ".join(
-            f"{lib.azula_attention_fwd_tc_shared_bytes(D, nw):,} B ({nw}wg)" for nw in (2, 1)
-            if lib.azula_attention_fwd_tc_shared_bytes(D, nw)
-        )
+        + f"; shared memory per block {shared(D)}"
         for D in sorted(forms)
     )
+
+
+def masked_form(bias: int, dropout: int, unmasked: str = "plain") -> str:
+    return "+".join(f for f, on in (("bias", bias), ("dropout", dropout)) if on) or unmasked
+
+
+def tc_ptxas_summaries() -> tuple[str, str]:
+    r"""`ptxas_summary` of the bf16 tensor-core attention forward
+    (`tc::attention_fwd_tc_kernel<D, NW, max-free, bias, dropout>` of
+    `csrc/attention_fwd.cu`) and backward
+    (`tc::attention_bwd_tc_kernel<D, bias, dropout>` of
+    `csrc/attention_bwd.cu`, then its delta pre-kernel per D and its dq
+    rounding post-kernel, whose dropout flag only names them)."""
+
+    lib = _build.library()
+    forward = ptxas_summary(
+        ptxas_entries("attention_fwd.cu"), r"attention_fwd_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+        lambda nw, max_free, bias, dropout: ("max-free" if max_free else masked_form(bias, dropout, "exact"))
+        + f"/{nw}wg",
+        lambda D: ", ".join(f"{lib.azula_attention_fwd_tc_shared_bytes(D, nw):,} B ({nw}wg)" for nw in (2, 1)
+                            if lib.azula_attention_fwd_tc_shared_bytes(D, nw)),
+    )
+    entries = ptxas_entries("attention_bwd.cu")
+    backward = ptxas_summary(
+        entries, r"attention_bwd_tc_kernelILi(\d+)ELb(\d)ELb(\d)E", masked_form,
+        lambda D: f"{lib.azula_attention_bwd_tc_shared_bytes(D):,} B",
+    )
+    for kind, pattern in (("delta pre-kernel", r"attention_bwd_delta_kernelILi(\d+)ELb0E"),
+                          ("dq rounding post-kernel", r"attention_bwd_dq_round_kernelILb0E")):
+        found = [(re.search(pattern, name), regs, spill) for name, regs, spill in entries]
+        backward += f"; {kind} " + ", ".join(
+            (f"D = {m.group(1)} " if m.groups() else "") + f"{regs} regs {spill} B spilled"
+            for m, regs, spill in found if m)
+    return forward, backward
 
 
 def new_entry() -> dict:
@@ -989,10 +1050,12 @@ def profile_step(step) -> None:
             max_free, dropout = flags[-3 if "_tc_" in name else -2], flags[-1]
             kind = {"true": "max-free attention (ours)"}.get(max_free) or {
                 "true": "attention dropout forward (ours)"}.get(dropout, "attention forward (ours)")
-        elif ("attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name) and "true" in name:
-            kind = "attention dropout backward (ours)"
-        elif "attention_bwd_dq_kernel" in name or "attention_bwd_dkv_kernel" in name:
-            kind = "attention backward (ours)"
+        elif "attention_bwd_" in name:
+            # the attention backward's kernels (bf16: delta, the tensor-core
+            # kernel, dq's rounding; float32: dq, dk/dv), whose last template
+            # argument is the dropout flag
+            dropout = name.split("_kernel<")[1].split(">")[0].split(", ")[-1] == "true"
+            kind = "attention dropout backward (ours)" if dropout else "attention backward (ours)"
         elif "fused_msa_kernel" in name:
             kind = "fused MSA (ours)"
         elif "flash_blhd_fwd_kernel" in name:
@@ -1320,6 +1383,11 @@ def check_attention_training(generator) -> dict:
                 tiled = check_tiled(o, tiled_o, f"attention_fwd_lse {shape}", lse, tiled_lse)
                 line += f"; o against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
                 del tiled_o, tiled_lse
+                unrounded = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, rounded=False)
+                rel = check_bwd_tc(grads, unrounded, f"attention_bwd {shape}")
+                line += "; dq, dk, dv against their rounding points " + ", ".join(
+                    f"{name} {err:.3e}" for name, err in rel.items()) + f" (tol {TOL_BWD_TC})"
+                del unrounded
 
             if shape in timed and dtype == torch.bfloat16:
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1535,13 +1603,19 @@ def masked_case(shape, dtype, mask, rate, generator, backward=True) -> dict:
         grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale, *masked)
         want_grads = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, *masked)
         errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
-        del grads, want_grads
+        del want_grads
+        if dtype == torch.bfloat16:
+            unrounded = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, *masked, rounded=False)
+            tiled.update(check_bwd_tc(grads, unrounded, f"attention_bwd {shape} masked"))
+            del unrounded
+        del grads
 
     tol = TOL_ATTN[dtype]
     label = f"{'no mask' if mask is None else f'{mode} mask'}{f', dropout {rate}' if rate else ''}"
     log(f"  {shape} {str(dtype)[6:]}, {label}: rel err "
         + ", ".join(f"{name} {rel:.3e}" for name, (_, rel) in errs.items()) + f" (tol {tol})"
-        + "".join(f"; {name} against its rounding points {rel:.3e} (tol {TOL_TC})" for name, rel in tiled.items()))
+        + "".join(f"; {name} against its rounding points {rel:.3e} "
+                  f"(tol {TOL_BWD_TC if name in ('dq', 'dk', 'dv') else TOL_TC})" for name, rel in tiled.items()))
     bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
     if bad:
         raise AssertionError(f"masked attention kernels {shape} {dtype} {label}: {bad} > {tol}")
@@ -2309,7 +2383,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    log(f"ptxas -v of the bf16 tensor-core attention forward: {tc_ptxas_summary()}")
+    forward, backward = tc_ptxas_summaries()
+    log(f"ptxas -v of the bf16 tensor-core attention forward: {forward}")
+    log(f"ptxas -v of the bf16 tensor-core attention backward: {backward}")
 
     log("== 3. kernels against their plain versions at the main path's shapes")
     generator = torch.Generator(device="cuda").manual_seed(0)
