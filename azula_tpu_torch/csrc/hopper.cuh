@@ -83,6 +83,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for four- and five-dimensional tensor maps (c0 the contiguous
+// dimension). Coordinates may be negative: the part of the box outside the
+// tensor arrives as zeros, and its bytes still complete on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16) from global memory at `src` (16-byte aligned)
 // into shared memory at `dst`, completing on barrier `bar` as `tma_load`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
@@ -95,6 +116,20 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 __device__ __forceinline__ void store_shared(uint32_t addr, uint32_t value) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(value) : "memory");
+}
+
+__device__ __forceinline__ uint4 load_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // orders this thread's shared-memory writes before the reads of the async
@@ -357,14 +392,23 @@ __device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)
 
 // --- tensor maps (host) ---
 
-// Encodes in `map` the tensor map of a (BH, L, D) bf16 tensor x read in
-// boxes of `rows` rows of one `panel`-column panel (64 columns in the
-// 128-byte swizzle, 32 in the 64-byte one). The map's dimensions are
-// (D, L, BH), so a box past L is filled with zeros and never reads the next
-// pair's rows. Encoding takes some microseconds of host time, as long as a
-// short call takes on the card, and PyTorch's caching allocator hands the
-// same addresses back call after call, so maps are kept in a 64-entry table
-// by what they encode. False if the driver refused it.
+// Encodes in `map` the tensor map of a bf16 tensor at x of `rank` (3 to 5)
+// dimensions, dims[0] the contiguous one, strides[i] the byte stride of
+// dimension i + 1 (a multiple of 16), read in boxes of box[i] elements along
+// dimension i: box[0] = 64 columns (128 bytes) in the 128-byte swizzle, or
+// 32 in the 64-byte one. A box may reach past the tensor on any side; that
+// part arrives as zeros. Encoding takes some microseconds of host time, as
+// long as a short call takes on the card, and PyTorch's caching allocator
+// hands the same addresses back call after call, so maps are kept in a
+// 64-entry table by everything they encode. False if cuTensorMapEncodeTiled
+// refused it.
+bool encode_map(CUtensorMap* map, const void* x, int rank, const int64_t* dims, const int64_t* strides,
+                const int* box);
+
+// The map of a (BH, L, D) bf16 tensor x read in boxes of `rows` rows of one
+// `panel`-column panel (64 or 32, as encode_map's box[0]). Its dimensions
+// are (D, L, BH), so a box past L is filled with zeros and never reads the
+// next pair's rows.
 bool encode_panels(CUtensorMap* map, const void* x, int BH, int L, int D, int panel, int rows);
 
 // Raises the dynamic shared-memory limit of `Kernel` to `bytes`. The limit

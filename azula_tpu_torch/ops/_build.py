@@ -60,7 +60,8 @@ NVCC_FLAGS = (
 # the one-pass backward, dq's rounding) and two in float32. The attention entries
 # count each form under its own name: `attention_fwd_lse`,
 # `attention_fwd_lse_bias`, `attention_fwd_lse_dropout`,
-# `attention_fwd_lse_bias_dropout`, and so on.
+# `attention_fwd_lse_bias_dropout`, and so on. `conv3x3` also counts the
+# launches of its tensor-core form under `conv3x3_tc`.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
@@ -75,6 +76,10 @@ _SIGNATURES = {
     "azula_group_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, B, H, W, C, K, dtype, stream
     "azula_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # C, K, dtype: 1 where a call takes the tensor-core form
+    "azula_conv3x3_tensor_cores": [_I, _I, _I],
+    # the tensor-core form's shared memory per block
+    "azula_conv3x3_tc_shared_bytes": [],
     # q, k, v, o, BH, L, D, scale, dtype, stream, then the mask arguments
     # bias, bias_div, bias_mod, seed, threshold, retain
     "azula_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _P, _I, _F],
@@ -90,6 +95,8 @@ _SIGNATURES = {
     "azula_attention_bwd_tc_shared_bytes": [_I],
     # qkv, cos2, sin2, o, B, L, H, D, eps, has_eps, scale, dtype, stream
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
+    # D: the bf16 tensor-core form's shared memory per block
+    "azula_fused_msa_tc_shared_bytes": [_I],
     # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream
     "azula_flash_blhd_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, g, m, l, dq, dk, dv, delta, B, L, H, D, scale, dtype, stream

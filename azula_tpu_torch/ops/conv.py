@@ -4,8 +4,13 @@ Port of :mod:`azula_tpu.ops.conv`: :func:`conv3x3` computes a 3x3, stride 1,
 zero-padded ("SAME") convolution of an NHWC input with HWIO weights
 :math:`(3, 3, C, K)`, accumulating in float32, output in the input's dtype.
 On the card its forward is the hand-written kernel `csrc/conv3x3.cu` (the
-port of `_pallas_conv3x3`); on the CPU, its plain version. Its gradient goes
-through the library convolution's, as JAX's custom vjp goes through XLA's.
+port of `_pallas_conv3x3`); on the CPU, its plain version. The kernel has
+two forms, which its C entry chooses from the dtype and the channels before
+any launch (:func:`_conv3x3_form` mirrors the rule): an implicit GEMM on the
+tensor cores (bf16 with `C % 8 == 0` and `K % 8 == 0`) and a direct
+convolution on the CUDA cores (float32 and the other bf16 shapes). Its
+gradient goes through the library convolution's, as JAX's custom vjp goes
+through XLA's.
 
 As in the JAX package, no layer calls it: it is an opt-in entry point, and
 :func:`can_use_conv3x3` says which shapes JAX's dispatch admits.
@@ -29,6 +34,19 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _conv3x3_form(x_shape, K: int, dtype: torch.dtype) -> str:
+    r"""The form of `csrc/conv3x3.cu` that a call on an input of shape
+    `x_shape` (B, H, W, C) with K output channels takes, as its C entry
+    (`tensor_cores` there) chooses it: `"tensor_cores"` (the implicit GEMM on
+    `wgmma`) for bfloat16 with C and K multiples of 8, whose rows TMA reads
+    at 16-byte strides; else `"cuda_cores"` (the direct convolution)."""
+
+    C = x_shape[-1]
+    if dtype == torch.bfloat16 and C % 8 == 0 and K % 8 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _conv3x3_plain(x: Tensor, w: Tensor) -> Tensor:
     r"""Plain PyTorch version: the zero-padded input and nine shifted
     (B H W, C) x (C, K) products, accumulated in float32."""
@@ -48,7 +66,8 @@ def _conv3x3_plain(x: Tensor, w: Tensor) -> Tensor:
 @_build.forward_only("conv3x3", "under grad, call conv3x3: its backward goes through the library convolution")
 def _conv3x3_kernel(x: Tensor, w: Tensor) -> Tensor:
     r"""Launches `csrc/conv3x3.cu` on CUDA tensors x (B, H, W, C) and
-    w (3, 3, C, K)."""
+    w (3, 3, C, K); counts the launch under `"conv3x3"` and, on the
+    tensor-core form, also under `"conv3x3_tc"`."""
 
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"the conv3x3 kernel needs CUDA tensors on one device, got {x.device} and {w.device}")
@@ -61,6 +80,9 @@ def _conv3x3_kernel(x: Tensor, w: Tensor) -> Tensor:
 
     B, H, W, C = x.shape
     K = w.shape[-1]
+    tensor_cores = _conv3x3_form(x.shape, K, x.dtype) == "tensor_cores"
+    if tensor_cores and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("the conv3x3 kernel's tensor-core form takes 16-byte aligned x and w")
 
     y = torch.empty((B, H, W, K), dtype=x.dtype, device=x.device)
 
@@ -69,6 +91,8 @@ def _conv3x3_kernel(x: Tensor, w: Tensor) -> Tensor:
     )
     _build.check(status, "conv3x3")
     _build.LAUNCHES["conv3x3"] += 1
+    if tensor_cores:
+        _build.LAUNCHES["conv3x3_tc"] += 1
 
     return y
 
@@ -125,9 +149,11 @@ def can_use_conv3x3(x_shape, w_shape, stride, padding, periodic: bool) -> bool:
     `C % 128 == 0` and `K % 128 == 0`; H even and at least 8.
 
     JAX's last condition, that a row band fits the TPU's VMEM, becomes the
-    kernel's shared memory: a block stages a fixed 10 x 10 x 16 input tile
-    and 9 x 16 x 64 weights in float32 (43 KiB, under the 48 KiB a block
-    takes by default) at every shape, so no shape fails it.
+    kernel's shared memory, which is a fixed size at every shape (the
+    tensor-core form's three stages of a 128-position input box and a
+    64 x 128 weight tile, the CUDA-core form's 10 x 10 x 16 input tile and
+    9 x 16 x 64 weights), so no shape fails it. Every admitted bf16 call
+    takes the tensor-core form.
     """
 
     if not torch.cuda.is_available():

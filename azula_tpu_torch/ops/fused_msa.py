@@ -7,7 +7,10 @@ and take, so no head transpose goes through memory. Two versions compute it:
 the hand-written kernel (`csrc/fused_msa.cu`) for tensors on the card, and a
 plain PyTorch version for tensors on the CPU, which follows the JAX
 package's `_reference` op by op (its rounding points included): normalize,
-rotate, round q and k to the input dtype, then attend.
+rotate, round q and k to the input dtype, then attend. The kernel's bf16
+form runs on the tensor cores and rounds the exp-weights against the
+running max of key tiles; `_fused_msa_tiled_plain` repeats its arithmetic.
+Its float32 form runs on the CUDA cores.
 
 Under grad on the card, the function takes the JAX package's training route
 (`_fused_fwd`): `_reference_core_flash`, the norm and rotation in mixed
@@ -30,7 +33,7 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .attention import _BLHD_HEAD_DIMS, _BLHD_MAX_L, _flash_blhd
+from .attention import _BLHD_HEAD_DIMS, _BLHD_MAX_L, _attention_tiled_plain, _flash_blhd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,20 +63,16 @@ def rope_tables(theta: Tensor, heads: int) -> tuple[Tensor, Tensor]:
     return cos2, sin2
 
 
-def _fused_msa_plain(
+def _prepare(
     qkv: Tensor,
     cos2: Tensor | None,
     sin2: Tensor | None,
     heads: int,
     eps: float | None,
-    scale: float,
-) -> Tensor:
-    r"""Plain PyTorch version of `_reference` (azula_tpu/ops/fused_msa.py):
-    float32 RMS-norm and rotation, q and k rounded to the input dtype, float32
-    logits with the row max subtracted; in float32 the weights are divided
-    before the value product, below float32 the unnormalized weights are
-    rounded to the input dtype, multiplied with float32 accumulation, and the
-    product is divided."""
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""q, k and v of `_reference`'s attention core, (B, H, L, D) in the input
+    dtype: float32 RMS-norm and rotation of q and k, then q and k rounded to
+    the input dtype; v as it is."""
 
     B, L, C3 = qkv.shape
     C = C3 // 3
@@ -96,9 +95,27 @@ def _fused_msa_plain(
         q = q * c + swap(q) * s
         k = k * c + swap(k) * s
 
-    q = q.to(qkv.dtype).float().transpose(1, 2)  # (B, H, L, D)
-    k = k.to(qkv.dtype).float().transpose(1, 2)
-    v = v.transpose(1, 2)
+    return q.to(qkv.dtype).transpose(1, 2), k.to(qkv.dtype).transpose(1, 2), v.transpose(1, 2)
+
+
+def _fused_msa_plain(
+    qkv: Tensor,
+    cos2: Tensor | None,
+    sin2: Tensor | None,
+    heads: int,
+    eps: float | None,
+    scale: float,
+) -> Tensor:
+    r"""Plain PyTorch version of `_reference` (azula_tpu/ops/fused_msa.py):
+    float32 RMS-norm and rotation, q and k rounded to the input dtype, float32
+    logits with the row max subtracted; in float32 the weights are divided
+    before the value product, below float32 the unnormalized weights are
+    rounded to the input dtype, multiplied with float32 accumulation, and the
+    product is divided."""
+
+    B, L, C3 = qkv.shape
+    q, k, v = _prepare(qkv, cos2, sin2, heads, eps)
+    q, k = q.float(), k.float()
 
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     m = logits.amax(dim=-1, keepdim=True)
@@ -110,7 +127,32 @@ def _fused_msa_plain(
     else:
         o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / d
 
-    return o.to(qkv.dtype).transpose(1, 2).reshape(B, L, C)
+    return o.to(qkv.dtype).transpose(1, 2).reshape(B, L, C3 // 3)
+
+
+def _fused_msa_tiled_plain(
+    qkv: Tensor,
+    cos2: Tensor | None,
+    sin2: Tensor | None,
+    heads: int,
+    eps: float | None,
+    scale: float,
+) -> Tensor:
+    r"""Plain PyTorch version of the bf16 tensor-core form of
+    `csrc/fused_msa.cu`, with its rounding points: the preparation of
+    :func:`_fused_msa_plain`, then :func:`_attention_tiled_plain` on the
+    (B, H, L, D) heads, whose online softmax rounds the weights to the input
+    dtype against the running max of :func:`_key_tile`-wide key tiles.
+
+    Returns o as (B, L, H D) in float32, not rounded to the input dtype, so
+    that a check holds the kernel to its own last rounding. Nothing on a
+    card path calls it."""
+
+    B, L, C3 = qkv.shape
+    q, k, v = _prepare(qkv, cos2, sin2, heads, eps)
+    o, _ = _attention_tiled_plain(q, k, v, scale)
+
+    return o.transpose(1, 2).reshape(B, L, C3 // 3)
 
 
 def _reference_core_flash(

@@ -12,7 +12,8 @@ Phases, each of which raises on failure:
 2. build: compile the CUDA kernels from `azula_tpu_torch/csrc` and load them;
    print what `ptxas -v` said of the bf16 tensor-core attention forward and
    backward (registers and spills of each form, shared memory per block,
-   per D) and of the backward's delta and dq-rounding kernels.
+   per D), of the backward's delta and dq-rounding kernels, and of the bf16
+   tensor-core forms of fused MSA (per D) and conv3x3.
 3. kernels: record the kernel calls of one full-width forward (ADM
    `imagenet_256x256`, bf16, batch 8), then hold each kernel against its plain
    PyTorch version on the card at every recorded shape, in bf16 and float32,
@@ -29,9 +30,14 @@ Phases, each of which raises on failure:
 6. dit32 kernels: record the fused MSA calls of one full-width dit32 forward
    (`Modulated(ViT)` under `KarrasDenoiser(VPSchedule())`, bf16, batch 128,
    random weights), which must be exactly 12 with no other kernel, then hold
-   the kernel against its plain version at that shape in bf16 and float32,
-   also with RoPE, without the QK-norm and at scale 1, and time kernel,
-   plain version, SDPA on the attention core and bound. Under grad, a
+   the kernel against its plain version at that shape in bf16 (the
+   tensor-core form) and float32 (the CUDA-core form), also with RoPE,
+   without the QK-norm and at scale 1, at heads of 128, 192 and 256 and at a
+   ragged length; each bf16 case also against `_fused_msa_tiled_plain`, its
+   own rounding points, at `TOL_TC`; and time kernel, plain version, SDPA on
+   the attention core and bound, with TFLOP/s and the share of the bound,
+   and the kernel without the preparation (eps=None).
+   Under grad, a
    backward through `fused_msa_attention` must succeed (it takes the flash
    route of phase 9), and so must one through `dot_product_attention`, with
    and without `max_free` (the LSE forward and backward kernels of phase
@@ -143,11 +149,14 @@ Phases, each of which raises on failure:
    unet32's and ADM's shapes, with exact launches.
 24. conv3x3: the kernel (`csrc/conv3x3.cu`) against its plain version in
    bf16 and float32 at unet32's admitted shapes, the JAX package's test
-   shapes and a ragged shape; timed beside the plain version, `F.conv2d`
-   and the bound; its gradient against `F.conv2d`'s; then the entry point at
-   the 25 convolutions of a unet32 forward that `can_use_conv3x3` admits, on
-   their own inputs and weights, against the layers' outputs (exactly 25
-   launches).
+   shapes and two ragged shapes (K = 72 on the bf16 tensor-core form, K = 70
+   on the CUDA-core form), printing each case's form; the tensor-core cases
+   also against the float32 sums of the same bf16 values at `TOL_CONV_TC`;
+   timed beside the plain version, `F.conv2d` and the bound, with TFLOP/s
+   and the share of the bound; its gradient against `F.conv2d`'s; then the
+   entry point at the 25 convolutions of a unet32 forward that
+   `can_use_conv3x3` admits, on their own inputs and weights, against the
+   layers' outputs (exactly 25 launches, all 25 on the tensor-core form).
 25. the tiny UNet slice: `Modulated(UNet(3, 3, mod_features=16,
    hid_channels=(16, 32), hid_blocks=(1, 1)))` on 32 x 32 images, batch 4,
    with norm="group" and norm="layer", on the CPU (plain versions) and on the
@@ -309,7 +318,7 @@ UNET_TRAIN_CALLS_PER_STEP = {"group_norm": 18, "group_stats": 18}
 # the 3x3 convolutions of one unet32 forward that `can_use_conv3x3` admits:
 # 12 at (256, 16, 16, 128 -> 128), 12 at (256, 8, 8, 256 -> 256), 1 at
 # (256, 16, 16, 384 -> 128)
-UNET_CONV3X3_CALLS = {"conv3x3": 25}
+UNET_CONV3X3_CALLS = {"conv3x3": 25, "conv3x3_tc": 25}  # every admitted call on the tensor-core form
 # the tiny UNet slice: two depths of 16 and 32 channels, one block each (4
 # GroupNorms per forward with norm="group"), batch 4 of 32 x 32 x 3
 TINY_UNET = dict(mod_features=16, hid_channels=(16, 32), hid_blocks=(1, 1))  # noqa: C408
@@ -352,6 +361,15 @@ TOL_STATS = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # conv3x3: float32 sums of 9 C products in another order (TF32 off); bf16
 # adds the output's rounding (2^-8) on each side
 TOL_CONV = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# conv3x3's tensor-core form against the float32 sums of the same bf16
+# values (`_conv3x3_plain(x.float(), w.float())`, before any rounding): the
+# kernel's one rounding of y to bf16 (half an ulp, at most 2^-9 = 2.0e-3 of
+# max |y|) plus float32 sums in another order
+TOL_CONV_TC = 5e-3
+# fused MSA's extra shapes (phase 6) at dit32's batch and length: heads of
+# 128, 192 and 256 (label, heads, D); and a ragged length
+MSA_HEAD_DIMS = (("D = 128", 3, 128), ("D = 192", 2, 192), ("D = 256", 2, 256))
+MSA_RAGGED_L = 200
 # the GroupNorm backward on the card (kernel forward, statistics kernel,
 # analytic backward) against autograd through the plain version: float32
 # sums in other orders; bf16 rounds x's gradient to 8 bits
@@ -529,6 +547,24 @@ def tc_ptxas_summaries() -> tuple[str, str]:
             (f"D = {m.group(1)} " if m.groups() else "") + f"{regs} regs {spill} B spilled"
             for m, regs, spill in found if m)
     return forward, backward
+
+
+def redesign_ptxas_summaries() -> tuple[str, str]:
+    r"""`ptxas -v` of the bf16 tensor-core forms of the fused MSA kernel
+    (`tc::fused_msa_tc_kernel<D>` of `csrc/fused_msa.cu`) and of conv3x3
+    (`tc::conv3x3_tc_kernel` of `csrc/conv3x3.cu`): registers, spill stores
+    and the dynamic shared memory of a block."""
+
+    lib = _build.library()
+    msa = ptxas_summary(
+        ptxas_entries("fused_msa.cu"), r"fused_msa_tc_kernelILi(\d+)E", lambda: "bf16",
+        lambda D: f"{lib.azula_fused_msa_tc_shared_bytes(D):,} B",
+    )
+    conv3x3 = ", ".join(
+        f"{regs} regs {spill} B spilled; shared memory per block {lib.azula_conv3x3_tc_shared_bytes():,} B"
+        for name, regs, spill in ptxas_entries("conv3x3.cu") if "conv3x3_tc_kernel" in name
+    )
+    return msa, conv3x3
 
 
 def new_entry() -> dict:
@@ -814,8 +850,11 @@ def dit32_model(generator: torch.Generator, **kwargs) -> KarrasDenoiser:
 def check_fused_msa(calls, generator) -> dict:
     r"""The fused MSA kernel against its plain version at the recorded dit32
     call (timed in bf16, with SDPA on the attention core as the library
-    yardstick), in bf16 and float32; and at the same shape with RoPE, without
-    the QK-norm, and at scale 1 with the QK-norm."""
+    yardstick), in bf16 and float32; at the same shape with RoPE, without
+    the QK-norm, and at scale 1 with the QK-norm; at heads of 128, 192 and
+    256 and at a ragged length, with and without RoPE. Each bf16 case (the
+    tensor-core form) is also held against `_fused_msa_tiled_plain`, its own
+    rounding points, at `TOL_TC`."""
 
     entry = new_entry()
 
@@ -833,25 +872,43 @@ def check_fused_msa(calls, generator) -> dict:
     msa = MultiheadSelfAttention(C, pos_channels=2, attention_heads=heads, rope=True, device="cuda", generator=generator)
     tables = fused_msa.rope_tables(msa.theta_proj(pos), heads)
 
-    cases = [
-        ("main path", (None, None), eps, scale),
-        ("rope", tables, eps, scale),
-        ("eps=None", (None, None), None, scale),
-        ("scale=1", (None, None), eps, 1.0),
-    ]
-    for label, (cos2, sin2), case_eps, case_scale in cases:
-        for check_dtype in (torch.bfloat16, torch.float32):
-            qkv = torch.randn(shape, generator=generator, device="cuda").to(check_dtype)
-            got = fused_msa._fused_msa_kernel(qkv, cos2, sin2, heads, case_eps, case_scale)
-            want = fused_msa._fused_msa_plain(qkv, cos2, sin2, heads, case_eps, case_scale)
-            abs_err, rel_err = errors(got, want)
-            if rel_err > TOL_ATTN[check_dtype]:
-                raise AssertionError(f"fused MSA {shape} {check_dtype} {label}: {rel_err} > {TOL_ATTN[check_dtype]}")
+    def random_tables(length, width, n_heads):
+        theta = torch.randn((length, width // 2), generator=generator, device="cuda")
+        return fused_msa.rope_tables(theta, n_heads)
 
+    cases = [
+        ("main path", shape, heads, (None, None), eps, scale),
+        ("rope", shape, heads, tables, eps, scale),
+        ("eps=None", shape, heads, (None, None), None, scale),
+        ("scale=1", shape, heads, (None, None), eps, 1.0),
+    ]
+    for label, n_heads, d in MSA_HEAD_DIMS:
+        extra = (B, L, 3 * n_heads * d)
+        cases.append((label, extra, n_heads, (None, None), eps, 1 / math.sqrt(d)))
+        cases.append((f"{label} rope", extra, n_heads, random_tables(L, n_heads * d, n_heads), eps, 1 / math.sqrt(d)))
+    ragged = (B, MSA_RAGGED_L, C3)
+    cases.append((f"ragged L = {MSA_RAGGED_L}", ragged, heads, (None, None), eps, scale))
+    cases.append((f"ragged L = {MSA_RAGGED_L} rope", ragged, heads, random_tables(MSA_RAGGED_L, C, heads), eps, scale))
+
+    for label, case_shape, case_heads, (cos2, sin2), case_eps, case_scale in cases:
+        for check_dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn(case_shape, generator=generator, device="cuda").to(check_dtype)
+            got = fused_msa._fused_msa_kernel(qkv, cos2, sin2, case_heads, case_eps, case_scale)
+            want = fused_msa._fused_msa_plain(qkv, cos2, sin2, case_heads, case_eps, case_scale)
+            abs_err, rel_err = errors(got, want)
+            case = f"fused MSA {case_shape} heads={case_heads} {check_dtype} {label}"
+            if rel_err > TOL_ATTN[check_dtype]:
+                raise AssertionError(f"{case}: {rel_err} > {TOL_ATTN[check_dtype]}")
+
+            form = "tensor cores" if check_dtype == torch.bfloat16 else "CUDA cores"
             line = (
-                f"  fused_msa {shape} heads={heads} {str(check_dtype)[6:]} {label} (eps={case_eps}, "
-                f"scale={case_scale:.4g}): max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {TOL_ATTN[check_dtype]})"
+                f"  fused_msa {case_shape} heads={case_heads} {str(check_dtype)[6:]} {label} ({form}; "
+                f"eps={case_eps}, scale={case_scale:.4g}): max abs err {abs_err:.3e}, rel {rel_err:.3e} "
+                f"(tol {TOL_ATTN[check_dtype]})"
             )
+            if check_dtype == torch.bfloat16:
+                tiled = fused_msa._fused_msa_tiled_plain(qkv, cos2, sin2, case_heads, case_eps, case_scale)
+                line += f"; against its rounding points {check_tiled(got, tiled, case):.3e} (tol {TOL_TC})"
 
             if label == "main path" and check_dtype == dtype:
                 # the library's attention on the core alone: q and k
@@ -870,20 +927,24 @@ def check_fused_msa(calls, generator) -> dict:
                 plain = elapsed_ms(lambda: fused_msa._fused_msa_plain(qkv, None, None, heads, eps, scale))
                 library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
                 # read q, k, v once and write the output once
-                bound, by = bound_ms(4 * B * L * C * qkv.element_size(), 4 * B * heads * L * L * D, dtype)
-                entry["bound_by"][by] += count * bound
+                ops = 4 * B * heads * L * L * D
+                bound, by = bound_ms(4 * B * L * C * qkv.element_size(), ops, dtype)
+                add_timing(entry, count, ms, plain, library, bound, by, 0.0, 0.0, ops)
+                line += (f"; {ms:.4f} ms ({speed(ops, ms, bound)}), plain {plain:.4f} ms, SDPA on the normalized "
+                         f"core {library:.4f} ms, bound {bound:.4f} ms ({by})")
 
-                entry["ms"] += count * ms
-                entry["plain_ms"] += count * plain
-                entry["library_ms"] += count * library
-                entry["bound_ms"] += count * bound
-                line += (f"; {ms:.4f} ms, plain {plain:.4f} ms, SDPA on the normalized core {library:.4f} ms, "
-                         f"bound {bound:.4f} ms ({by})")
+            if label == "eps=None" and check_dtype == dtype:
+                # no norm and no rope: the tiles go to the products as they
+                # arrive, so the difference from the main path's time is the
+                # preparation's
+                ms = elapsed_ms(lambda: fused_msa._fused_msa_kernel(qkv, None, None, heads, None, scale))
+                line += f"; {ms:.4f} ms without the preparation"
 
             if check_dtype == dtype:
                 entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
                 entry["max_err"] = max(entry["max_err"], rel_err)
             log(line)
+            del qkv, got, want
 
     return entry
 
@@ -1041,7 +1102,7 @@ def profile_step(step) -> None:
             kind = "group_norm (ours)"
         elif "gs_partial_kernel" in name or "gs_fold_kernel" in name:
             kind = "group_stats (ours)"
-        elif "conv3x3_kernel" in name:
+        elif "conv3x3_kernel" in name or "conv3x3_tc_kernel" in name:
             kind = "conv3x3 (ours)"
         elif "attention_fwd_tc_kernel<" in name or "attention_fwd_kernel<" in name:
             # the attention forward: <D, warpgroups, max-free, bias, dropout>
@@ -1056,7 +1117,7 @@ def profile_step(step) -> None:
             # argument is the dropout flag
             dropout = name.split("_kernel<")[1].split(">")[0].split(", ")[-1] == "true"
             kind = "attention dropout backward (ours)" if dropout else "attention backward (ours)"
-        elif "fused_msa_kernel" in name:
+        elif "fused_msa_kernel" in name or "fused_msa_tc_kernel" in name:
             kind = "fused MSA (ours)"
         elif "flash_blhd_fwd_kernel" in name:
             kind = "flash_blhd forward (ours)"
@@ -2123,30 +2184,46 @@ def check_conv3x3(generator) -> tuple[dict, dict]:
     r"""The conv3x3 kernel against its plain version at unet32's admitted
     shapes (timed in bf16 beside the plain version, `F.conv2d` on
     `channels_last` and the bound; the entry sums one forward's 25 calls),
-    at the JAX package's test shapes and at a ragged shape, in bf16 and
-    float32; its autograd gradient against `F.conv2d`'s; then the entry
-    point driven at the 25 admitted calls of one unet32 forward, on their
-    own inputs and weights, against the layers' cuDNN outputs. Returns the
-    entry and that run's launches."""
+    at the JAX package's test shapes and at two ragged shapes, one on each
+    bf16 form, in bf16 and float32, each case's form as the C entry
+    chooses it and `conv._conv3x3_form` mirrors it; the tensor-core cases
+    also against the float32 sums of the same bf16 values at `TOL_CONV_TC`;
+    its autograd gradient against `F.conv2d`'s; then the entry point driven
+    at the 25 admitted calls of one unet32 forward, on their own inputs and
+    weights, against the layers' cuDNN outputs, every call on the
+    tensor-core form. Returns the entry and that run's launches."""
 
     entry = new_entry()
     admitted = unet32_conv_calls(generator)
     counts = collections.Counter((tuple(h.shape), m.weight.shape[0]) for m, h, _ in admitted)
+    lib = _build.library()
 
-    cases = [(*x_shape, K) for x_shape, K in counts] + [(2, 32, 32, 256, 256), (1, 64, 64, 128, 128), (3, 13, 11, 40, 70)]
+    cases = [(*x_shape, K) for x_shape, K in counts] + [
+        (2, 32, 32, 256, 256), (1, 64, 64, 128, 128), (3, 13, 11, 40, 72), (3, 13, 11, 40, 70)
+    ]
     for B, H, W, C, K in cases:
         count = counts.get(((B, H, W, C), K), 0)
         for dtype in (torch.bfloat16, torch.float32):
+            form = conv._conv3x3_form((B, H, W, C), K, dtype)
+            chosen = "tensor_cores" if lib.azula_conv3x3_tensor_cores(C, K, conv._DTYPES[dtype]) else "cuda_cores"
+            if form != chosen:
+                raise AssertionError(f"conv3x3 {(B, H, W, C, K)} {dtype}: the C entry takes {chosen}, "
+                                     f"_conv3x3_form says {form}")
             x = torch.randn((B, H, W, C), generator=generator, device="cuda").to(dtype)
             w = (torch.randn((3, 3, C, K), generator=generator, device="cuda") / math.sqrt(9 * C)).to(dtype)
             got = conv._conv3x3_kernel(x, w)
             want = conv._conv3x3_plain(x, w)
             abs_err, rel_err = errors(got, want)
             tol = TOL_CONV[dtype]
-            line = (f"  conv3x3 (B, H, W, C, K) = {(B, H, W, C, K)} {str(dtype)[6:]} x{count}/fwd: "
+            line = (f"  conv3x3 (B, H, W, C, K) = {(B, H, W, C, K)} {str(dtype)[6:]} x{count}/fwd, {form}: "
                     f"max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {tol})")
             if rel_err > tol:
                 raise AssertionError(line)
+            if form == "tensor_cores":
+                _, sums_err = errors(got, conv._conv3x3_plain(x.float(), w.float()))
+                line += f"; against the float32 sums {sums_err:.3e} (tol {TOL_CONV_TC})"
+                if sums_err > TOL_CONV_TC:
+                    raise AssertionError(line)
 
             if count and dtype == torch.bfloat16:
                 xc = x.permute(0, 3, 1, 2)  # channels_last memory, cuDNN's NHWC
@@ -2156,8 +2233,8 @@ def check_conv3x3(generator) -> tuple[dict, dict]:
                 plain = elapsed_ms(lambda: conv._conv3x3_plain(x, w))
                 library = elapsed_ms(lambda: F.conv2d(xc, wc, padding=1))
                 bound, by = bound_ms((x.numel() + w.numel() + got.numel()) * x.element_size(), ops, dtype)
-                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
-                line += (f"; {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err, ops)
+                line += (f"; {ms:.4f} ms ({speed(ops, ms, bound)}), plain {plain:.4f} ms, "
                          f"F.conv2d {library:.4f} ms, bound {bound:.4f} ms ({by})")
             log(line)
             del x, w, got, want
@@ -2386,6 +2463,11 @@ def main() -> None:
     forward, backward = tc_ptxas_summaries()
     log(f"ptxas -v of the bf16 tensor-core attention forward: {forward}")
     log(f"ptxas -v of the bf16 tensor-core attention backward: {backward}")
+    msa_ptxas, conv_ptxas = redesign_ptxas_summaries()
+    log(f"ptxas -v of the bf16 tensor-core fused MSA: {msa_ptxas}")
+    log(f"ptxas -v of the bf16 tensor-core conv3x3: {conv_ptxas}")
+    if not msa_ptxas or not conv_ptxas:
+        raise AssertionError("ptxas reported no tensor-core fused MSA or conv3x3 kernel")
 
     log("== 3. kernels against their plain versions at the main path's shapes")
     generator = torch.Generator(device="cuda").manual_seed(0)

@@ -123,3 +123,32 @@ def test_can_use_conv3x3_matches_jax(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert not tconv.can_use_conv3x3((2, 16, 16, 128), (3, 3, 128, 128), (1, 1), ((1, 1), (1, 1)), False)
+
+
+# the form of csrc/conv3x3.cu that its C entry chooses (the tensor cores for
+# bf16 whose channels TMA reads at 16-byte strides)
+
+
+@pytest.mark.parametrize(
+    "x_shape, K",
+    [((256, 16, 16, 128), 128), ((256, 8, 8, 256), 256), ((256, 16, 16, 384), 128), ((3, 13, 11, 40), 72)],
+    ids=["unet32_16x16", "unet32_8x8", "unet32_384", "ragged"],
+)
+def test_conv3x3_form_tensor_cores(x_shape, K):
+    assert tconv._conv3x3_form(x_shape, K, torch.bfloat16) == "tensor_cores"
+    assert tconv._conv3x3_form(x_shape, K, torch.float32) == "cuda_cores"
+
+
+@pytest.mark.parametrize("x_shape, K", [((3, 13, 11, 40), 70), ((2, 6, 5, 4), 64), ((1, 8, 8, 12), 16)])
+def test_conv3x3_form_cuda_cores(x_shape, K):
+    assert tconv._conv3x3_form(x_shape, K, torch.bfloat16) == "cuda_cores"
+
+
+def test_admitted_shapes_take_the_tensor_cores(monkeypatch):
+    # every shape that JAX's dispatch admits has C and K multiples of 128
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for C in (128, 256, 384):
+        for K in (128, 256):
+            x_shape, w_shape = (4, 8, 8, C), (3, 3, C, K)
+            assert tconv.can_use_conv3x3(x_shape, w_shape, (1, 1), ((1, 1), (1, 1)), False)
+            assert tconv._conv3x3_form(x_shape, K, torch.bfloat16) == "tensor_cores"
