@@ -71,7 +71,8 @@
 // idle. Blocks form a one-dimensional grid, (pair, query tile) with the
 // tiles of a pair together. The block itself (its tiling, layout, softmax
 // step and products: forward_block) is in attention_tc.cuh, which
-// fused_msa.cu shares; this file gives it the maps of q, k and v.
+// fused_msa.cu and flash_blhd_fwd.cu share; this file gives it the maps of
+// q, k and v.
 //
 // Design, float32: the CUDA-core flash step of common.cuh (azula::flash),
 // unchanged: one block of 256 threads per (pair, 64-query tile) walks 64-key

@@ -102,5 +102,13 @@ bool encode_panels(CUtensorMap* map, const void* x, int BH, int L, int D, int pa
   return encode_map(map, x, 3, dims, strides, box);
 }
 
+bool encode_heads(CUtensorMap* map, const void* x, int B, int L, int H, int D, int panel, int rows) {
+  const int64_t C = static_cast<int64_t>(H) * D;
+  const int64_t dims[3] = {C, L, B};
+  const int64_t strides[2] = {C * 2, static_cast<int64_t>(L) * C * 2};
+  const int box[3] = {panel, rows, 1};
+  return encode_map(map, x, 3, dims, strides, box);
+}
+
 }  // namespace hopper
 }  // namespace azula

@@ -431,17 +431,17 @@ __device__ __forceinline__ void store_rows(const Tiles<D>& s, const float (&acc)
 
 }  // namespace flash
 
-// The flash-attention backward on the CUDA cores, shared by flash_blhd_bwd.cu
-// (the (B, L, H D) layout, statistics m and l, both dtypes) and the float32
-// forms of attention_bwd.cu (the (B H, L, D) layout, the log-sum-exp; its
-// bf16 forms run a tensor-core kernel of their own): dq, dk, dv of
+// The flash-attention backward on the CUDA cores, shared by the float32
+// forms of flash_blhd_bwd.cu (the (B, L, H D) layout) and attention_bwd.cu
+// (the (B H, L, D) layout); their bf16 forms run the tensor-core kernel of
+// attention_bwd_tc.cuh: dq, dk, dv of
 // o = softmax(q k^T * scale) v per (batch, head) pair, given the cotangent g
 // of o. Rows of a pair's q, k, v, o and g lie C = H D elements apart and its
 // columns start at h D; the (B, H, L, D) layout is the case H = 1 with the
 // pairs as the batch. The arithmetic is the JAX bodies', with their rounding
 // points:
 //
-//   p     = exp(s - m) / l, or exp(s - lse)   float32, s = (q k^T) * scale
+//   p     = exp(s - lse)                      float32, s = (q k^T) * scale
 //   dp    = g v^T                             float32
 //   delta = sum over d of g * o               float32, of the stored (rounded) o and g
 //   ds    = T(p * (dp - delta) * scale)       rounded to the input dtype T
@@ -454,17 +454,17 @@ __device__ __forceinline__ void store_rows(const Tiles<D>& s, const float (&acc)
 // 1. dq: one block per (pair, query tile). It keeps the Q and G tiles in
 //    shared memory, computes each row's delta from o and g (and writes it to a
 //    float32 (B, H, L) scratch), then streams 64-key tiles of K and V: the
-//    scores and dp by the flash tile product, p rebuilt exactly from the
-//    saved statistics, ds rounded to T in a shared tile, dq += ds K in
+//    scores and dp by the flash tile product, p rebuilt from the forward's
+//    log-sum-exp, ds rounded to T in a shared tile, dq += ds K in
 //    registers.
 // 2. dk, dv: one block per (pair, 64-key tile). It keeps K and V, streams the
-//    query tiles of Q and G with their statistics and delta, rebuilds p and
+//    query tiles of Q and G with their log-sum-exp and delta, rebuilds p and
 //    ds the same way, and accumulates dk += ds^T Q and dv += T(p)^T G in
 //    registers.
 //
 // Tiles live in shared memory as float32, rows padded by 4 floats. A query
 // tile has 64 rows for D <= 128 and 32 rows above, so that the four tiles
-// fit (217,472 bytes at D = 256). Each file defines its own two __global__
+// fit (217,344 bytes at D = 256). Each file defines its own two __global__
 // kernels over `dq_block` and `dkv_block` (so that a profile tells the
 // routes apart) and launches them with `launch`.
 namespace flash_bwd {
@@ -475,15 +475,14 @@ constexpr int LS = BK + 4;  // row stride of the p and ds tiles
 
 // A block's shared memory: the query-side tiles Q and G (BQ rows), the
 // key-side tiles K and V (BK rows), the rounded p and ds tiles, and each
-// query row's statistics (m and l, or the log-sum-exp in m and 1 in l) and
-// delta.
+// query row's log-sum-exp and delta.
 template <int D>
 struct Tiles {
   static constexpr int BQ = D <= 128 ? 64 : 32;  // query rows per tile
   static constexpr int RA = BQ / 16;              // query rows per thread in a tile product
   static constexpr int LD = D + 4;
   static constexpr int kBytes =
-      (2 * BQ * LD + 2 * BK * LD + 2 * BQ * LS + 3 * BQ) * static_cast<int>(sizeof(float));
+      (2 * BQ * LD + 2 * BK * LD + 2 * BQ * LS + 2 * BQ) * static_cast<int>(sizeof(float));
 
   float* Q;
   float* G;
@@ -491,8 +490,7 @@ struct Tiles {
   float* V;
   float* P;
   float* dS;
-  float* m;
-  float* l;
+  float* lse;
   float* delta;
 
   __device__ explicit Tiles(float* base)
@@ -502,34 +500,20 @@ struct Tiles {
         V(K + BK * LD),
         P(V + BK * LD),
         dS(P + BQ * LS),
-        m(dS + BQ * LS),
-        l(m + BQ),
-        delta(l + BQ) {}
+        lse(dS + BQ * LS),
+        delta(lse + BQ) {}
 };
 
 static_assert(Tiles<256>::kBytes <= 232448 && Tiles<128>::kBytes <= 232448, "the tiles fit in shared memory");
 
-// Row `row` of a pair's statistics into shared slot r: (m, l), or (lse, 1)
-// with kLse; rows past L get (0, 1).
-template <int D, bool kLse>
-__device__ __forceinline__ void load_stats(const Tiles<D>& s, int r, const float* m, const float* l, size_t row,
-                                           bool valid) {
-  s.m[r] = valid ? m[row] : 0.f;
-  if constexpr (kLse) {
-    s.l[r] = 1.f;
-  } else {
-    s.l[r] = valid ? l[row] : 1.f;
-  }
-}
-
 // p and ds of the (BQ, 64) tile of query rows q0 + i and keys k0 + j, once
-// Q, G, K, V and the rows' statistics and delta are in shared memory: p and
+// Q, G, K, V and the rows' log-sum-exp and delta are in shared memory: p and
 // ds of thread (tx, ty) at rows ty + 16 a and keys tx + 16 b. Rows or keys
 // past L get p = ds = 0. `mask` adds the pair's bias to the scaled scores;
 // with kDropout, p comes out as the dropped weights p~ = M p / (1 - rate)
 // that the forward's value product took, and ds = T(p (M dp / (1 - rate) -
 // delta) scale), `_p_ds` of `_pallas_attention_bwd`.
-template <typename T, int D, bool kLse, bool kDropout = false>
+template <typename T, int D, bool kDropout = false>
 __device__ __forceinline__ void p_and_ds(const Tiles<D>& s, int q0, int k0, int L, float scale,
                                          float (&p)[Tiles<D>::RA][4], float (&ds)[Tiles<D>::RA][4],
                                          const PairMask<T>& mask = PairMask<T>()) {
@@ -550,16 +534,9 @@ __device__ __forceinline__ void p_and_ds(const Tiles<D>& s, int q0, int k0, int 
       p[a][b] = 0.f;
       ds[a][b] = 0.f;
       if (q0 + i < L && k0 + j < L) {
-        // the score rounded as the forward computed it, then exp(s - m) / l
-        // or exp(s - lse)
+        // the score rounded as the forward computed it, then exp(s - lse)
         const float x = mask.add_bias(__fmul_rn(sc[a][b], scale), q0 + i, k0 + j, L);
-        const float e = expf(x - s.m[i]);
-        float pij;
-        if constexpr (kLse) {
-          pij = e;
-        } else {
-          pij = e / s.l[i];
-        }
+        const float pij = expf(x - s.lse[i]);
         float dpij = dp[a][b];
         p[a][b] = pij;
         if constexpr (kDropout) {
@@ -620,12 +597,11 @@ __device__ __forceinline__ void store_tile(const float (&acc)[RA][D / 16], T* ou
 // Kernel 1, the body of one block: dq of one query tile of one pair
 // b H + h, and the tile rows' delta. The grid is one-dimensional, the tiles
 // of pair 0 first, so that any number of pairs fits in it.
-template <typename T, int D, bool kLse, bool kDropout>
+template <typename T, int D, bool kDropout>
 __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                          const T* __restrict__ o, const T* __restrict__ g,
-                                         const float* __restrict__ m, const float* __restrict__ l,
-                                         T* __restrict__ dq, float* __restrict__ delta, int L, int H, float scale,
-                                         const MaskArgs& args) {
+                                         const float* __restrict__ lse, T* __restrict__ dq,
+                                         float* __restrict__ delta, int L, int H, float scale, const MaskArgs& args) {
   using S = Tiles<D>;
   constexpr int BQ = S::BQ;
   constexpr int RA = S::RA;
@@ -641,7 +617,7 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
   const int b = pair / H;
   const int h = pair % H;
   const size_t base = static_cast<size_t>(b) * L * C + h * D;
-  const size_t rows = static_cast<size_t>(pair) * L;  // this pair's statistics and delta
+  const size_t rows = static_cast<size_t>(pair) * L;  // this pair's log-sum-exp and delta
   const int q0 = (blockIdx.x % tiles) * BQ;
   const PairMask<T> mask(args, pair, L);
   const int tx = threadIdx.x % 16;
@@ -668,7 +644,7 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
 
     if (part == 0) {
       s.delta[r] = sum;
-      load_stats<D, kLse>(s, r, m, l, rows + q0 + r, valid);
+      s.lse[r] = valid ? lse[rows + q0 + r] : 0.f;
       if (valid) delta[rows + q0 + r] = sum;
     }
   }
@@ -686,7 +662,7 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
     __syncthreads();
 
     float p[RA][4], ds[RA][4];
-    p_and_ds<T, D, kLse, kDropout>(s, q0, k0, L, scale, p, ds, mask);
+    p_and_ds<T, D, kDropout>(s, q0, k0, L, scale, p, ds, mask);
 #pragma unroll
     for (int a = 0; a < RA; ++a)
 #pragma unroll
@@ -710,10 +686,10 @@ __device__ __forceinline__ void dq_block(const T* __restrict__ q, const T* __res
 
 // Kernel 2, the body of one block: dk and dv of one key tile of one pair,
 // from the deltas that kernel 1 wrote; the grid as kernel 1's.
-template <typename T, int D, bool kLse, bool kDropout>
+template <typename T, int D, bool kDropout>
 __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                                          const T* __restrict__ g, const float* __restrict__ m,
-                                          const float* __restrict__ l, const float* __restrict__ delta,
+                                          const T* __restrict__ g, const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
                                           T* __restrict__ dk, T* __restrict__ dv, int L, int H, float scale,
                                           const MaskArgs& args) {
   using S = Tiles<D>;
@@ -756,13 +732,13 @@ __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __re
     if (threadIdx.x < BQ) {
       const int r = threadIdx.x;
       const bool valid = q0 + r < L;
-      load_stats<D, kLse>(s, r, m, l, rows + q0 + r, valid);
+      s.lse[r] = valid ? lse[rows + q0 + r] : 0.f;
       s.delta[r] = valid ? delta[rows + q0 + r] : 0.f;
     }
     __syncthreads();
 
     float p[RA][4], ds[RA][4];
-    p_and_ds<T, D, kLse, kDropout>(s, q0, k0, L, scale, p, ds, mask);
+    p_and_ds<T, D, kDropout>(s, q0, k0, L, scale, p, ds, mask);
 #pragma unroll
     for (int a = 0; a < RA; ++a)
 #pragma unroll
@@ -781,19 +757,19 @@ __device__ __forceinline__ void dkv_block(const T* __restrict__ q, const T* __re
   store_tile<T, D, 4>(dv_acc, dv + base, C, k0, L);
 }
 
-// The two kernels' signatures: (q, k, v, o, g, m, l, dq, delta, L, H, scale,
-// mask) and (q, k, v, g, m, l, delta, dk, dv, L, H, scale, mask).
+// The two kernels' signatures: (q, k, v, o, g, lse, dq, delta, L, H, scale,
+// mask) and (q, k, v, g, lse, delta, dk, dv, L, H, scale, mask).
 template <typename T>
-using DqKernel = void (*)(const T*, const T*, const T*, const T*, const T*, const float*, const float*, T*, float*,
-                          int, int, float, MaskArgs);
+using DqKernel = void (*)(const T*, const T*, const T*, const T*, const T*, const float*, T*, float*, int, int, float,
+                          MaskArgs);
 template <typename T>
-using DkvKernel = void (*)(const T*, const T*, const T*, const T*, const float*, const float*, const float*, T*, T*,
-                           int, int, float, MaskArgs);
+using DkvKernel = void (*)(const T*, const T*, const T*, const T*, const float*, const float*, T*, T*, int, int,
+                           float, MaskArgs);
 
 // Launches dq_kernel, then dkv_kernel, on stream s over B * H pairs.
 template <typename T, int D>
 cudaError_t launch(DqKernel<T> dq_kernel, DkvKernel<T> dkv_kernel, const void* q, const void* k, const void* v,
-                   const void* o, const void* g, const float* m, const float* l, void* dq, void* dk, void* dv,
+                   const void* o, const void* g, const float* lse, void* dq, void* dk, void* dv,
                    float* delta, int B, int L, int H, float scale, cudaStream_t s, const MaskArgs& mask = MaskArgs()) {
   using S = Tiles<D>;
   constexpr int bytes = S::kBytes;
@@ -813,12 +789,12 @@ cudaError_t launch(DqKernel<T> dq_kernel, DkvKernel<T> dkv_kernel, const void* q
   if (e != cudaSuccess) return e;
 
   // dq first: it writes the deltas that the dk, dv kernel reads
-  dq_kernel<<<static_cast<unsigned>(tiles_q), kThreads, bytes, s>>>(qt, kt, vt, static_cast<const T*>(o), gt, m, l,
+  dq_kernel<<<static_cast<unsigned>(tiles_q), kThreads, bytes, s>>>(qt, kt, vt, static_cast<const T*>(o), gt, lse,
                                                                     static_cast<T*>(dq), delta, L, H, scale, mask);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  dkv_kernel<<<static_cast<unsigned>(tiles_k), kThreads, bytes, s>>>(qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk),
+  dkv_kernel<<<static_cast<unsigned>(tiles_k), kThreads, bytes, s>>>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dk),
                                                                      static_cast<T*>(dv), L, H, scale, mask);
   return cudaGetLastError();
 }

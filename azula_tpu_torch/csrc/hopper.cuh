@@ -411,6 +411,54 @@ bool encode_map(CUtensorMap* map, const void* x, int rank, const int64_t* dims, 
 // next pair's rows.
 bool encode_panels(CUtensorMap* map, const void* x, int BH, int L, int D, int panel, int rows);
 
+// The map of a (B, L, H D) bf16 tensor x, heads in place as the fused QKV
+// projection lays them out, read in boxes of `rows` rows of one
+// `panel`-column panel. Its dimensions are (H D, L, B): head h's panel p of
+// rows [r, r + rows) of batch row b is the box at (h D + p panel, r, b), and
+// a box past L is filled with zeros.
+bool encode_heads(CUtensorMap* map, const void* x, int B, int L, int H, int D, int panel, int rows);
+
+// Where the rows of pair p (of BH pairs of L rows and D columns) lie: in
+// an attention kernel's inputs, outputs and float32 scratch, row r's
+// element offset; in a tensor map, the box of `rows` rows from r of the
+// `panel`-column panel at column col.
+//
+// PairLayout: (B H, L, D), row r of pair p at (p L + r) D; maps (D, L, B H).
+template <int D>
+struct PairLayout {
+  int L;
+
+  __host__ __device__ __forceinline__ size_t offset(int pair, int row) const {
+    return (static_cast<size_t>(pair) * L + row) * D;
+  }
+  __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int pair, int col,
+                                       int row) const {
+    tma_load(dst, map, bar, col, row, pair);
+  }
+  bool encode(CUtensorMap* map, const void* x, int BH, int panel, int rows) const {
+    return encode_panels(map, x, BH, L, D, panel, rows);
+  }
+};
+
+// HeadsLayout: (B, L, H D), the fused QKV projection's layout, pair
+// p = b H + h's row r at (b L + r) H D + h D; maps (H D, L, B).
+template <int D>
+struct HeadsLayout {
+  int L;
+  int H;
+
+  __host__ __device__ __forceinline__ size_t offset(int pair, int row) const {
+    return (static_cast<size_t>(pair / H) * L + row) * H * D + pair % H * D;
+  }
+  __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int pair, int col,
+                                       int row) const {
+    tma_load(dst, map, bar, pair % H * D + col, row, pair / H);
+  }
+  bool encode(CUtensorMap* map, const void* x, int BH, int panel, int rows) const {
+    return encode_heads(map, x, BH / H, L, H, D, panel, rows);
+  }
+};
+
 // Raises the dynamic shared-memory limit of `Kernel` to `bytes`. The limit
 // is an attribute of each device's copy of the kernel: it is set once per
 // device (the first 64), and on every launch beyond them.

@@ -22,6 +22,7 @@ __all__ = [
     "Posterior",
     "SimpleDenoiser",
     "broadcast_scales",
+    "time_scales",
 ]
 
 import abc
@@ -43,6 +44,28 @@ def broadcast_scales(alpha_t: Tensor, sigma_t: Tensor, x: Tensor) -> tuple[Tenso
         alpha_t, sigma_t = alpha_t[..., None], sigma_t[..., None]
 
     return alpha_t, sigma_t
+
+
+def time_scales(schedule: Schedule, t: Tensor | float, x: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    r"""The time `t` as a tensor on `x`'s device and the scales
+    :math:`\alpha_t, \sigma_t` of `schedule` at it, typed as JAX types them.
+
+    An array `t` (a tensor, a NumPy array or scalar, a list) keeps its own
+    dtype and its scales are padded to broadcast against `x`
+    (`broadcast_scales`), so that the coefficients computed from them promote
+    against `x` as JAX's arrays do: a float32 `t` with a bf16 `x` gives
+    float32. A Python `int` or `float`, weakly typed in JAX, is computed in
+    float32 and its scales stay 0-d, so that the coefficients take `x`'s
+    dtype where they meet `x`, as JAX's weakly typed scalars do.
+    """
+
+    # NumPy's float64 scalar is a Python float, but JAX types it strongly
+    if isinstance(t, (int, float)) and not hasattr(t, "dtype"):
+        t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        return t, *schedule(t)
+
+    t = torch.as_tensor(t, device=x.device)
+    return t, *broadcast_scales(*schedule(t), x)
 
 
 class Posterior(abc.ABC):
@@ -112,10 +135,7 @@ class SimpleDenoiser(Denoiser):
         self.schedule = schedule
 
     def forward(self, x_t: Tensor, t: Tensor, **kwargs) -> DiracPosterior:
-        t = torch.as_tensor(t, dtype=x_t.dtype, device=x_t.device)
-
-        alpha_t, sigma_t = self.schedule(t)
-        alpha_t, sigma_t = broadcast_scales(alpha_t, sigma_t, x_t)
+        t, alpha_t, sigma_t = time_scales(self.schedule, t, x_t)
 
         c_in = torch.rsqrt(alpha_t**2 + sigma_t**2)
         c_time = torch.log(sigma_t / alpha_t).reshape(t.shape)
@@ -178,7 +198,8 @@ class KarrasDenoiser(Denoiser):
         c_\mathrm{time} = \log \frac{\sigma_t}{\alpha_t}
 
     The backbone runs in its own dtype (`get_module_dtype`); the
-    preconditioning runs in the dtype of :math:`x_t`.
+    preconditioning runs in the dtype of `t` and promotes against
+    :math:`x_t` (`time_scales`).
 
     References:
         | Elucidating the Design Space of Diffusion-Based Generative Models (Karras et al., 2022)
@@ -196,10 +217,7 @@ class KarrasDenoiser(Denoiser):
         self.schedule = schedule
 
     def forward(self, x_t: Tensor, t: Tensor, **kwargs) -> DiracPosterior:
-        t = torch.as_tensor(t, dtype=x_t.dtype, device=x_t.device)
-
-        alpha_t, sigma_t = self.schedule(t)
-        alpha_t, sigma_t = broadcast_scales(alpha_t, sigma_t, x_t)
+        t, alpha_t, sigma_t = time_scales(self.schedule, t, x_t)
 
         c_in = torch.rsqrt(alpha_t**2 + sigma_t**2)
         c_out = sigma_t * torch.rsqrt(alpha_t**2 + sigma_t**2)

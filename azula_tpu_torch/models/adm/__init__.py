@@ -25,7 +25,7 @@ import torch
 from collections.abc import Sequence
 from torch import Tensor
 
-from ...denoise import Denoiser, GaussianPosterior, broadcast_scales
+from ...denoise import Denoiser, GaussianPosterior, time_scales
 from ...nn.utils import default_device, get_module_dtype
 from ...noise import Schedule, VPSchedule
 from .backbone import ADMUNet
@@ -132,8 +132,7 @@ class AblatedDenoiser(Denoiser):
             :math:`\mathcal{N}(X \mid \mu_\phi(x_t \mid c), \sigma^2_\phi(x_t \mid c))`.
         """
 
-        alpha_t, sigma_t = self.schedule(torch.as_tensor(t, dtype=x_t.dtype, device=x_t.device))
-        alpha_t, sigma_t = broadcast_scales(alpha_t, sigma_t, x_t)
+        _, alpha_t, sigma_t = time_scales(self.schedule, t, x_t)
 
         c_in = torch.rsqrt(alpha_t**2 + sigma_t**2)
         c_out = -sigma_t / alpha_t

@@ -21,7 +21,7 @@ import torch
 
 from torch import Tensor, nn
 
-from ...denoise import Denoiser, DiracPosterior, broadcast_scales
+from ...denoise import Denoiser, DiracPosterior, time_scales
 from ...nn.utils import get_module_dtype
 from ...noise import DecaySchedule, Schedule
 from .backbone import FluxTransformer
@@ -76,10 +76,7 @@ class FluxDenoiser(Denoiser):
             The Dirac delta :math:`\delta(Z - \mu_\phi(z_t \mid y))`.
         """
 
-        t = torch.as_tensor(t, dtype=z_t.dtype, device=z_t.device)
-
-        alpha_t, sigma_t = self.schedule(t)
-        alpha_t, sigma_t = broadcast_scales(alpha_t, sigma_t, z_t)
+        _, alpha_t, sigma_t = time_scales(self.schedule, t, z_t)
 
         c_in = 1 / (alpha_t + sigma_t)
         c_out = -sigma_t / (alpha_t + sigma_t)

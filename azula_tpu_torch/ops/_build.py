@@ -56,8 +56,8 @@ NVCC_FLAGS = (
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; `chip_smoke.py` clears this before the main path
 # and reads it after. A backward entry counts once per call: `flash_blhd_bwd`
-# launches two kernels (dq, then dk/dv), `attention_bwd` three in bf16 (delta,
-# the one-pass backward, dq's rounding) and two in float32. The attention entries
+# and `attention_bwd` launch three kernels in bf16 (delta, the one-pass
+# backward, dq's rounding) and two in float32 (dq, then dk/dv). The attention entries
 # count each form under its own name: `attention_fwd_lse`,
 # `attention_fwd_lse_bias`, `attention_fwd_lse_dropout`,
 # `attention_fwd_lse_bias_dropout`, and so on. `conv3x3` also counts the
@@ -97,9 +97,11 @@ _SIGNATURES = {
     "azula_fused_msa": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     # D: the bf16 tensor-core form's shared memory per block
     "azula_fused_msa_tc_shared_bytes": [_I],
-    # q, k, v, o, m, l, B, L, H, D, scale, dtype, stream
-    "azula_flash_blhd_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, g, m, l, dq, dk, dv, delta, B, L, H, D, scale, dtype, stream
+    # q, k, v, o, lse, B, L, H, D, scale, dtype, stream
+    "azula_flash_blhd_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
+    # D, consumer warpgroups: the bf16 tensor-core form's shared memory per block
+    "azula_flash_blhd_fwd_tc_shared_bytes": [_I, _I],
+    # q, k, v, o, g, lse, dq, dk, dv, delta, dq_acc, B, L, H, D, scale, dtype, stream
     "azula_flash_blhd_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
 }
 

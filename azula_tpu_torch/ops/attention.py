@@ -28,7 +28,9 @@ Also :func:`_flash_blhd`, the differentiable flash attention on the
 projection layout :math:`(B, L, H D)` that fused MSA's training route runs:
 hand-written forward and backward kernels (`csrc/flash_blhd_fwd.cu`,
 `csrc/flash_blhd_bwd.cu`) on the card, plain PyTorch versions of the JAX
-kernel bodies on the CPU.
+kernel bodies on the CPU. In bf16 they are the tensor-core forward and
+backward above, reading the heads in place; the forward saves the rows'
+log-sum-exp as the backward's residual, as `_flash` does.
 """
 
 from __future__ import annotations
@@ -580,16 +582,18 @@ def _attention_lse_kernel(
     return o, lse
 
 
-# the query rows per tile of the bf16 tensor-core backward (`tc::BM` of
-# `csrc/attention_bwd.cu`), to which its per-tile LSE and delta rows are padded
+# the query rows per tile of the bf16 tensor-core backward (`BM` of
+# `csrc/attention_bwd_tc.cuh`), to which its per-tile LSE and delta rows are
+# padded
 _BWD_QUERY_TILE = 64
 
 
 def _bwd_scratch(B: int, H: int, L: int, D: int, dtype: torch.dtype) -> tuple[int, int]:
-    r"""The float32 scratch of `csrc/attention_bwd.cu`, in elements: each
-    query tile's LSE and delta rows (B H, ceil(L / 64), 2, 64), whose first
-    B H L the float32 kernels take for delta, and in bf16 the (B H, L, D) dq
-    accumulator (0 in float32)."""
+    r"""The float32 scratch of `csrc/attention_bwd.cu` and
+    `csrc/flash_blhd_bwd.cu`, in elements: each query tile's LSE and delta
+    rows (B H, ceil(L / 64), 2, 64), whose first B H L the float32 kernels
+    take for delta, and in bf16 the dq accumulator in dq's layout, (B H, L, D)
+    or (B, L, H D) (0 in float32)."""
 
     tiles = -(-L // _BWD_QUERY_TILE)
     return B * H * tiles * 2 * _BWD_QUERY_TILE, B * H * L * D if dtype == torch.bfloat16 else 0
@@ -892,9 +896,9 @@ def dot_product_attention(
 
 
 def _split_heads(x: Tensor, heads: int) -> Tensor:
-    r"""(B, L, H D) -> (B, H, L, D), as float32."""
+    r"""(B, L, H D) -> (B, H, L, D), in x's dtype."""
 
-    return x.unflatten(-1, (heads, -1)).transpose(1, 2).float()
+    return x.unflatten(-1, (heads, -1)).transpose(1, 2)
 
 
 def _merge_heads(x: Tensor, dtype: torch.dtype) -> Tensor:
@@ -910,7 +914,7 @@ def _flash_blhd_fwd_plain(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: fl
     value product with float32 accumulation, and the product is divided by
     the sum, in both dtypes."""
 
-    qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+    qh, kh, vh = (_split_heads(t, heads).float() for t in (q, k, v))
 
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     m = logits.amax(dim=-1, keepdim=True)
@@ -931,13 +935,39 @@ def _flash_blhd_bwd_plain(
     dv = p16^T g, each accumulated in float32 and rounded."""
 
     dtype = q.dtype
-    qh, kh, vh, oh, gh = (_split_heads(t, heads) for t in (q, k, v, o, g))
+    qh, kh, vh, oh, gh = (_split_heads(t, heads).float() for t in (q, k, v, o, g))
 
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
 
     return tuple(_merge_heads(t, dtype) for t in _softmax_grads(qh, kh, vh, oh, gh, p, scale, dtype))
+
+
+def _flash_blhd_tiled_plain(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> tuple[Tensor, Tensor]:
+    r"""The bf16 tensor-core form of `_flash_blhd_fwd_kernel` with its
+    rounding points: :func:`_attention_tiled_plain` on the split heads (the
+    exp-weights rounded against the running max of the kernel's key tiles).
+    Returns o in float32, unrounded, as :math:`(B, L, H D)`, and the float32
+    :math:`(B, H, L)` log-sum-exp."""
+
+    o, lse = _attention_tiled_plain(*(_split_heads(t, heads) for t in (q, k, v)), scale)
+
+    return _merge_heads(o, torch.float32), lse
+
+
+def _flash_blhd_bwd_tiled_plain(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, lse: Tensor, heads: int, scale: float
+) -> tuple[Tensor, Tensor, Tensor]:
+    r"""The bf16 tensor-core form of `_flash_blhd_bwd_kernel` with its
+    rounding points: :func:`_attention_bwd_plain` on the split heads from the
+    forward's :math:`(B, H, L)` log-sum-exp. Returns dq, dk, dv as float32
+    sums, before their last rounding, as :math:`(B, L, H D)`."""
+
+    grads = _attention_bwd_plain(*(_split_heads(t, heads) for t in (q, k, v, o)), lse, _split_heads(g, heads), scale,
+                                 rounded=False)
+
+    return tuple(_merge_heads(t, torch.float32) for t in grads)
 
 
 def _check_blhd(tensors: tuple[Tensor, ...], heads: int) -> tuple[int, int, int, int]:
@@ -964,48 +994,54 @@ def _check_blhd(tensors: tuple[Tensor, ...], heads: int) -> tuple[int, int, int,
         raise ValueError(f"the flash_blhd kernels take head dims {_BLHD_HEAD_DIMS}, got {D}")
     if L > _BLHD_MAX_L:
         raise ValueError(f"the flash_blhd kernels take L <= {_BLHD_MAX_L}, got {L}")
-    if B * heads > 65535:
-        raise ValueError(f"the flash_blhd kernels take at most 65535 (batch, head) pairs, got {B * heads}")
 
     return B, L, heads, D
 
 
-def _flash_blhd_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> tuple[Tensor, Tensor, Tensor]:
+def _flash_blhd_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> tuple[Tensor, Tensor]:
     r"""Launches `csrc/flash_blhd_fwd.cu`; returns o and the float32 (B, H, L)
-    row max and denominator."""
+    row log-sum-exp. In bf16 the tensor-core forward, with the rounding
+    points of :func:`_flash_blhd_tiled_plain`, on one block per SM walking
+    the query tiles; in float32 the CUDA-core flash step."""
 
     B, L, H, D = _check_blhd((q, k, v), heads)
 
     o = torch.empty_like(q)
-    m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
 
     status = _build.library().azula_flash_blhd_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, L, H, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
     )
     _build.check(status, "flash_blhd_fwd")
     _build.LAUNCHES["flash_blhd_fwd"] += 1
 
-    return o, m, l
+    return o, lse
 
 
 def _flash_blhd_bwd_kernel(
-    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, m: Tensor, l: Tensor, heads: int, scale: float
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, g: Tensor, lse: Tensor, heads: int, scale: float
 ) -> tuple[Tensor, Tensor, Tensor]:
-    r"""Launches `csrc/flash_blhd_bwd.cu`; returns dq, dk, dv."""
+    r"""Launches `csrc/flash_blhd_bwd.cu`, counted as one launch; returns dq,
+    dk, dv. In bf16 the one-pass tensor-core backward of
+    `csrc/attention_bwd.cu` on the heads in place (a delta pre-kernel, the
+    kernel, whose blocks add their dq tiles to a float32 (B, L, H D)
+    accumulator by atomics, and dq's rounding), with the rounding points of
+    :func:`_flash_blhd_bwd_tiled_plain`; in float32 the CUDA-core
+    FlashAttention-2 pair. The scratch is :func:`_bwd_scratch`'s."""
 
     B, L, H, D = _check_blhd((q, k, v, o, g), heads)
-    for t in (m, l):
-        if t.shape != (B, H, L) or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"the row statistics must be float32 (B, H, L) = {(B, H, L)} on {q.device}")
+    if lse.shape != (B, H, L) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"the log-sum-exp must be float32 (B, H, L) = {(B, H, L)} on {q.device}")
 
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty_like(m)
+    rows, acc = _bwd_scratch(B, H, L, D, q.dtype)
+    delta = torch.empty(rows, dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(acc, dtype=torch.float32, device=q.device) if acc else None
 
     status = _build.library().azula_flash_blhd_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
         B, L, H, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
     )
     _build.check(status, "flash_blhd_bwd")
@@ -1016,14 +1052,14 @@ def _flash_blhd_bwd_kernel(
 
 class _FlashBLHD(torch.autograd.Function):
     r"""`_flash_blhd` as a node of the autograd graph: the kernels on the
-    card, whose forward saves the rows' max and denominator for the
-    backward, or the plain versions on the CPU."""
+    card, whose forward saves the rows' log-sum-exp for the backward, or the
+    plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, scale, kernel):
         if kernel:
-            o, m, l = _flash_blhd_fwd_kernel(q, k, v, heads, scale)
-            ctx.save_for_backward(q, k, v, o, m, l)
+            o, lse = _flash_blhd_fwd_kernel(q, k, v, heads, scale)
+            ctx.save_for_backward(q, k, v, o, lse)
         else:
             o = _flash_blhd_fwd_plain(q, k, v, heads, scale)
             ctx.save_for_backward(q, k, v, o)
@@ -1035,11 +1071,11 @@ class _FlashBLHD(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v, o, *stats = ctx.saved_tensors
+        q, k, v, o, *lse = ctx.saved_tensors
         g = g.to(q.dtype)  # as `_flash_blhd_bwd` casts the cotangent
 
         if ctx.kernel:
-            dq, dk, dv = _flash_blhd_bwd_kernel(q, k, v, o, g.contiguous(), *stats, ctx.heads, ctx.scale)
+            dq, dk, dv = _flash_blhd_bwd_kernel(q, k, v, o, g.contiguous(), *lse, ctx.heads, ctx.scale)
         else:
             dq, dk, dv = _flash_blhd_bwd_plain(q, k, v, o, g, ctx.heads, ctx.scale)
 

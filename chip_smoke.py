@@ -12,8 +12,10 @@ Phases, each of which raises on failure:
 2. build: compile the CUDA kernels from `azula_tpu_torch/csrc` and load them;
    print what `ptxas -v` said of the bf16 tensor-core attention forward and
    backward (registers and spills of each form, shared memory per block,
-   per D), of the backward's delta and dq-rounding kernels, and of the bf16
-   tensor-core forms of fused MSA (per D) and conv3x3.
+   per D), of the backward's delta and dq-rounding kernels, of the bf16
+   tensor-core forms of fused MSA (per D) and conv3x3, and of the bf16
+   `_flash_blhd` pair (the forward per D and warpgroups, the backward per
+   D with its delta and dq-rounding kernels).
 3. kernels: record the kernel calls of one full-width forward (ADM
    `imagenet_256x256`, bf16, batch 8), then hold each kernel against its plain
    PyTorch version on the card at every recorded shape, in bf16 and float32,
@@ -57,8 +59,12 @@ Phases, each of which raises on failure:
 9. flash kernels: the `_flash_blhd` forward and backward kernels against
    their plain versions at the dit32 training shape ((128, 256, 384), 6 heads
    of 64, scale 1/8) in bf16 and float32 (o, and dq, dk, dv for a random
-   cotangent), and at ragged L and the other head dims; timed against the
-   plain versions, SDPA (forward, and its autograd backward) and the bound.
+   cotangent), and at ragged L, L <= 64 and the other head dims; in bf16
+   (the tensor-core forward and one-pass backward on the heads in place)
+   also o and lse against `_flash_blhd_tiled_plain` at `TOL_TC` and dq, dk,
+   dv against `_flash_blhd_bwd_tiled_plain`'s float32 sums at `TOL_BWD_TC`;
+   timed against the plain versions, SDPA (forward, and its autograd
+   backward) and the bound, with TFLOP/s and the share of the bound.
 10. composition gradient: the gradient of `fused_msa_attention` at the dit32
    shape with RoPE, bf16, through the flash route's kernels, against the
    gradient through the plain version (the JAX package's gate, rel < 3e-2).
@@ -334,8 +340,8 @@ TOL_GN = {
 TOL_ATTN = {
     torch.float32: 1e-5,
     # the attention kernels round the exp-weights to bf16 against a running
-    # max (the tensor-core forward over 128-key tiles, 64 at D = 192 and 256;
-    # the fused MSA and _flash_blhd kernels over 64-key tiles), the plain
+    # max (the tensor-core forward, fused MSA's and _flash_blhd's included,
+    # over 128-key tiles, 64 at D = 192 and 256), the plain
     # versions (`_attention_plain`, `_attention_lse_plain`, ...) against the
     # row's final max, as the JAX package's single-block kernels do; and each
     # side rounds o to bf16
@@ -429,6 +435,29 @@ def elapsed_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    r"""Device time of `fn` per call, by the profiler: the time of the
+    kernels it launches, summed over `reps` calls after a warm-up call, with
+    the host's gaps between them left out (CUDA events around a short call
+    also count the time in which the card waits for the host)."""
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA or getattr(event, "is_user_annotation", False):
+            continue
+        us = getattr(event, "self_device_time_total", None)
+        total += getattr(event, "self_cuda_time_total", 0) if us is None else us
+    if not total:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / reps
+
+
 def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     r"""(max abs error, max abs error / max |want|), in float64."""
 
@@ -519,13 +548,33 @@ def masked_form(bias: int, dropout: int, unmasked: str = "plain") -> str:
     return "+".join(f for f, on in (("bias", bias), ("dropout", dropout)) if on) or unmasked
 
 
+def backward_ptxas_summary(source: str) -> str:
+    r"""`ptxas_summary` of the bf16 tensor-core attention backward of
+    `csrc/attention_bwd_tc.cuh` as `source` instantiates it
+    (`backward_kernel<D, bias, dropout, rows>`), then its delta pre-kernel
+    per D and its dq rounding post-kernel, whose dropout flag only names
+    them."""
+
+    lib = _build.library()
+    entries = ptxas_entries(source)
+    summary = ptxas_summary(
+        entries, r"backward_kernelILi(\d+)ELb(\d)ELb(\d)E", masked_form,
+        lambda D: f"{lib.azula_attention_bwd_tc_shared_bytes(D):,} B",
+    )
+    for kind, pattern in (("delta pre-kernel", r"delta_kernelILi(\d+)ELb0E"),
+                          ("dq rounding post-kernel", r"dq_round_kernelILb0E")):
+        found = [(re.search(pattern, name), regs, spill) for name, regs, spill in entries]
+        summary += f"; {kind} " + ", ".join(
+            (f"D = {m.group(1)} " if m.groups() else "") + f"{regs} regs {spill} B spilled"
+            for m, regs, spill in found if m)
+    return summary
+
+
 def tc_ptxas_summaries() -> tuple[str, str]:
     r"""`ptxas_summary` of the bf16 tensor-core attention forward
     (`tc::attention_fwd_tc_kernel<D, NW, max-free, bias, dropout>` of
-    `csrc/attention_fwd.cu`) and backward
-    (`tc::attention_bwd_tc_kernel<D, bias, dropout>` of
-    `csrc/attention_bwd.cu`, then its delta pre-kernel per D and its dq
-    rounding post-kernel, whose dropout flag only names them)."""
+    `csrc/attention_fwd.cu`) and backward (`csrc/attention_bwd.cu`'s
+    instantiations, `backward_ptxas_summary`)."""
 
     lib = _build.library()
     forward = ptxas_summary(
@@ -535,18 +584,22 @@ def tc_ptxas_summaries() -> tuple[str, str]:
         lambda D: ", ".join(f"{lib.azula_attention_fwd_tc_shared_bytes(D, nw):,} B ({nw}wg)" for nw in (2, 1)
                             if lib.azula_attention_fwd_tc_shared_bytes(D, nw)),
     )
-    entries = ptxas_entries("attention_bwd.cu")
-    backward = ptxas_summary(
-        entries, r"attention_bwd_tc_kernelILi(\d+)ELb(\d)ELb(\d)E", masked_form,
-        lambda D: f"{lib.azula_attention_bwd_tc_shared_bytes(D):,} B",
+    return forward, backward_ptxas_summary("attention_bwd.cu")
+
+
+def flash_ptxas_summaries() -> tuple[str, str]:
+    r"""`ptxas -v` of the bf16 tensor-core `_flash_blhd` pair: the forward
+    (`tc::flash_blhd_fwd_tc_kernel<D, NW>` of `csrc/flash_blhd_fwd.cu`, the
+    attention forward's block with two Q buffers) and the backward
+    (`csrc/flash_blhd_bwd.cu`'s instantiations on the heads in place)."""
+
+    lib = _build.library()
+    forward = ptxas_summary(
+        ptxas_entries("flash_blhd_fwd.cu"), r"flash_blhd_fwd_tc_kernelILi(\d+)ELi(\d+)E", lambda nw: f"{nw}wg",
+        lambda D: ", ".join(f"{lib.azula_flash_blhd_fwd_tc_shared_bytes(D, nw):,} B ({nw}wg)" for nw in (2, 1)
+                            if lib.azula_flash_blhd_fwd_tc_shared_bytes(D, nw)),
     )
-    for kind, pattern in (("delta pre-kernel", r"attention_bwd_delta_kernelILi(\d+)ELb0E"),
-                          ("dq rounding post-kernel", r"attention_bwd_dq_round_kernelILb0E")):
-        found = [(re.search(pattern, name), regs, spill) for name, regs, spill in entries]
-        backward += f"; {kind} " + ", ".join(
-            (f"D = {m.group(1)} " if m.groups() else "") + f"{regs} regs {spill} B spilled"
-            for m, regs, spill in found if m)
-    return forward, backward
+    return forward, backward_ptxas_summary("flash_blhd_bwd.cu")
 
 
 def redesign_ptxas_summaries() -> tuple[str, str]:
@@ -1085,7 +1138,7 @@ def profile_step(step) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    kinds, top = collections.Counter(), collections.Counter()
+    kinds, top, ours, calls = collections.Counter(), collections.Counter(), collections.Counter(), collections.Counter()
     launched = 0
     for event in prof.key_averages():
         us = getattr(event, "self_device_time_total", None)
@@ -1104,6 +1157,12 @@ def profile_step(step) -> None:
             kind = "group_stats (ours)"
         elif "conv3x3_kernel" in name or "conv3x3_tc_kernel" in name:
             kind = "conv3x3 (ours)"
+        elif "flash_blhd_fwd_" in name:
+            kind = "flash_blhd forward (ours)"
+        elif "HeadsLayout" in name or "flash_blhd_dq_kernel" in name or "flash_blhd_dkv_kernel" in name:
+            # the backward on (B, L, H D): bf16, the tensor-core kernel
+            # between its delta and dq-rounding kernels; float32, dq, dk/dv
+            kind = "flash_blhd backward (ours)"
         elif "attention_fwd_tc_kernel<" in name or "attention_fwd_kernel<" in name:
             # the attention forward: <D, warpgroups, max-free, bias, dropout>
             # in bf16 (tc), <D, max-free, dropout> in float32
@@ -1113,16 +1172,12 @@ def profile_step(step) -> None:
                 "true": "attention dropout forward (ours)"}.get(dropout, "attention forward (ours)")
         elif "attention_bwd_" in name:
             # the attention backward's kernels (bf16: delta, the tensor-core
-            # kernel, dq's rounding; float32: dq, dk/dv), whose last template
-            # argument is the dropout flag
-            dropout = name.split("_kernel<")[1].split(">")[0].split(", ")[-1] == "true"
+            # kernel, dq's rounding; float32: dq, dk/dv), whose last flag is
+            # the dropout flag
+            dropout = re.findall(r"\b(true|false)\b", name.split("_kernel<")[1])[-1] == "true"
             kind = "attention dropout backward (ours)" if dropout else "attention backward (ours)"
         elif "fused_msa_kernel" in name or "fused_msa_tc_kernel" in name:
             kind = "fused MSA (ours)"
-        elif "flash_blhd_fwd_kernel" in name:
-            kind = "flash_blhd forward (ours)"
-        elif "flash_blhd_dq_kernel" in name or "flash_blhd_dkv_kernel" in name:
-            kind = "flash_blhd backward (ours)"
         elif "multi_tensor_apply" in name:
             kind = "optimizer (AdamW, foreach)"
         elif "conv" in name.lower() or "fprop" in name or "implicit" in name or "nhwc" in name.lower():
@@ -1134,6 +1189,9 @@ def profile_step(step) -> None:
         else:
             kind = "other (norms, elementwise, reductions)"
         kinds[kind] += us / 1e3
+        if kind.endswith("(ours)"):
+            ours[name] += us / 1e3
+            calls[name] += event.count
 
     busy = sum(kinds.values())
     if not busy:
@@ -1144,14 +1202,20 @@ def profile_step(step) -> None:
         f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {launched} kernels; {parts}")
     for name, ms in top.most_common(12):
         log(f"  {ms:9.3f} ms  {name[:150]}")
+    # every kernel of ours by name, the launches of a multi-kernel entry apart
+    for name, ms in ours.most_common():
+        log(f"  ours: {ms:9.3f} ms in {calls[name]} launches  {name[:150]}")
 
 
 def check_flash_blhd(generator) -> dict:
     r"""The `_flash_blhd` forward and backward kernels against their plain
     versions at the dit32 training shape (timed in bf16, with SDPA on the
     (B, H, L, D) views of the same tensors as the library yardstick) and at a
-    ragged L and the other head dims, in bf16 and float32. The plain
-    backward takes the kernel's own o, as autograd hands it the forward's."""
+    ragged L and the other head dims, in bf16 and float32; each bf16 call
+    also against its own rounding points (`_flash_blhd_tiled_plain` at
+    `TOL_TC`, `_flash_blhd_bwd_tiled_plain` at `TOL_BWD_TC`). The plain
+    backward takes the kernel's own o and log-sum-exp, as autograd hands
+    them to it."""
 
     entries = {
         name: new_entry()
@@ -1160,7 +1224,7 @@ def check_flash_blhd(generator) -> dict:
 
     heads = DIT32["attention_heads"]
     main_shape = (DIT_BATCH, 256, heads, DIT32["hid_channels"] // heads)
-    shapes = [main_shape, (4, 200, 2, 64), (2, 256, 2, 128), (2, 160, 2, 192), (2, 512, 1, 256)]
+    shapes = [main_shape, (4, 200, 2, 64), (2, 256, 2, 128), (2, 160, 2, 192), (2, 512, 1, 256), (2, 40, 2, 64)]
 
     for shape in shapes:
         B, L, H, D = shape
@@ -1168,13 +1232,14 @@ def check_flash_blhd(generator) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, g = (torch.randn((B, L, H * D), generator=generator, device="cuda").to(dtype) for _ in range(4))
 
-            o, m, l = attention._flash_blhd_fwd_kernel(q, k, v, H, scale)
-            grads = attention._flash_blhd_bwd_kernel(q, k, v, o, g, m, l, H, scale)
+            o, lse = attention._flash_blhd_fwd_kernel(q, k, v, H, scale)
+            grads = attention._flash_blhd_bwd_kernel(q, k, v, o, g, lse, H, scale)
             want_o = attention._flash_blhd_fwd_plain(q, k, v, H, scale)
             want_grads = attention._flash_blhd_bwd_plain(q, k, v, o, g, H, scale)
 
             errs = {"o": errors(o, want_o)}
             errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
+            del want_grads
             tol = TOL_ATTN[dtype]
             bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
             if bad:
@@ -1183,6 +1248,16 @@ def check_flash_blhd(generator) -> dict:
             line = f"  flash_blhd (B, L, H, D) = {shape} {str(dtype)[6:]}: rel err " + ", ".join(
                 f"{name} {rel:.3e}" for name, (_, rel) in errs.items()
             ) + f" (tol {tol})"
+            if dtype == torch.bfloat16:
+                tiled_o, tiled_lse = attention._flash_blhd_tiled_plain(q, k, v, H, scale)
+                tiled = check_tiled(o, tiled_o, f"flash_blhd_fwd {shape}", lse, tiled_lse)
+                line += f"; o against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
+                del tiled_o, tiled_lse
+                unrounded = attention._flash_blhd_bwd_tiled_plain(q, k, v, o, g, lse, H, scale)
+                rel = check_bwd_tc(grads, unrounded, f"flash_blhd_bwd {shape}")
+                line += "; dq, dk, dv against their rounding points " + ", ".join(
+                    f"{name} {err:.3e}" for name, err in rel.items()) + f" (tol {TOL_BWD_TC})"
+                del unrounded
 
             if shape == main_shape and dtype == torch.bfloat16:
                 count = DIT_TRAIN_CALLS_PER_STEP["flash_blhd_fwd"]
@@ -1190,33 +1265,48 @@ def check_flash_blhd(generator) -> dict:
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                 out = F.scaled_dot_product_attention(*(t.view(B, L, H, D).transpose(1, 2) for t in leaves), scale=scale)
                 g4 = g.view(B, L, H, D).transpose(1, 2)
+                n, elt = q.numel(), q.element_size()
+                ops = {"flash_blhd_fwd": 4 * B * H * L * L * D, "flash_blhd_bwd": 10 * B * H * L * L * D}
 
                 times = {
                     "flash_blhd_fwd": (
                         elapsed_ms(lambda: attention._flash_blhd_fwd_kernel(q, k, v, H, scale)),
                         elapsed_ms(lambda: attention._flash_blhd_fwd_plain(q, k, v, H, scale)),
                         elapsed_ms(lambda: F.scaled_dot_product_attention(*views, scale=scale)),
-                        # the JAX cost estimate: q, k, v read and o written once
-                        bound_ms(4 * B * L * H * D * q.element_size(), 4 * B * H * L * L * D, dtype),
+                        # q, k, v read and o and the float32 lse written once
+                        bound_ms(4 * n * elt + lse.numel() * 4, ops["flash_blhd_fwd"], dtype),
                         errs["o"],
                     ),
                     "flash_blhd_bwd": (
-                        elapsed_ms(lambda: attention._flash_blhd_bwd_kernel(q, k, v, o, g, m, l, H, scale)),
+                        elapsed_ms(lambda: attention._flash_blhd_bwd_kernel(q, k, v, o, g, lse, H, scale)),
                         elapsed_ms(lambda: attention._flash_blhd_bwd_plain(q, k, v, o, g, H, scale)),
                         elapsed_ms(lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)),
-                        # q, k, v, o, g read and dq, dk, dv written once
-                        bound_ms(8 * B * L * H * D * q.element_size(), 10 * B * H * L * L * D, dtype),
+                        # q, k, v, o, g and the lse read and dq, dk, dv written once
+                        bound_ms(8 * n * elt + lse.numel() * 4, ops["flash_blhd_bwd"], dtype),
                         max((errs[name] for name in ("dq", "dk", "dv")), key=lambda e: e[1]),
                     ),
                 }
                 for name, (ms, plain, library, (bound, by), (abs_err, rel_err)) in times.items():
                     entry = entries[name]
-                    add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err)
-                    line += (f"\n    {name}: {ms:.4f} ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, "
-                             f"bound {bound:.4f} ms ({by})")
+                    add_timing(entry, count, ms, plain, library, bound, by, abs_err, rel_err, ops[name])
+                    line += (f"\n    {name}: {ms:.4f} ms ({speed(ops[name], ms, bound)}), plain {plain:.4f} ms, "
+                             f"SDPA {library:.4f} ms, bound {bound:.4f} ms ({by})")
+                # device times, the host's gaps left out: the forward, the
+                # backward's three launches, SDPA's kernels
+                line += (
+                    f"\n    device time: flash_blhd_fwd "
+                    f"{device_ms(lambda: attention._flash_blhd_fwd_kernel(q, k, v, H, scale)):.4f} ms"
+                )
+                line += (
+                    f", flash_blhd_bwd {device_ms(lambda: attention._flash_blhd_bwd_kernel(q, k, v, o, g, lse, H, scale)):.4f}"
+                    f" ms; SDPA forward {device_ms(lambda: F.scaled_dot_product_attention(*views, scale=scale)):.4f} ms, "
+                    f"backward {device_ms(lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)):.4f} ms"
+                )
                 del out, leaves
 
             log(line)
+            del q, k, v, g, o, lse, grads, want_o
+        torch.cuda.empty_cache()
 
     return entries
 
@@ -2466,8 +2556,11 @@ def main() -> None:
     msa_ptxas, conv_ptxas = redesign_ptxas_summaries()
     log(f"ptxas -v of the bf16 tensor-core fused MSA: {msa_ptxas}")
     log(f"ptxas -v of the bf16 tensor-core conv3x3: {conv_ptxas}")
-    if not msa_ptxas or not conv_ptxas:
-        raise AssertionError("ptxas reported no tensor-core fused MSA or conv3x3 kernel")
+    flash_forward, flash_backward = flash_ptxas_summaries()
+    log(f"ptxas -v of the bf16 tensor-core flash_blhd forward: {flash_forward}")
+    log(f"ptxas -v of the bf16 tensor-core flash_blhd backward: {flash_backward}")
+    if not all((forward, backward, msa_ptxas, conv_ptxas, flash_forward, flash_backward)):
+        raise AssertionError("ptxas reported no tensor-core attention, fused MSA, conv3x3 or flash_blhd kernel")
 
     log("== 3. kernels against their plain versions at the main path's shapes")
     generator = torch.Generator(device="cuda").manual_seed(0)
