@@ -14,275 +14,306 @@
 // Bound on the H100: memory. About ten float32 operations per element meet
 // 2-4 bytes of traffic, far below the ~20 operations per byte where float32
 // compute would limit. The least traffic is one read of x and one write of
-// y; the shifted statistics need x read twice (2R + 1W), as on the TPU.
+// y (1R + 1W).
 //
-// Design: the TPU kernel carried its sums along a sequential grid. Blocks on
-// the card run in no order, so the work is split into three launches:
-//   1. partial: grid (row tiles, B); threads run along C with 16-byte vector
-//      loads, so a warp reads whole rows. Each block writes float32 sums of
-//      d = x - K and d^2 for its rows, per channel, to (B, tiles, 2, C).
-//      One shift per (b, c) makes the block partials simply add.
-//   2. fold: grid (G, B); each block sums its group's partials over tiles,
-//      forms mean and var, and writes A and the mean per channel (B, 2, C).
-//   3. apply: y = silu?((x - mean) * A + Q) over the same tiles as launch 1.
-// The partials are small (a tile covers at least 32 KiB of x).
-#include "common.cuh"
+// Design: one launch of thread-block clusters (group_stats.cuh). The N
+// blocks of a cluster take one (batch row, band of whole groups) and split
+// its rows. Each block sums d = x - K and d^2 per channel over its rows,
+// copying them into shared memory by cp.async and keeping as many as its
+// shared memory holds; the cluster folds the blocks' sums over distributed
+// shared memory into the band's group statistics, every block the same
+// bits; then each block writes y for its own rows, the kept ones from
+// shared memory, the others streamed in again (last read first, under an
+// L2 policy that keeps them, while y is stored under one that drops it).
+// Where a block's rows all fit, x is read from device memory exactly once.
+// The TPU kernel carried its sums along a sequential grid; the first port
+// split that into three launches with partials in device memory, which
+// this design has none of.
+#include "group_stats.cuh"
 
 namespace {
 
+using namespace azula::gstats;
+using azula::Pack;
 using azula::load;
-using azula::store;
-using azula::to_float;
 
-constexpr int kThreads = 256;
+// group_norm's moments of one channel: the sums of d and d^2
+struct Sums {
+  float s1, s2;
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-gn_partial_kernel(const T* __restrict__ x, float* __restrict__ partial, int HW, int C, int rows) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int nv = C / VEC;                    // vectors per row
-  const int nvx = min(nv, kThreads);         // threads along C
-  const int TY = kThreads / nvx;             // threads along rows
-  const int tx = threadIdx.x % nvx;
-  const int ty = threadIdx.x / nvx;
-  const int r0 = j * rows;
-  const int r1 = min(r0 + rows, HW);
-
-  const T* xb = x + static_cast<size_t>(b) * HW * C;
-  float* s1 = partial + (static_cast<size_t>(b) * nblk + j) * 2 * C;
-  float* s2 = s1 + C;
-
-  if (TY == 1) {
-    // wide rows: each thread walks its vectors of C over every row of the tile
-    if (ty > 0) return;
-    for (int cv = tx; cv < nv; cv += nvx) {
-      float k[VEC], a1[VEC] = {}, a2[VEC] = {};
-      load<T, VEC>(xb + cv * VEC, k);
-#pragma unroll 4
-      for (int r = r0; r < r1; ++r) {
-        float v[VEC];
-        load<T, VEC>(xb + static_cast<size_t>(r) * C + cv * VEC, v);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float d = v[i] - k[i];
-          a1[i] += d;
-          a2[i] += d * d;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        s1[cv * VEC + i] = a1[i];
-        s2[cv * VEC + i] = a2[i];
-      }
-    }
-    return;
+  __device__ __forceinline__ void add(const Sums& o) {
+    s1 += o.s1;
+    s2 += o.s2;
   }
 
-  // narrow rows: TY threads share a vector of C, then sum through shared memory
-  // (TY * C = TY * nv * VEC <= kThreads * 8 floats for each of the two sums)
-  __shared__ float sm[2 * kThreads * 8];
-  const bool active = ty < TY;
-  float a1[VEC] = {}, a2[VEC] = {};
-
-  if (active) {
-    float k[VEC];
-    load<T, VEC>(xb + tx * VEC, k);
-#pragma unroll 4
-    for (int r = r0 + ty; r < r1; r += TY) {
-      float v[VEC];
-      load<T, VEC>(xb + static_cast<size_t>(r) * C + tx * VEC, v);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float d = v[i] - k[i];
-        a1[i] += d;
-        a2[i] += d * d;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      sm[ty * C + tx * VEC + i] = a1[i];
-      sm[(TY + ty) * C + tx * VEC + i] = a2[i];
-    }
+  __device__ __forceinline__ Sums shfl_xor(int m) const {
+    return {__shfl_xor_sync(0xffffffffu, s1, m), __shfl_xor_sync(0xffffffffu, s2, m)};
   }
-  __syncthreads();
+};
 
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int y = 0; y < TY; ++y) {
-      t1 += sm[y * C + c];
-      t2 += sm[(TY + y) * C + c];
-    }
-    s1[c] = t1;
-    s2[c] = t2;
-  }
-}
-
+// dynamic shared memory: the resident rows, the scratch, the published
+// sums, the pilot row
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_fold_kernel(const T* __restrict__ x, const float* __restrict__ partial, const float* __restrict__ P,
-               float* __restrict__ ab, int HW, int C, int G, int nblk, float eps) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int cpg = C / G;                     // channels per group, <= kThreads
-  const int TY = kThreads / cpg;
-  const int tx = threadIdx.x % cpg;
-  const int ty = threadIdx.x / cpg;
-  const int c = g * cpg + tx;
-
-  __shared__ float r1[kThreads], r2[kThreads];
-  __shared__ float k_s[kThreads], t1_s[kThreads], t2_s[kThreads];
-  __shared__ float mean_s, inv_s;
-
-  float t1 = 0.f, t2 = 0.f;
-  if (ty < TY) {
-    for (int j = ty; j < nblk; j += TY) {
-      const float* row = partial + (static_cast<size_t>(b) * nblk + j) * 2 * C;
-      t1 += row[c];
-      t2 += row[C + c];
-    }
-  }
-  r1[threadIdx.x] = t1;
-  r2[threadIdx.x] = t2;
-  __syncthreads();
-
-  if (threadIdx.x < cpg) {
-    float a = 0.f, s = 0.f;
-    for (int y = 0; y < TY; ++y) {
-      a += r1[y * cpg + threadIdx.x];
-      s += r2[y * cpg + threadIdx.x];
-    }
-    t1_s[threadIdx.x] = a;
-    t2_s[threadIdx.x] = s;
-    k_s[threadIdx.x] = to_float(x[static_cast<size_t>(b) * HW * C + c]);
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    // _stats_pilot's recombination, taken about the group's first pilot so
-    // that every sum is O(n * std) and the mean is rounded once, at the end
-    const float hw = static_cast<float>(HW);
-    const float n = hw * static_cast<float>(cpg);
-    const float kref = k_s[0];
-    float sum = 0.f;
-    for (int i = 0; i < cpg; ++i) sum += t1_s[i] + hw * (k_s[i] - kref);
-    const float dm = sum / n;  // mean - kref
-    const float mean = kref + dm;
-
-    float v2 = 0.f, v1 = 0.f, v0 = 0.f;
-    for (int i = 0; i < cpg; ++i) {
-      const float e = (k_s[i] - kref) - dm;  // K_c - mean
-      v2 += t2_s[i];
-      v1 += e * t1_s[i];
-      v0 += e * e;
-    }
-    const float var = fmaxf((v2 + 2.f * v1 + hw * v0) / n, 0.f);
-
-    mean_s = mean;
-    inv_s = 1.f / sqrtf(var + eps);
-  }
-  __syncthreads();
-
-  if (threadIdx.x < cpg) {
-    ab[static_cast<size_t>(b) * 2 * C + c] = inv_s * P[static_cast<size_t>(b) * C + c];
-    ab[(static_cast<size_t>(b) * 2 + 1) * C + c] = mean_s;
-  }
+int shared_bytes(int Cb, int resident, int vec) {
+  return align16(resident * Cb * static_cast<int>(sizeof(T))) + scratch_bytes<Sums>(Cb, vec, 7) +
+         align16(Cb * static_cast<int>(sizeof(Sums))) + align16(Cb * 4);
 }
 
 template <typename T, int VEC, bool SILU>
-__global__ void __launch_bounds__(kThreads)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ ab, const float* __restrict__ Q,
-                T* __restrict__ y, int HW, int C, int rows) {
-  // the partial kernel's tiling: each thread keeps its channels' A, mean and
-  // Q in registers and walks the rows of its tile
-  const int b = blockIdx.y;
-  const int nv = C / VEC;
-  const int nvx = min(nv, kThreads);
-  const int TY = kThreads / nvx;
-  const int tx = threadIdx.x % nvx;
-  const int ty = threadIdx.x / nvx;
-  const int r0 = blockIdx.x * rows;
-  const int r1 = min(r0 + rows, HW);
-  if (ty >= TY) return;
+__global__ void __launch_bounds__(kThreads, 2)
+group_norm_kernel(const T* __restrict__ x, const float* __restrict__ P, const float* __restrict__ Q, T* __restrict__ y,
+                  int HW, int C, int G, int Cb, int N, int rows, int resident, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Unit u(Cb, N, rows, HW, static_cast<int>(cluster.block_rank()));
+  const Lanes<VEC> L(Cb);
+  // cp.async moves 4, 8 or 16 bytes: a band of odd bf16 channels goes
+  // through registers, twice, and keeps nothing
+  constexpr bool kAsync = VEC * sizeof(T) >= 4;
+  // the rows kept in shared memory: all the block's where they fit; else two
+  // slots of H rows (a multiple of TY), through which the others stream
+  int Rs = kAsync ? min(resident, u.nrows) : 0;
+  int H = Rs;
+  if (Rs < u.nrows) {
+    H = Rs / 2 - Rs / 2 % L.TY;
+    Rs = 2 * H;
+  }
+  const int ns = Rs < u.nrows && kAsync ? (u.nrows - Rs + H - 1) / H : 0;  // chunks streamed
+  auto streamed = [&](int j) { return make_int2(Rs + j * H, min(Rs + (j + 1) * H, u.nrows)); };
 
-  const size_t base = static_cast<size_t>(b) * HW * C;
+  T* stage = reinterpret_cast<T*>(smem);
+  Sums* red = reinterpret_cast<Sums*>(smem + align16(resident * Cb * static_cast<int>(sizeof(T))));
+  Sums* pub = reinterpret_cast<Sums*>(reinterpret_cast<unsigned char*>(red) + scratch_bytes<Sums>(Cb, VEC, 7));
+  float* kp =  // the pilot row of the band
+      reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(pub) + align16(Cb * static_cast<int>(sizeof(Sums))));
 
-  for (int cv = tx; cv < nv; cv += nvx) {
-    float A[VEC], M[VEC], Qc[VEC];
-    load<float, VEC>(ab + static_cast<size_t>(b) * 2 * C + cv * VEC, A);
-    load<float, VEC>(ab + (static_cast<size_t>(b) * 2 + 1) * C + cv * VEC, M);
-    load<float, VEC>(Q + static_cast<size_t>(b) * C + cv * VEC, Qc);
+  const size_t row0 = static_cast<size_t>(u.b) * HW * C + u.c0;  // the pilot row of the band
+  const T* xc = x + row0 + static_cast<size_t>(u.r0) * C + L.cv * VEC;
+  T* yc = y + row0 + static_cast<size_t>(u.r0) * C + L.cv * VEC;
+  T* sv = stage + L.cv * VEC;
 
-#pragma unroll 4
-    for (int r = r0 + ty; r < r1; r += TY) {
-      const size_t off = base + static_cast<size_t>(r) * C + cv * VEC;
-      float v[VEC];
-      load<T, VEC>(x + off, v);
+  // 1. the block's sums of d = x - K per channel: the rows past Rs streamed
+  // through the stage, then rows [0, Rs) copied in and kept (where all the
+  // block's rows fit, one chunk)
+  Sums acc[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        float t = (v[k] - M[k]) * A[k] + Qc[k];
-        if (SILU) t = t * (1.f / (1.f + expf(-t)));
-        v[k] = t;
+  for (int i = 0; i < VEC; ++i) acc[i] = {0.f, 0.f};
+  if (L.active) {
+    float k[VEC];
+    load<T, VEC>(x + row0 + L.cv * VEC, k);
+    if (L.ty == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) kp[L.cv * VEC + i] = k[i];
+    }
+    auto sum = [&](int, const Pack<T, VEC>& pk) {
+      float v[VEC];
+      unpack<T, VEC>(pk, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = v[i] - k[i];
+        acc[i].s1 += d;
+        acc[i].s2 += d * d;
       }
-      store<T, VEC>(y + off, v);
+    };
+    if constexpr (kAsync) {
+      // the streamed chunks, then the kept ones, which land in slots 0, 1
+      // (the streamed rows are read again after the fold: L2 keeps them)
+      const uint64_t keep = l2_keep(), drop = l2_drop();
+      stream_chunks<T, VEC>(
+          xc, C, sv, Cb, L.ty, L.TY, H, ns + (ns ? 2 : 1), 0, ns & 1,
+          [&](int i) { return i < ns ? streamed(i) : make_int2((i - ns) * H, (i - ns + 1) * H); },
+          [&](int i) { return i < ns ? keep : drop; }, sum);
+    } else {
+      for_rows<T, VEC>(xc, C, L.ty, u.nrows, L.TY, sum);
     }
   }
+  block_combine<Sums, VEC>(L, acc, red, pub, Cb);
+  cluster.sync();
+
+  // 2. the cluster's sums per channel, in rank order, then the group fold
+  // (_stats_pilot's recombination about the group's first pilot, so that
+  // every sum is O(n * std) and the mean is rounded once, at the end)
+  float* t1 = reinterpret_cast<float*>(red);  // t1, t2, A, M, Q per channel; per group mean, 1/std
+  float* t2 = t1 + Cb;
+  float* A = t2 + Cb;
+  float* M = A + Cb;
+  float* Qc = M + Cb;
+  float* g_mean = Qc + Cb;
+  float* g_inv = g_mean + Cb;
+  for (int c = threadIdx.x; c < Cb; c += kThreads) {
+    const Sums t = cluster_fold(cluster, pub, c, N);
+    t1[c] = t.s1;
+    t2[c] = t.s2;
+  }
+  cluster_arrive();
+  __syncthreads();
+
+  const int cpg = C / G;
+  const float hw = static_cast<float>(HW);
+  const float n = hw * static_cast<float>(cpg);
+  const int lane = threadIdx.x % 32;
+  for (int g = threadIdx.x / 32; g < Cb / cpg; g += kWarps) {
+    const int c0 = g * cpg;
+    const float kref = kp[c0];
+    float s = 0.f;
+    for (int i = lane; i < cpg; i += 32) s += t1[c0 + i] + hw * (kp[c0 + i] - kref);
+    const float dm = warp_sum(s) / n;  // mean - kref
+
+    float v2 = 0.f, v1 = 0.f, v0 = 0.f;
+    for (int i = lane; i < cpg; i += 32) {
+      const float e = (kp[c0 + i] - kref) - dm;  // K_c - mean
+      v2 += t2[c0 + i];
+      v1 += e * t1[c0 + i];
+      v0 += e * e;
+    }
+    const float var = fmaxf((warp_sum(v2) + 2.f * warp_sum(v1) + hw * warp_sum(v0)) / n, 0.f);
+    if (lane == 0) {
+      g_mean[g] = kref + dm;
+      g_inv[g] = 1.f / sqrtf(var + eps);
+    }
+  }
+  __syncthreads();
+
+  const size_t pq = static_cast<size_t>(u.b) * C + u.c0;
+  for (int c = threadIdx.x; c < Cb; c += kThreads) {
+    A[c] = g_inv[c / cpg] * P[pq + c];
+    M[c] = g_mean[c / cpg];
+    Qc[c] = Q[pq + c];
+  }
+  __syncthreads();
+
+  // 3. y = silu?((x - M) A + Q) over the block's rows: the resident ones
+  // from shared memory, then the others streamed again
+  if (L.active) {
+    float a[VEC], m[VEC], q[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      a[i] = A[L.cv * VEC + i];
+      m[i] = M[L.cv * VEC + i];
+      q[i] = Qc[L.cv * VEC + i];
+    }
+    const uint64_t drop = l2_drop();
+    auto apply = [&](int l, const Pack<T, VEC>& pk) {
+      float v[VEC];
+      unpack<T, VEC>(pk, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float t = (v[i] - m[i]) * a[i] + q[i];
+        if (SILU) t = __fdividef(t, 1.f + __expf(-t));
+        v[i] = t;
+      }
+      store_hint<T, VEC>(yc + static_cast<size_t>(l) * C, v, drop);
+    };
+    if constexpr (kAsync) {
+      // the kept chunks, then the others streamed into the slots they free,
+      // the last read first (L2 holds the latest best)
+      const int kept = ns ? 2 : 1;
+      stream_chunks<T, VEC>(
+          xc, C, sv, Cb, L.ty, L.TY, H, kept + ns, kept, 0,
+          [&](int i) { return i < kept ? make_int2(i * H, (i + 1) * H) : streamed(ns - 1 - (i - kept)); },
+          [&](int) { return drop; }, apply);
+    } else {
+      for_rows<T, VEC>(xc, C, L.ty, u.nrows, L.TY, apply);
+    }
+  }
+  cluster_wait();
 }
 
 template <typename T, int VEC>
-cudaError_t launch(const void* x, const void* P, const void* Q, void* y, void* partial, void* ab,
-                   int B, int HW, int C, int G, int rows, float eps, bool silu, cudaStream_t s) {
+cudaError_t launch(const void* x, const void* P, const void* Q, void* y, int B, int HW, int C, int G, int Cb, int N,
+                   int rows, int resident, float eps, bool silu, cudaStream_t s) {
+  const int smem = shared_bytes<T>(Cb, resident, VEC);
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
-  const int nblk = (HW + rows - 1) / rows;
-
-  gn_partial_kernel<T, VEC><<<dim3(nblk, B), kThreads, 0, s>>>(
-      xt, static_cast<float*>(partial), HW, C, rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  gn_fold_kernel<T><<<dim3(G, B), kThreads, 0, s>>>(
-      xt, static_cast<const float*>(partial), static_cast<const float*>(P),
-      static_cast<float*>(ab), HW, C, G, nblk, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  const float* abf = static_cast<const float*>(ab);
+  const float* Pf = static_cast<const float*>(P);
   const float* Qf = static_cast<const float*>(Q);
   T* yt = static_cast<T*>(y);
   if (silu) {
-    gn_apply_kernel<T, VEC, true><<<dim3(nblk, B), kThreads, 0, s>>>(xt, abf, Qf, yt, HW, C, rows);
-  } else {
-    gn_apply_kernel<T, VEC, false><<<dim3(nblk, B), kThreads, 0, s>>>(xt, abf, Qf, yt, HW, C, rows);
+    return launch_clusters(group_norm_kernel<T, VEC, true>, C / Cb, N, B, smem, s, xt, Pf, Qf, yt, HW, C, G, Cb, N,
+                           rows, resident, eps);
   }
-  return cudaGetLastError();
+  return launch_clusters(group_norm_kernel<T, VEC, false>, C / Cb, N, B, smem, s, xt, Pf, Qf, yt, HW, C, G, Cb, N,
+                         rows, resident, eps);
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* P, const void* Q, void* y, void* partial, void* ab,
-                     int B, int HW, int C, int G, int rows, float eps, bool silu, cudaStream_t s) {
-  // widest vector of at most 16 bytes that divides C
-  constexpr int kMax = 16 / sizeof(T);
-  if (C % kMax == 0) return launch<T, kMax>(x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, s);
-  if (C % 4 == 0) return launch<T, 4>(x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, s);
-  if (C % 2 == 0) return launch<T, 2>(x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, s);
-  return launch<T, 1>(x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, s);
+cudaError_t dispatch(const void* x, const void* P, const void* Q, void* y, int B, int HW, int C, int G, int Cb, int N,
+                     int rows, int resident, float eps, bool silu, cudaStream_t s) {
+  switch (vector_of<T>(Cb)) {
+    case 8:
+      return launch<T, 16 / sizeof(T)>(x, P, Q, y, B, HW, C, G, Cb, N, rows, resident, eps, silu, s);
+    case 4:
+      return launch<T, 4>(x, P, Q, y, B, HW, C, G, Cb, N, rows, resident, eps, silu, s);
+    case 2:
+      return launch<T, 2>(x, P, Q, y, B, HW, C, G, Cb, N, rows, resident, eps, silu, s);
+    default:
+      return launch<T, 1>(x, P, Q, y, B, HW, C, G, Cb, N, rows, resident, eps, silu, s);
+  }
 }
 
 }  // namespace
 
-// x, y: (B, HW, C) contiguous, dtype 0 = float32, 1 = bfloat16. P, Q: (B, C)
-// float32. partial: (B, ceil(HW / rows), 2, C) float32 scratch; ab: (B, 2, C)
-// float32 scratch. C % G == 0 and C / G <= 256. Returns cudaGetLastError().
-extern "C" int azula_group_norm(const void* x, const void* P, const void* Q, void* y,
-                                void* partial, void* ab, int B, int HW, int C, int G, int rows,
-                                float eps, int silu, int dtype, void* stream) {
+// x, y: (B, HW, C) contiguous, dtype 0 = float32, 1 = bfloat16, 16-byte
+// aligned. P, Q: (B, C) float32. The plan: bands of `band` channels (whole
+// groups), clusters of `cluster` blocks of `rows` rows each, the first
+// `resident` rows of a block kept in shared memory. C % G == 0 and
+// C / G <= 256. Returns the launch's CUDA error.
+extern "C" int azula_group_norm(const void* x, const void* P, const void* Q, void* y, int B, int HW, int C, int G,
+                                int band, int cluster, int rows, int resident, float eps, int silu, int dtype,
+                                void* stream) {
+  if (!valid_plan(B, HW, C, G, band, cluster, rows) || resident > rows) return cudaErrorInvalidValue;
+  const int vec = dtype == azula::kBFloat16 ? vector_of<__nv_bfloat16>(band) : vector_of<float>(band);
+  const int ty_rows = 2 * kThreads / lanes_of(band, vec);  // rows of two passes of a block's threads
+  if (resident < (rows < ty_rows ? rows : ty_rows)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == azula::kBFloat16) {
-    return dispatch<__nv_bfloat16>(x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu != 0, s);
+    return dispatch<__nv_bfloat16>(x, P, Q, y, B, HW, C, G, band, cluster, rows, resident, eps, silu != 0, s);
   }
   if (dtype == azula::kFloat32) {
-    return dispatch<float>(x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu != 0, s);
+    return dispatch<float>(x, P, Q, y, B, HW, C, G, band, cluster, rows, resident, eps, silu != 0, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of a block of azula_group_norm with a band of
+// `band` channels and `resident` rows, as the planner computes it.
+extern "C" int azula_group_norm_shared_bytes(int band, int resident, int dtype) {
+  if (dtype == azula::kBFloat16) return shared_bytes<__nv_bfloat16>(band, resident, vector_of<__nv_bfloat16>(band));
+  return shared_bytes<float>(band, resident, vector_of<float>(band));
+}
+
+// How many clusters of a plan the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int azula_group_norm_active_clusters(int band, int cluster, int resident, int silu, int dtype) {
+  auto query = [&](auto kernel, int smem) -> int {
+    cudaError_t e = ensure_attributes(reinterpret_cast<const void*>(kernel), smem, cluster > 8);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int count = 0;
+    e = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+    return e == cudaSuccess ? count : -static_cast<int>(e);
+  };
+  if (dtype == azula::kBFloat16) {
+    using T = __nv_bfloat16;
+    const int vec = vector_of<T>(band);
+    const int smem = shared_bytes<T>(band, resident, vec);
+    // the bf16 form with the band's vector; registers differ little between forms
+    if (vec == 8) {
+      return silu ? query(group_norm_kernel<T, 8, true>, smem) : query(group_norm_kernel<T, 8, false>, smem);
+    }
+    return silu ? query(group_norm_kernel<T, 1, true>, smem) : query(group_norm_kernel<T, 1, false>, smem);
+  }
+  using T = float;
+  const int smem = shared_bytes<T>(band, resident, vector_of<T>(band));
+  return silu ? query(group_norm_kernel<T, 4, true>, smem) : query(group_norm_kernel<T, 4, false>, smem);
 }

@@ -70,10 +70,14 @@ _lib: ctypes.CDLL | None = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 _SIGNATURES = {
-    # x, P, Q, y, partial, ab, B, HW, C, G, rows, eps, silu, dtype, stream
-    "azula_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # x, partial, out, B, HW, C, G, rows, dtype, stream
-    "azula_group_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, P, Q, y, B, HW, C, G, band, cluster, rows, resident, eps, silu, dtype, stream
+    "azula_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # band, resident, dtype: a GroupNorm block's dynamic shared memory
+    "azula_group_norm_shared_bytes": [_I, _I, _I],
+    # band, cluster, resident, silu, dtype: clusters the card holds at once
+    "azula_group_norm_active_clusters": [_I, _I, _I, _I, _I],
+    # x, out, B, HW, C, G, band, cluster, rows, stage, dtype, stream
+    "azula_group_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, B, H, W, C, K, dtype, stream
     "azula_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # C, K, dtype: 1 where a call takes the tensor-core form
@@ -187,6 +191,9 @@ def library() -> ctypes.CDLL:
 
     global _lib
 
+    if _lib is not None:  # loaded: no lock on the launch path
+        return _lib
+
     with _lock:
         if _lib is None:
             out = _library_path()
@@ -215,9 +222,11 @@ def check(status: int, name: str) -> None:
 
 
 def stream(device: torch.device) -> int:
-    r"""The handle of PyTorch's current CUDA stream on `device`."""
+    r"""The handle of PyTorch's current CUDA stream on `device`, read without
+    building a `torch.cuda.Stream` (a call on ADM's small GroupNorms spends
+    most of its time on the host)."""
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 class _ForwardOnly(torch.autograd.Function):
@@ -243,12 +252,18 @@ class _ForwardOnly(torch.autograd.Function):
 def forward_only(name: str, todo: str):
     r"""Decorates a kernel wrapper, called with positional arguments only, so
     that a backward through its output raises `NotImplementedError` naming
-    the ROADMAP item `todo`, instead of dropping its inputs' gradients."""
+    the ROADMAP item `todo`, instead of dropping its inputs' gradients.
+
+    Where autograd records nothing (grad disabled, or no input that requires
+    it), the wrapper launches directly: the node would only cost the host
+    its `apply`, and no backward can reach the output."""
 
     def decorator(launch):
         @functools.wraps(launch)
         def wrapper(*args):
-            return _ForwardOnly.apply(name, todo, launch, *args)
+            if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+                return _ForwardOnly.apply(name, todo, launch, *args)
+            return launch(*args)
 
         return wrapper
 

@@ -15,9 +15,12 @@ stay exact when :math:`|\mu| \gg \sigma`; the raw
 
 Two versions compute it: the hand-written CUDA kernel
 (`csrc/group_norm.cu`) for tensors on the card, and a plain PyTorch version
-for tensors on the CPU. The backward is JAX's `_gn_fused_bwd` in plain
-PyTorch, with the statistics that the forward saves from
-:func:`group_stats`.
+for tensors on the CPU, at the kernel's rounding points. The kernel and the
+statistics kernel are one launch each of thread-block clusters, cut by the
+pure Python planner `_gn_plan` (bands of whole groups, clusters, the rows a
+block keeps in shared memory), which the CPU tests hold. The backward is
+JAX's `_gn_fused_bwd` in plain PyTorch, with the statistics that the
+forward saves from :func:`group_stats`.
 
 :func:`group_stats` gives per-(batch, group) float32 (mean, variance). Its
 implementations are JAX's (`twopass`, `pilot`, `guarded`, `raw`, `lazy`),
@@ -40,11 +43,13 @@ __all__ = [
     "stats_kernel_eligible",
 ]
 
+import functools
 import math
 import torch
 
 from torch import Tensor
 from torch.autograd.function import once_differentiable
+from typing import NamedTuple
 
 from . import _build
 
@@ -90,20 +95,26 @@ def _compose_affine(
 
 
 def _group_norm_plain(
-    x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool
+    x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool, rows: int | None = None
 ) -> Tensor:
-    r"""Plain PyTorch version: the pilot-shifted statistics of `_stats_pilot`
-    and the elementwise pass of `_gn_fused_xla` (azula_tpu/ops/norm.py), in
-    float32 throughout."""
+    r"""Plain PyTorch version, with the kernel's rounding points: the
+    pilot-shifted sums of `_stats_pilot`, taken per block of `rows` rows
+    (the planner's, by default) and added in block order, as a cluster folds
+    them; then the fold about each group's first pilot and the elementwise
+    pass of `_gn_fused_xla` (azula_tpu/ops/norm.py), in float32 throughout."""
 
     B, HW, C = x.shape
     n = HW * (C // groups)
+    if rows is None:
+        rows = _gn_plan(B, HW, C, groups, x.element_size()).rows
 
     xf = x.float()
     shift = xf[:, :1, :]  # (B, 1, C) pilot per channel
-    d = xf - shift
-    t1 = d.sum(dim=1).reshape(B, groups, -1)
-    t2 = d.square().sum(dim=1).reshape(B, groups, -1)
+    t1 = t2 = 0.0
+    for d in torch.split(xf - shift, rows, dim=1):
+        t1 = t1 + d.sum(dim=1)
+        t2 = t2 + d.square().sum(dim=1)
+    t1, t2 = t1.reshape(B, groups, -1), t2.reshape(B, groups, -1)
     K = shift.reshape(B, groups, -1)
 
     # the fold is taken about each group's first pilot, so that every sum is
@@ -132,26 +143,128 @@ def _group_norm_plain(
     return y.to(x.dtype)
 
 
-def _rows_per_block(B: int, HW: int, C: int, itemsize: int, min_bytes: int = 32768) -> int:
-    r"""Rows of x summed by one block of the statistics launch: at least
-    `min_bytes` of x (and a whole pass of the block's row threads), with
-    about eight blocks per SM of the card over the batch."""
+# The kernels' launch (csrc/group_stats.cuh): blocks of 512 threads, clusters
+# of at most 16 blocks (above 8, the non-portable sizes), bands of at most
+# 512 channels; and the planner's aims, from timings on the H100
+# (chip_smoke.py's phase 3, which holds the plan against its neighbours)
+_THREADS = 512
+_WARPS = _THREADS // 32
+_MAX_CLUSTER = 16
+_MAX_BAND = 512
+_MAX_SHARED = 232448  # bytes of shared memory a block can take (227 KB)
+_WAVE = 128  # blocks that keep the card's 132 SMs busy
+_BAND_BYTES = 128  # the band row: at least whole 128-byte lines of x
+_NARROW_BAND_BYTES = 64  # ... or half of one, where that alone fills a wave
+_WIDE_BAND_BYTES = 512  # ... or the whole row up to this, where the batch alone fills a wave
+_BLOCK_BYTES = 384 * 1024  # a block's share of x
+_SPLIT_BYTES = 96 * 1024  # a unit above this takes two blocks, which share an SM
+_STAGE_BYTES = 64 * 1024  # the statistics kernel's stage
+_MIN_ROWS = 64  # no block of fewer rows, unless the unit has fewer
 
-    vec = 16 // itemsize
-    while C % vec:
-        vec //= 2
-    threads_per_row = min(C // vec, 256)
-    min_rows = max(256 // threads_per_row, math.ceil(min_bytes / (C * itemsize)))
-    nblk = max(1, min(math.ceil(HW / min_rows), math.ceil(1056 / B)))
 
-    return math.ceil(HW / nblk)
+class _GNPlan(NamedTuple):
+    r"""How the GroupNorm and statistics kernels cut x (B, HW, C): bands of
+    `band` channels (whole groups), each (batch row, band) a cluster of
+    `cluster` blocks of `rows` rows; a GroupNorm block keeps `resident` of
+    its rows in shared memory (`smem` bytes in all), and a statistics block
+    streams its rows through a stage of `stage` rows."""
+
+    band: int
+    cluster: int
+    rows: int
+    resident: int
+    stage: int
+    smem: int
+
+
+def _vector(band: int, itemsize: int) -> int:
+    r"""The kernels' vector: the widest of at most 16 bytes dividing the band."""
+
+    return next(v for v in (16 // itemsize, 4, 2, 1) if band % v == 0)
+
+
+def _row_threads(band: int, itemsize: int) -> int:
+    r"""The rows a block's threads take at once: 512 over the band's
+    vectors rounded up to a power of two."""
+
+    return _THREADS // (1 << (math.ceil(band / _vector(band, itemsize)) - 1).bit_length())
+
+
+def _shared_bytes(band: int, resident: int, itemsize: int) -> int:
+    r"""A GroupNorm block's dynamic shared memory, as `csrc/group_norm.cu`
+    computes it: the resident rows, the scratch, the published sums, the
+    pilot row."""
+
+    def align16(n):
+        return -(-n // 16) * 16
+
+    ty = _row_threads(band, itemsize)
+    rows = _WARPS if _THREADS // ty < 32 else ty
+    scratch = align16(max(rows * band * 8, 7 * band * 4))
+    return align16(resident * band * itemsize) + scratch + align16(band * 8) + align16(band * 4)
+
+
+def _plan(HW: int, band: int, cluster: int, itemsize: int) -> _GNPlan:
+    r"""The plan of bands of `band` channels on clusters of up to `cluster`
+    blocks, each block keeping as many of its rows as its shared memory
+    holds."""
+
+    row_bytes = band * itemsize
+    rows = math.ceil(HW / cluster)
+    cluster = math.ceil(HW / rows)
+    ty = _row_threads(band, itemsize)
+    room = (_MAX_SHARED - _shared_bytes(band, 0, itemsize)) // 16 * 16
+    resident = min(rows, max(2 * ty, room // row_bytes))
+    stage = min(rows, max(2 * ty, _STAGE_BYTES // row_bytes))
+    return _GNPlan(band, cluster, rows, resident, stage, _shared_bytes(band, resident, itemsize))
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_plan(B: int, HW: int, C: int, G: int, itemsize: int, stats: bool = False) -> _GNPlan:
+    r"""The GroupNorm kernel's plan for x (B, HW, C) of `itemsize` bytes an
+    element and `G` groups, or with `stats` the statistics kernel's.
+
+    The band is the narrowest run of whole groups (at most 512 channels)
+    whose row takes at least `_BAND_BYTES`, or the widest up to
+    `_WIDE_BAND_BYTES` where the batch alone gives a wave of units; where
+    such a band leaves the card short of a wave of blocks, the narrowest
+    of at least `_NARROW_BAND_BYTES` that gives one. A unit (HW rows of a
+    band) takes a cluster of one block per `_BLOCK_BYTES`, or two where it
+    holds more than `_SPLIT_BYTES` (GroupNorm's only: the statistics
+    kernel keeps no rows, and split it runs slower) or the units alone
+    fill less than a wave, rounded up to a power of two, at most 16, and
+    no block under `_MIN_ROWS` rows. A GroupNorm block keeps as many of its
+    rows as its shared memory holds; the rest are read again after the
+    fold, from L2 where they stayed."""
+
+    def cluster_of(band):
+        unit, units = HW * band * itemsize, B * (C // band)
+        n = max(math.ceil(unit / _BLOCK_BYTES), 2 if (unit > _SPLIT_BYTES and not stats) or units < _WAVE else 1)
+        return max(1, min(1 << (n - 1).bit_length(), _MAX_CLUSTER, HW // _MIN_ROWS))
+
+    def blocks(band):
+        return B * (C // band) * cluster_of(band)
+
+    cpg = C // G
+    bands = [g * cpg for g in range(1, G + 1) if G % g == 0 and g * cpg <= _MAX_BAND] or [cpg]
+    if B >= _WAVE:
+        band = max((b for b in bands if b * itemsize <= _WIDE_BAND_BYTES), default=bands[0])
+    else:
+        band = min((b for b in bands if b * itemsize >= _BAND_BYTES), default=bands[-1])
+        if blocks(band) < _WAVE:
+            band = min((b for b in bands if b * itemsize >= _NARROW_BAND_BYTES and blocks(b) >= _WAVE), default=band)
+
+    return _plan(HW, band, cluster_of(band), itemsize)
 
 
 @_build.forward_only("group_norm", "under grad, call group_norm or group_norm_silu: their backward is the analytic one")
 def _group_norm_kernel(
-    x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool
+    x: Tensor, P: Tensor, Q: Tensor, groups: int, eps: float, silu: bool, plan: _GNPlan | None = None
 ) -> Tensor:
-    r"""Launches `csrc/group_norm.cu` on a CUDA tensor (B, HW, C)."""
+    r"""Launches `csrc/group_norm.cu` on a CUDA tensor (B, HW, C), with the
+    planner's plan. No caller on the model path gives `plan`: it is the hook
+    through which `chip_smoke.py`'s phase 3 times other plans (designs (a)
+    and (b) at HW = 65536, the planner's neighbours) against the planner's."""
 
     if x.device.type != "cuda":
         raise ValueError(f"the group-norm kernel needs a CUDA tensor, got {x.device}")
@@ -170,18 +283,13 @@ def _group_norm_kernel(
     if x.data_ptr() % 16:
         raise ValueError("the group-norm kernel needs a 16-byte aligned input")
 
-    rows = _rows_per_block(B, HW, C, x.element_size())
-    nblk = math.ceil(HW / rows)
-
+    plan = plan or _gn_plan(B, HW, C, groups, x.element_size())
     y = torch.empty_like(x)
-    partial = torch.empty(B, nblk, 2, C, dtype=torch.float32, device=x.device)
-    ab = torch.empty(B, 2, C, dtype=torch.float32, device=x.device)
 
     status = _build.library().azula_group_norm(
         x.data_ptr(), P.data_ptr(), Q.data_ptr(), y.data_ptr(),
-        partial.data_ptr(), ab.data_ptr(),
-        B, HW, C, groups, rows, eps, int(silu), _DTYPES[x.dtype],
-        _build.stream(x.device),
+        B, HW, C, groups, plan.band, plan.cluster, plan.rows, plan.resident,
+        eps, int(silu), _DTYPES[x.dtype], _build.stream(x.device),
     )
     _build.check(status, "group_norm")
     _build.LAUNCHES["group_norm_silu" if silu else "group_norm"] += 1
@@ -338,36 +446,33 @@ def stats_kernel_eligible(shape: tuple[int, ...]) -> bool:
     return C % 128 == 0 and S_BLK is not None and (S_BLK == HW or (S_BLK % 8 == 0 and HW % S_BLK == 0))
 
 
-def _stats_rows(B: int, HW: int, C: int, itemsize: int) -> int:
-    r"""Rows of x in one tile of the statistics kernel: at least 8 KiB of x
-    and 64 bytes a channel, so that the tile's partials (two float32 rows)
-    add at most an eighth to what it reads; about eight blocks per SM of the
-    card over the batch."""
-
-    return _rows_per_block(B, HW, C, itemsize, min_bytes=max(8192, 64 * C))
-
-
 def _stats_kernel_plain(x: Tensor, groups: int, rows: int) -> tuple[Tensor, Tensor]:
     r"""Plain PyTorch version of the statistics kernel, with its arithmetic:
-    x shifted by the pilot row K (`x[:, 0]`); per tile of `rows` rows and
-    per channel, the mean and the centered sum of squares of x - K; tiles
-    and then channels combined by Chan's formula, each tile weighted by its
-    row count (the last tile may be short), the channel means taken about
-    the group's first pilot."""
+    x shifted by the pilot row K (`x[:, 0]`); per block of `rows` rows and
+    per channel, the mean and the centered sum of squares of x - K; the
+    blocks combined by Chan's formula in block order, as a cluster folds
+    them (the last block may be short), then the channels about the group's
+    first pilot."""
 
     B, HW, C = x.shape
     cpg = C // groups
 
     xf = x.float()
     K = xf[:, :1, :]
-    tiles = torch.split(xf - K, rows, dim=1)
 
-    counts = torch.tensor([t.shape[1] for t in tiles], dtype=torch.float32, device=x.device)[None, :, None]
-    means = torch.stack([t.mean(dim=1) for t in tiles], dim=1)  # (B, nblk, C)
-    m2s = torch.stack([(t - t.mean(dim=1, keepdim=True)).square().sum(dim=1) for t in tiles], dim=1)
-
-    m = (counts * means).sum(dim=1) / HW  # (B, C), mean of x - K
-    M2 = m2s.sum(dim=1) + (counts * (means - m[:, None]).square()).sum(dim=1)
+    n = m = M2 = None
+    for t in torch.split(xf - K, rows, dim=1):
+        nb, mb = float(t.shape[1]), t.mean(dim=1)
+        M2b = (t - mb[:, None]).square().sum(dim=1)
+        if n is None:
+            n, m, M2 = nb, mb, M2b
+            continue
+        total = n + nb
+        delta = mb - m
+        w = nb / total
+        m = m + delta * w
+        M2 = M2 + M2b + delta * delta * n * w
+        n = total
 
     Kg = K[:, 0].reshape(B, groups, cpg)
     e = (Kg - Kg[..., :1]) + m.reshape(B, groups, cpg)  # channel mean - the group's first pilot
@@ -380,7 +485,8 @@ def _stats_kernel_plain(x: Tensor, groups: int, rows: int) -> tuple[Tensor, Tens
 
 @_build.forward_only("group_stats", "under grad, call group_stats: its backward is the analytic one")
 def _stats_kernel(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
-    r"""Launches `csrc/group_stats.cu` on a CUDA tensor (B, HW, C)."""
+    r"""Launches `csrc/group_stats.cu` on a CUDA tensor (B, HW, C), with the
+    planner's plan."""
 
     if x.device.type != "cuda":
         raise ValueError(f"the group-statistics kernel needs a CUDA tensor, got {x.device}")
@@ -396,15 +502,12 @@ def _stats_kernel(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
     if x.data_ptr() % 16:
         raise ValueError("the group-statistics kernel needs a 16-byte aligned input")
 
-    rows = _stats_rows(B, HW, C, x.element_size())
-    nblk = math.ceil(HW / rows)
-
-    partial = torch.empty(B, nblk, 2, C, dtype=torch.float32, device=x.device)
+    plan = _gn_plan(B, HW, C, groups, x.element_size(), stats=True)
     out = torch.empty(2, B, groups, dtype=torch.float32, device=x.device)
 
     status = _build.library().azula_group_stats(
-        x.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        B, HW, C, groups, rows, _DTYPES[x.dtype], _build.stream(x.device),
+        x.data_ptr(), out.data_ptr(), B, HW, C, groups, plan.band, plan.cluster, plan.rows, plan.stage,
+        _DTYPES[x.dtype], _build.stream(x.device),
     )
     _build.check(status, "group_stats")
     _build.LAUNCHES["group_stats"] += 1
@@ -419,7 +522,7 @@ _STATS = {
     "guarded": _stats_guarded,
     "twopass": _stats_twopass,
     "kernel": _stats_kernel,
-    "plain": lambda x, groups: _stats_kernel_plain(x, groups, _stats_rows(*x.shape, x.element_size())),
+    "plain": lambda x, groups: _stats_kernel_plain(x, groups, _gn_plan(*x.shape, groups, x.element_size(), True).rows),
 }
 
 

@@ -13,16 +13,24 @@ Phases, each of which raises on failure:
    print what `ptxas -v` said of the bf16 tensor-core attention forward and
    backward (registers and spills of each form, shared memory per block,
    per D), of the backward's delta and dq-rounding kernels, of the bf16
-   tensor-core forms of fused MSA (per D) and conv3x3, and of the bf16
+   tensor-core forms of fused MSA (per D) and conv3x3, of the bf16
    `_flash_blhd` pair (the forward per D and warpgroups, the backward per
-   D with its delta and dq-rounding kernels).
+   D with its delta and dq-rounding kernels), and of the GroupNorm and
+   statistics cluster kernels (registers and spills of each form).
 3. kernels: record the kernel calls of one full-width forward (ADM
    `imagenet_256x256`, bf16, batch 8), then hold each kernel against its plain
    PyTorch version on the card at every recorded shape, in bf16 and float32,
    and time kernel, plain version, library call and bound. The bf16
    attention calls (the tensor-core forward) are also held against
    `_attention_tiled_plain`, their own rounding points, at `TOL_TC`, and
-   print TFLOP/s and their share of the bound.
+   print TFLOP/s and their share of the bound. Each GroupNorm call also
+   prints its plan (`norm._gn_plan`, whose shared memory must be the C
+   entry's) and its device time (the profiler); then designs (a) and (b)
+   of the cluster kernel at (8, 65536, 256); the plan against its
+   neighbours (half and twice its band and its cluster, two blocks an SM)
+   at every recorded GroupNorm shape and unet32's three, each held against
+   the plain version and timed on the device; and the host's time per call
+   of ADM's smallest GroupNorm, direct and through the autograd node.
 4. slice: the tiny ADM of the CPU tests, same random weights, on the CPU
    (plain versions) and on the card (kernels), float32: the denoiser's output
    and a 4-step DDIM trajectory.
@@ -148,11 +156,12 @@ Phases, each of which raises on failure:
    its plain version on 100 + 3 N inputs in bf16 and float32, at unet32's
    three GroupNorm shapes (batch 256, 16 groups) and the JAX package's
    production shapes, (8, 66049, 256) and (2, 4096, 192) included, and
-   against the exact statistics in float64; timed beside the plain version,
-   `torch.var_mean` and the bound. Then `group_stats`' gradient on the card
-   against the plain route's, and `group_norm` / `group_norm_silu` forward
-   and backward on the card against autograd through the plain version, at
-   unet32's and ADM's shapes, with exact launches.
+   against the exact statistics in float64; timed by events and on the
+   device beside the plain version, `torch.var_mean` and the bound. Then
+   `group_stats`' gradient on the card against the plain route's, and
+   `group_norm` / `group_norm_silu` forward and backward on the card
+   against autograd through the plain version, at unet32's and ADM's
+   shapes, with exact launches.
 24. conv3x3: the kernel (`csrc/conv3x3.cu`) against its plain version in
    bf16 and float32 at unet32's admitted shapes, the JAX package's test
    shapes and two ragged shapes (K = 72 on the bf16 tensor-core form, K = 70
@@ -437,25 +446,32 @@ def elapsed_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     r"""Device time of `fn` per call, by the profiler: the time of the
-    kernels it launches, summed over `reps` calls after a warm-up call, with
-    the host's gaps between them left out (CUDA events around a short call
-    also count the time in which the card waits for the host)."""
+    kernels it launches over `reps` calls after a warm-up call, with the
+    host's gaps between them left out (CUDA events around a short call also
+    count the time in which the card waits for the host). Each kernel
+    counts its mean time per launch times its launches per call (its count
+    over `reps`, at least one): the profiler's activity records are now and
+    then lost, in part or whole, and a trace that lost some still reads the
+    calls' time; one that lost all is taken again, up to three times."""
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for event in prof.key_averages():
-        if event.device_type != torch.autograd.DeviceType.CUDA or getattr(event, "is_user_annotation", False):
-            continue
-        us = getattr(event, "self_device_time_total", None)
-        total += getattr(event, "self_cuda_time_total", 0) if us is None else us
-    if not total:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / reps
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call = 0.0
+        for event in prof.key_averages():
+            if event.device_type != torch.autograd.DeviceType.CUDA or getattr(event, "is_user_annotation", False):
+                continue
+            us = getattr(event, "self_device_time_total", None)
+            us = getattr(event, "self_cuda_time_total", 0) if us is None else us
+            if event.count:
+                per_call += us / event.count * max(1, round(event.count / reps))
+        if per_call:
+            return per_call / 1e3
+    raise AssertionError("the profiler saw no device time in three traces")
 
 
 def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -602,11 +618,13 @@ def flash_ptxas_summaries() -> tuple[str, str]:
     return forward, backward_ptxas_summary("flash_blhd_bwd.cu")
 
 
-def redesign_ptxas_summaries() -> tuple[str, str]:
+def redesign_ptxas_summaries() -> tuple[str, str, str]:
     r"""`ptxas -v` of the bf16 tensor-core forms of the fused MSA kernel
     (`tc::fused_msa_tc_kernel<D>` of `csrc/fused_msa.cu`) and of conv3x3
     (`tc::conv3x3_tc_kernel` of `csrc/conv3x3.cu`): registers, spill stores
-    and the dynamic shared memory of a block."""
+    and the dynamic shared memory of a block; and of the cluster kernels of
+    GroupNorm and the group statistics (`group_norm_kernel<T, VEC, SiLU>`,
+    `group_stats_kernel<T, VEC>`): registers and spill stores of each form."""
 
     lib = _build.library()
     msa = ptxas_summary(
@@ -617,14 +635,23 @@ def redesign_ptxas_summaries() -> tuple[str, str]:
         f"{regs} regs {spill} B spilled; shared memory per block {lib.azula_conv3x3_tc_shared_bytes():,} B"
         for name, regs, spill in ptxas_entries("conv3x3.cu") if "conv3x3_tc_kernel" in name
     )
-    return msa, conv3x3
+    forms = []
+    for kind, pattern in (("group_norm", r"group_norm_kernelI(13__nv_bfloat16|f)Li(\d+)ELb(\d)E"),
+                          ("group_stats", r"group_stats_kernelI(13__nv_bfloat16|f)Li(\d+)EE")):
+        for name, regs, spill in ptxas_entries(f"{kind}.cu"):
+            found = re.search(pattern, name)
+            if found:
+                dtype, vec, *silu = found.groups()
+                label = f"{kind} {'f32' if dtype == 'f' else 'bf16'} x{vec}{' SiLU' if silu == ['1'] else ''}"
+                forms.append(f"{label} {regs} regs {spill} B spilled")
+    return msa, conv3x3, ", ".join(forms)
 
 
 def new_entry() -> dict:
     r"""A kernel's entry of the kernels line, before its timings."""
 
-    return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_err=0.0,  # noqa: C408
-                bound_by=collections.Counter())
+    return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, device_ms=0.0, max_abs_err=0.0,  # noqa: C408
+                max_err=0.0, bound_by=collections.Counter())
 
 
 def add_timing(entry: dict, count: int, ms: float, plain: float, library: float, bound: float, by: str,
@@ -719,10 +746,76 @@ def full_width_model(generator: torch.Generator):
     return denoiser
 
 
+def plan_text(plan) -> str:
+    return (f"bands of {plan.band}, clusters of {plan.cluster} x {plan.rows} rows, "
+            f"{plan.resident} kept, {plan.smem:,} B shared")
+
+
+# the most shared memory each of two blocks on one SM can take (228 KB an
+# SM, less 1 KB the card keeps for each block)
+TWO_BLOCKS_SHARED = (228 - 2) * 1024 // 2
+
+
+def plan_neighbours(HW: int, C: int, groups: int, plan) -> list:
+    r"""The bf16 plans beside the planner's: half and twice its band, half
+    and twice its cluster, and its own with the kept rows cut so that two
+    blocks share an SM (where its shared memory allows only one)."""
+
+    cpg = C // groups
+    found = []
+    for band, cluster in ((plan.band // 2, plan.cluster), (plan.band * 2, plan.cluster),
+                          (plan.band, plan.cluster // 2), (plan.band, plan.cluster * 2)):
+        if band % cpg or C % band or not 0 < band <= 512 or not 1 <= cluster <= 16 or HW < cluster:
+            continue
+        other = norm._plan(HW, band, cluster, 2)
+        if other.smem <= norm._MAX_SHARED and other != plan and other not in found:
+            found.append(other)
+    kept = (TWO_BLOCKS_SHARED - norm._shared_bytes(plan.band, 0, 2)) // (plan.band * 2)
+    if plan.smem > TWO_BLOCKS_SHARED and kept >= 2 * norm._row_threads(plan.band, 2):
+        found.append(plan._replace(resident=kept, smem=norm._shared_bytes(plan.band, kept, 2)))
+    return found
+
+
+def sweep_plans(shapes, generator) -> None:
+    r"""The GroupNorm kernel with SiLU in bf16 under the planner's plan and
+    its neighbours (`plan_neighbours`), each held against the plain version
+    and timed on the device: one line per shape, and how often the
+    planner's was the fastest."""
+
+    best = near = 0
+    for (B, HW, C), groups in shapes:
+        x = torch.randn((B, HW, C), generator=generator, device="cuda").to(torch.bfloat16)
+        P = 1 + 0.3 * torch.randn(B, C, generator=generator, device="cuda")
+        Q = 0.3 * torch.randn(B, C, generator=generator, device="cuda")
+        want = norm._group_norm_plain(x, P, Q, groups, 1e-5, True)
+        plan = norm._gn_plan(B, HW, C, groups, 2)
+        times = []
+        for each in [plan] + plan_neighbours(HW, C, groups, plan):
+            _, rel_err = errors(norm._group_norm_kernel(x, P, Q, groups, 1e-5, True, each), want)
+            if rel_err > TOL_GN[torch.bfloat16]:
+                raise AssertionError(f"group norm {(B, HW, C)} under {each}: {rel_err}")
+            times.append((device_ms(lambda: norm._group_norm_kernel(x, P, Q, groups, 1e-5, True, each), reps=10), each))
+        ours = times[0][0]
+        fastest = min(t for t, _ in times)
+        best += ours == fastest
+        near += ours <= 1.03 * fastest
+        others = "; ".join(f"{p.band}/{p.cluster}/{p.resident} kept {t:.4f}" for t, p in times[1:])
+        log(f"  plan sweep {(B, HW, C)} G={groups} bf16 SiLU, device ms: planner {plan.band}/{plan.cluster}/"
+            f"{plan.resident} kept {ours:.4f} (band/cluster/rows kept); {others}")
+        del x, want
+    log(f"  plan sweep: the planner's plan the fastest at {best} of {len(shapes)} shapes, "
+        f"within 3% of the fastest at {near}")
+
+
 def check_group_norm(calls, affine, generator) -> dict:
     r"""Each recorded GroupNorm call against the plain version, in bf16 (the
-    main path's dtype, timed) and float32; plus a large-mean input."""
+    main path's dtype, timed by events and on the device) and float32, with
+    the plan and its shared memory held against the C entry's; plus a
+    large-mean input, designs (a) and (b) at (8, 65536, 256), the plan
+    against its neighbours (`sweep_plans`), and the host's cost of the
+    autograd node that a direct call no longer makes."""
 
+    lib = _build.library()
     per_kernel = {
         name: new_entry()
         for name in ("group_norm_silu", "group_norm")
@@ -738,6 +831,9 @@ def check_group_norm(calls, affine, generator) -> dict:
 
         for check_dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=generator, device="cuda") * 2 + 0.5).to(check_dtype)
+            plan = norm._gn_plan(*shape, groups, x.element_size())
+            if lib.azula_group_norm_shared_bytes(plan.band, plan.resident, norm._DTYPES[check_dtype]) != plan.smem:
+                raise AssertionError(f"group norm {shape} {check_dtype}: the planner's shared memory is not the kernel's")
             got = norm._group_norm_kernel(x, P, Q, groups, eps, silu)
             want = norm._group_norm_plain(x, P, Q, groups, eps, silu)
             abs_err, rel_err = errors(got, want)
@@ -751,6 +847,7 @@ def check_group_norm(calls, affine, generator) -> dict:
 
             if check_dtype == dtype:  # the main path's dtype: time it
                 ms = elapsed_ms(lambda: norm._group_norm_kernel(x, P, Q, groups, eps, silu))
+                dev = device_ms(lambda: norm._group_norm_kernel(x, P, Q, groups, eps, silu), reps=10)
                 plain = elapsed_ms(lambda: norm._group_norm_plain(x, P, Q, groups, eps, silu))
                 nbytes = 2 * x.numel() * x.element_size() + 2 * P.numel() * 4
                 ops = x.numel() * (5 + (4 if silu else 0))
@@ -766,11 +863,13 @@ def check_group_norm(calls, affine, generator) -> dict:
                     entry["library_ms"] += count * library
 
                 entry["ms"] += count * ms
+                entry["device_ms"] += count * dev
                 entry["plain_ms"] += count * plain
                 entry["bound_ms"] += count * bound
                 entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
                 entry["max_err"] = max(entry["max_err"], rel_err)
-                line += f"; {ms:.4f} ms, plain {plain:.4f} ms, library {library} ms, bound {bound:.4f} ms ({by})"
+                line += (f"; {ms:.4f} ms, device {dev:.4f} ms, plain {plain:.4f} ms, library {library} ms, "
+                         f"bound {bound:.4f} ms ({by}); {plan_text(plan)}")
 
             log(line)
 
@@ -792,6 +891,63 @@ def check_group_norm(calls, affine, generator) -> dict:
         if abs_err > TOL_GN_LARGE_MEAN or want.abs().max().item() < 0.5:
             raise AssertionError(f"group norm at |mean|/std = 1e4: abs err {abs_err}")
         log(f"  group_norm |mean|/std=1e4 float32 silu={silu}: max abs err {abs_err:.3e} (tol {TOL_GN_LARGE_MEAN})")
+
+    # HW = 65536 (ADM's 256 x 256 stage): design (a), one group (16 bytes)
+    # a band, every row kept on clusters of 8 or 16 blocks, against (b), the
+    # planner's 128-byte bands on 16 blocks, the rows past what a block's
+    # shared memory holds read again (from L2, which keeps them); and (b) on
+    # clusters of 8. Their inputs come from a generator of their own, so
+    # that the later phases draw what they drew before these checks existed
+    own = torch.Generator(device="cuda").manual_seed(12)
+    B, HW, C = 8, 65536, 256
+    x = torch.randn((B, HW, C), generator=own, device="cuda").to(torch.bfloat16)
+    P, Q = torch.ones(B, C, device="cuda"), torch.zeros(B, C, device="cuda")
+    want = norm._group_norm_plain(x, P, Q, GROUPS, 1e-5, True)
+    for label, plan in (
+        ("(b) the planner's", norm._gn_plan(B, HW, C, GROUPS, 2)),
+        ("(b) on 8 blocks", norm._plan(HW, 64, 8, 2)),
+        ("(a) on 8 blocks", norm._plan(HW, 8, 8, 2)),
+        ("(a) on 16 blocks", norm._plan(HW, 8, 16, 2)),
+    ):
+        _, rel_err = errors(norm._group_norm_kernel(x, P, Q, GROUPS, 1e-5, True, plan), want)
+        if rel_err > TOL_GN[torch.bfloat16]:
+            raise AssertionError(f"group norm {label}: {rel_err}")
+        ms = elapsed_ms(lambda: norm._group_norm_kernel(x, P, Q, GROUPS, 1e-5, True, plan))
+        dev = device_ms(lambda: norm._group_norm_kernel(x, P, Q, GROUPS, 1e-5, True, plan), reps=10)
+        clusters = lib.azula_group_norm_active_clusters(plan.band, plan.cluster, plan.resident, 1, 1)
+        log(f"  group_norm {(B, HW, C)} bfloat16 silu=True, design {label}: {ms:.4f} ms, device {dev:.4f} ms; "
+            f"{plan_text(plan)}; {clusters} clusters at once; rel err {rel_err:.3e}")
+    # a yardstick of the card's rate for one read of x and one write of y
+    # (not the same function: no statistics)
+    log(f"  F.silu on the same x (1R + 1W): device {device_ms(lambda: F.silu(x), reps=10):.4f} ms")
+    del x, want
+
+    # the plan against its neighbours at every recorded GroupNorm shape and
+    # unet32's three (16 groups)
+    shapes = sorted({(k[1], k[3]) for k in keys}) + [(shape, UNET_GROUPS) for shape in UNET_GN_SHAPES]
+    sweep_plans(shapes, own)
+
+    # the host's cost of a call on ADM's smallest GroupNorm: the direct
+    # launch, and the same through the autograd node every call made before
+    x = torch.randn((B, 64, 1024), generator=own, device="cuda").to(torch.bfloat16)
+    P, Q = torch.ones(B, 1024, device="cuda"), torch.zeros(B, 1024, device="cuda")
+    launch = norm._group_norm_kernel.__wrapped__
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return seconds / n * 1e6
+
+    direct = host_us(lambda: norm._group_norm_kernel(x, P, Q, GROUPS, 1e-5, True))
+    node = host_us(lambda: _build._ForwardOnly.apply("group_norm", "", launch, x, P, Q, GROUPS, 1e-5, True))
+    direct_again = host_us(lambda: norm._group_norm_kernel(x, P, Q, GROUPS, 1e-5, True))
+    log(f"  group_norm (8, 64, 1024) host time per call: direct {direct:.2f}, {direct_again:.2f} us; "
+        f"through the autograd node {node:.2f} us")
 
     return per_kernel
 
@@ -1151,9 +1307,9 @@ def profile_step(step) -> None:
         name = event.key
         top[name] += us / 1e3
         launched += event.count
-        if "gn_partial_kernel" in name or "gn_fold_kernel" in name or "gn_apply_kernel" in name:
+        if "::group_norm_kernel<" in name:
             kind = "group_norm (ours)"
-        elif "gs_partial_kernel" in name or "gs_fold_kernel" in name:
+        elif "::group_stats_kernel<" in name:
             kind = "group_stats (ours)"
         elif "conv3x3_kernel" in name or "conv3x3_tc_kernel" in name:
             kind = "conv3x3 (ours)"
@@ -2131,9 +2287,9 @@ def check_group_stats(generator) -> dict:
         B, HW, C = shape
         for dtype in (torch.bfloat16, torch.float32):
             x = (100 + 3 * torch.randn(shape, generator=generator, device="cuda")).to(dtype)
-            rows = norm._stats_rows(B, HW, C, x.element_size())
+            plan = norm._gn_plan(B, HW, C, groups, x.element_size(), stats=True)
             mean, var = norm._stats_kernel(x, groups)
-            want_mean, want_var = norm._stats_kernel_plain(x, groups, rows)
+            want_mean, want_var = norm._stats_kernel_plain(x, groups, plan.rows)
             exact_var, exact_mean = torch.var_mean(x.double().view(B, HW, groups, -1), dim=(1, 3), correction=0)
 
             mean_abs, mean_rel = errors(mean, want_mean)
@@ -2141,8 +2297,9 @@ def check_group_stats(generator) -> dict:
             exact_rel = ((var.double() - exact_var).abs() / exact_var).max().item()
             exact_mean_rel = errors(mean, exact_mean)[1]
             tol = TOL_STATS[dtype]
-            line = (f"  group_stats {shape} G={groups} {str(dtype)[6:]} ({math.ceil(HW / rows)} tiles of {rows} rows; "
-                    f"JAX's TPU kernel {'covers' if norm.stats_kernel_eligible(shape) else 'does not cover'} it): "
+            line = (f"  group_stats {shape} G={groups} {str(dtype)[6:]} (bands of {plan.band}, clusters of "
+                    f"{plan.cluster} x {plan.rows} rows; JAX's TPU kernel "
+                    f"{'covers' if norm.stats_kernel_eligible(shape) else 'does not cover'} it): "
                     f"mean rel {mean_rel:.3e}, var rel {var_rel:.3e}; against float64 mean {exact_mean_rel:.3e}, "
                     f"var {exact_rel:.3e} (tol {tol})")
             if max(mean_rel, var_rel, exact_rel, exact_mean_rel) > tol:
@@ -2151,14 +2308,18 @@ def check_group_stats(generator) -> dict:
             if timed and dtype == torch.bfloat16:
                 xv = x.view(B, HW, groups, C // groups)
                 ms = elapsed_ms(lambda: norm._stats_kernel(x, groups))
-                plain = elapsed_ms(lambda: norm._stats_kernel_plain(x, groups, rows))
+                dev = device_ms(lambda: norm._stats_kernel(x, groups), reps=10)
+                plain = elapsed_ms(lambda: norm._stats_kernel_plain(x, groups, plan.rows))
                 library = elapsed_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0))
+                library_dev = device_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0), reps=10)
                 # x read once and (mean, var) written once; a subtraction, a
                 # square and two sums per element, float32 on the CUDA cores
                 bound, by = bound_ms(x.numel() * x.element_size() + 2 * B * groups * 4, 4 * x.numel(), torch.float32)
                 add_timing(entry, count, ms, plain, library, bound, by, mean_abs, max(mean_rel, var_rel))
-                line += (f"; {ms:.4f} ms ({x.numel() * x.element_size() / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
-                         f"torch.var_mean {library:.4f} ms, bound {bound:.4f} ms ({by})")
+                entry["device_ms"] += count * dev
+                line += (f"; {ms:.4f} ms, device {dev:.4f} ms ({x.numel() * x.element_size() / dev / 1e6:.1f} GB/s), "
+                         f"plain {plain:.4f} ms, torch.var_mean {library:.4f} ms (device {library_dev:.4f}), "
+                         f"bound {bound:.4f} ms ({by})")
             log(line)
             del x
         torch.cuda.empty_cache()
@@ -2553,14 +2714,15 @@ def main() -> None:
     forward, backward = tc_ptxas_summaries()
     log(f"ptxas -v of the bf16 tensor-core attention forward: {forward}")
     log(f"ptxas -v of the bf16 tensor-core attention backward: {backward}")
-    msa_ptxas, conv_ptxas = redesign_ptxas_summaries()
+    msa_ptxas, conv_ptxas, norm_ptxas = redesign_ptxas_summaries()
     log(f"ptxas -v of the bf16 tensor-core fused MSA: {msa_ptxas}")
     log(f"ptxas -v of the bf16 tensor-core conv3x3: {conv_ptxas}")
+    log(f"ptxas -v of the GroupNorm and statistics cluster kernels: {norm_ptxas}")
     flash_forward, flash_backward = flash_ptxas_summaries()
     log(f"ptxas -v of the bf16 tensor-core flash_blhd forward: {flash_forward}")
     log(f"ptxas -v of the bf16 tensor-core flash_blhd backward: {flash_backward}")
-    if not all((forward, backward, msa_ptxas, conv_ptxas, flash_forward, flash_backward)):
-        raise AssertionError("ptxas reported no tensor-core attention, fused MSA, conv3x3 or flash_blhd kernel")
+    if not all((forward, backward, msa_ptxas, conv_ptxas, norm_ptxas, flash_forward, flash_backward)):
+        raise AssertionError("ptxas reported no tensor-core attention, fused MSA, conv3x3, flash_blhd or GroupNorm kernel")
 
     log("== 3. kernels against their plain versions at the main path's shapes")
     generator = torch.Generator(device="cuda").manual_seed(0)
@@ -2871,6 +3033,9 @@ def main() -> None:
             # step), summed over their shapes; the other masked forms: one
             # call at dit64's shape with a key-padding mask
             "ms": entry["ms"],
+            # the same calls' kernel time on the device (the profiler):
+            # without the host's gaps that CUDA events count around short calls
+            "device_ms": entry.get("device_ms") or None,
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
             # what bounds the larger share of bound_ms

@@ -1,0 +1,223 @@
+r"""The GroupNorm and statistics kernels' plan (`_gn_plan` in
+`azula_tpu_torch.ops.norm`) and the plain versions at the kernels' rounding
+points, on the CPU.
+
+The plan is held at every GroupNorm shape of the ADM-256 forward, unet32's
+three and the JAX package's production shapes of the statistics kernel
+(`tests/test_ops_tpu.py`), in bf16 and float32, for each kernel: its blocks cover every row
+and channel of x once, the grid is a whole number of clusters, a cluster's
+blocks share one (batch row, band), and a block's shared memory fits the
+H100's 227 KB, with room for the rows the kernels stream. The kernels' own launch takes the plan as given, so the
+CUDA sources are held to the same arithmetic by `chip_smoke.py` on the card
+(`azula_group_norm_shared_bytes` against `_shared_bytes`).
+
+The plain versions repeat the kernels' rounding points (sums per block of
+`rows` rows, folded in block order) and are held against the JAX package's
+XLA GroupNorm (`_gn_fused_xla`), its pilot statistics (`_stats_pilot`) and
+its TPU statistics kernel (`_stats_pallas`, interpret mode). Tolerances as
+`tests/test_torch_ops.py` and `tests/test_torch_norm_stats.py`: float32
+outputs within 5e-6 of max |reference|; statistics, mean within 1e-3
+absolute and var within 1e-5 relative; |mean| / std = 1e4 within 5e-3
+absolute (the rounding of x itself).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jax.experimental.pallas import tpu as pltpu
+
+from azula_tpu.ops import norm as jnorm
+from azula_tpu_torch.ops import _build
+from azula_tpu_torch.ops import norm as tnorm
+
+# (HW, C) of the ADM-256 forward's GroupNorms (batch 8, 32 groups), as
+# chip_smoke.py's phase 3 records them
+ADM = [
+    (64, 1024), (256, 1024), (1024, 512), (65536, 256), (64, 2048), (256, 512), (256, 1536), (256, 2048),
+    (1024, 1024), (1024, 1536), (4096, 256), (4096, 512), (4096, 768), (4096, 1024), (16384, 256), (16384, 512),
+    (16384, 768), (65536, 512),
+]
+UNET32 = [(256, 1024, 64), (256, 256, 128), (256, 64, 256)]
+PRODUCTION = [
+    ((8, 65536, 256), 32), ((8, 16384, 512), 32), ((2, 4096, 1024), 32), ((4, 9216, 384), 32),
+    ((8, 66049, 256), 32), ((2, 4096, 192), 24),
+]
+CASES = [((8, HW, C), 32) for HW, C in ADM] + [(shape, 16) for shape in UNET32] + PRODUCTION
+
+
+def _rel_err(got, want) -> float:
+    got = got.double().numpy()
+    want = np.asarray(jnp.asarray(want, dtype=jnp.float32), dtype=np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _blocks(plan, C):
+    r"""The (band, rank) of each block along x of the launch's grid."""
+
+    return [divmod(bx, plan.cluster) for bx in range(C // plan.band * plan.cluster)]
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["group_norm", "group_stats"])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("shape, groups", CASES, ids=[f"{s}-G{g}" for s, g in CASES])
+def test_plan_covers_the_tensor_once(shape, groups, itemsize, stats):
+    B, HW, C = shape
+    plan = tnorm._gn_plan(B, HW, C, groups, itemsize, stats)
+
+    # bands of whole groups that divide C; at most 16 blocks a cluster; a
+    # block keeps its rows, or two passes of its threads' rows at least
+    assert plan.band % (C // groups) == 0 and C % plan.band == 0 and plan.band <= 512
+    assert 1 <= plan.cluster <= 16 and 0 < plan.resident <= plan.rows and 0 < plan.stage <= plan.rows
+    twice = 2 * tnorm._row_threads(plan.band, itemsize)
+    assert plan.resident >= min(plan.rows, twice) and plan.stage >= min(plan.rows, twice)
+
+    # the grid (bands * cluster, B) is a whole number of clusters, and the
+    # blocks of one cluster (consecutive along x, one grid row) share one
+    # (batch row, band)
+    blocks = _blocks(plan, C)
+    assert len(blocks) % plan.cluster == 0
+    for first in range(0, len(blocks), plan.cluster):
+        assert len({band for band, _ in blocks[first:first + plan.cluster]}) == 1
+        assert [rank for _, rank in blocks[first:first + plan.cluster]] == list(range(plan.cluster))
+
+    # every row and channel of a batch row once, every block holding rows
+    count = np.zeros((HW, C), np.int8)
+    for band, rank in blocks:
+        assert rank * plan.rows < HW
+        count[rank * plan.rows:(rank + 1) * plan.rows, band * plan.band:(band + 1) * plan.band] += 1
+    assert (count == 1).all()
+
+    # the block's shared memory, as the kernel computes it, on the H100
+    assert plan.smem == tnorm._shared_bytes(plan.band, plan.resident, itemsize) <= 232448
+
+
+@pytest.mark.parametrize(
+    "shape, groups, itemsize, band",
+    [
+        ((8, 65536, 256), 32, 2, 64),  # 128 bytes a row: whole lines of x
+        ((8, 4096, 512), 32, 2, 64),
+        ((8, 4096, 256), 32, 2, 32),  # 128-byte bands give 64 blocks: half a line a row gives a wave
+        ((2, 4096, 192), 24, 2, 64),
+        ((8, 4096, 768), 32, 2, 96),  # 48-byte groups: the narrowest band of 128 bytes or more
+        ((8, 65536, 256), 32, 4, 32),
+        ((256, 256, 128), 16, 2, 128),  # unet32: the batch fills a wave, whole rows up to 512 bytes
+        ((256, 64, 256), 16, 2, 256),
+        ((4, 1024, 16), 16, 4, 16),  # the tiny UNet: the whole row
+    ],
+)
+def test_plan_bands(shape, groups, itemsize, band):
+    assert tnorm._gn_plan(*shape, groups, itemsize).band == band
+
+
+def test_plan_clusters_and_residency():
+    # ADM's largest shape: 16 blocks a unit of 8 MB, 218 KB of each kept,
+    # the rest read again; design (a) for comparison, one group a band
+    # resident on clusters of 8
+    plan = tnorm._gn_plan(8, 65536, 256, 32, 2)
+    assert (plan.band, plan.cluster, plan.rows, plan.resident) == (64, 16, 4096, 1746)
+    assert tnorm._gn_plan(8, 65536, 256, 32, 2) is plan  # cached per shape
+    a = tnorm._plan(65536, 8, 8, 2)
+    assert (a.band, a.cluster, a.resident) == (8, 8, 8192) and a.smem <= 232448
+
+    # a wave of blocks: ADM's small calls take one cluster of one block
+    # per 128-byte band, (8, 1024, 512) two
+    assert tnorm._gn_plan(8, 64, 1024, 32, 2).cluster == 1
+    assert tnorm._gn_plan(8, 1024, 512, 32, 2).cluster == 2
+
+    # a unit above 96 KB takes two blocks, which share an SM: ADM's
+    # (8, 1024, 1024) and (8, 1024, 1536), unet32's (256, 1024, 64); below
+    # it, one block
+    for shape, groups in (((8, 1024, 1024), 32), ((8, 1024, 1536), 32), ((256, 1024, 64), 16)):
+        plan = tnorm._gn_plan(*shape, groups, 2)
+        assert plan.cluster == 2 and plan.resident == plan.rows == shape[1] // 2
+    assert tnorm._gn_plan(256, 256, 128, 16, 2).cluster == 1
+
+    # the statistics kernel keeps no rows and takes no such split
+    assert tnorm._gn_plan(256, 1024, 64, 16, 2, stats=True).cluster == 1
+    assert tnorm._gn_plan(8, 1024, 1024, 32, 2, stats=True).cluster == 1
+
+    # a group wider than any band still plans (the plain version's)
+    plan = tnorm._gn_plan(1, 64, 1024, 1, 4)
+    assert plan.band == 1024 and plan.rows == 64
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("rows", [None, 4096, 1000, 77])
+def test_group_norm_plain_blocks_match_jax(rows, silu):
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal((2, 4096, 64)) * 2 + 0.5).astype(np.float32)
+    P = (1 + 0.3 * rng.standard_normal((2, 64))).astype(np.float32)
+    Q = (0.3 * rng.standard_normal((2, 64))).astype(np.float32)
+
+    want = jnorm._gn_fused_xla(jnp.asarray(x), jnp.asarray(P)[:, None], jnp.asarray(Q)[:, None], 16, 1e-5, silu)
+    got = tnorm._group_norm_plain(
+        torch.from_numpy(x), torch.from_numpy(P), torch.from_numpy(Q), 16, 1e-5, silu, rows
+    )
+
+    assert _rel_err(got, want) <= 5e-6
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_plain_blocks_exact_at_large_mean(silu):
+    # |mean| / std = 1e4 over blocks of 300 rows: each block's sums are of
+    # x - K, so they add without cancellation
+    rng = np.random.default_rng(21)
+    x = (1e4 + rng.standard_normal((2, 2048, 32))).astype(np.float32)
+    P, Q = np.ones((2, 32), np.float32), np.zeros((2, 32), np.float32)
+
+    want = jnorm._gn_fused_xla(jnp.asarray(x), jnp.asarray(P)[:, None], jnp.asarray(Q)[:, None], 8, 1e-5, silu)
+    got = tnorm._group_norm_plain(torch.from_numpy(x), torch.from_numpy(P), torch.from_numpy(Q), 8, 1e-5, silu, 300)
+
+    assert np.abs(got.double().numpy() - np.asarray(want, np.float64)).max() <= 5e-3
+    assert np.abs(np.asarray(want)).max() > 0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape, groups", [((2, 4096, 192), 24), ((4, 1024, 16), 16), ((2, 4096, 64), 16)])
+def test_stats_plain_at_the_plan_matches_jax(shape, groups, dtype):
+    # the plan's blocks (8, 1 and 8 of them here), 100 + 3 N inputs
+    rng = np.random.default_rng(22)
+    x = (100.0 + 3.0 * rng.standard_normal(shape)).astype(np.float32)
+    if dtype == "bfloat16":  # rounded as JAX's bf16 input would be
+        x = np.array(jnp.asarray(x, dtype=jnp.bfloat16).astype(jnp.float32))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+
+    got_mean, got_var = tnorm.group_stats(xt, groups, "plain")
+    want_mean, want_var = jnorm._stats_pilot(jnp.asarray(x), groups)
+
+    assert np.abs(got_mean.double().numpy() - np.asarray(want_mean, np.float64)).max() < 1e-3
+    assert (np.abs(got_var.double().numpy() - np.asarray(want_var, np.float64)) / np.asarray(want_var)).max() < 1e-5
+
+
+@pytest.mark.parametrize("rows", [1024, 700, 512])
+def test_stats_plain_blocks_match_pallas_kernel(rows):
+    # JAX's TPU kernel in interpret mode at two tiles of 1024 rows against
+    # the plain version's Chan fold over blocks of `rows` rows
+    rng = np.random.default_rng(23)
+    x = (100.0 + 3.0 * rng.standard_normal((2, 2048, 512))).astype(np.float32)
+    assert 2048 // jnorm._stats_block(2048, 512) == 2
+
+    with pltpu.force_tpu_interpret_mode():
+        want_mean, want_var = jax.block_until_ready(jnorm._stats_pallas(jnp.asarray(x), 32))
+
+    mean, var = tnorm._stats_kernel_plain(torch.from_numpy(x), 32, rows)
+    assert np.abs(mean.double().numpy() - np.asarray(want_mean, np.float64)).max() < 1e-3
+    assert (np.abs(var.double().numpy() - np.asarray(want_var, np.float64)) / np.asarray(want_var)).max() < 1e-5
+
+
+def test_forward_only_launches_directly_without_grad():
+    # no autograd node where nothing can record one; the node, and its
+    # raise, where an input requires grad
+    launch = _build.forward_only("toy", "ROADMAP X")(lambda x, s: x * s)
+
+    assert launch(torch.ones(3), 2.0).grad_fn is None
+    with torch.no_grad():
+        assert launch(torch.ones(3, requires_grad=True), 2.0).grad_fn is None
+
+    y = launch(torch.ones(3, requires_grad=True), 2.0)
+    assert y.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="the toy kernel has no backward yet"):
+        y.sum().backward()

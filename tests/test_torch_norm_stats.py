@@ -143,10 +143,11 @@ def test_block_and_eligibility_match_jax():
     "B, HW, C, itemsize", [(256, 1024, 64, 2), (256, 256, 128, 2), (256, 64, 256, 2), (4, 1024, 16, 4), (4, 256, 32, 4)]
 )
 def test_kernel_tiles_span_the_rows(B, HW, C, itemsize):
-    # unet32's GroupNorm shapes (bf16) and the tiny UNet's (float32) span
-    # more than one tile of the statistics kernel
-    rows = tnorm._stats_rows(B, HW, C, itemsize)
-    assert 0 < rows < HW
+    # unet32's GroupNorm shapes (bf16) and the tiny UNet's (float32), 16
+    # groups: the blocks of a cluster tile the rows, each block holding some
+    plan = tnorm._gn_plan(B, HW, C, 16, itemsize, stats=True)
+    assert 0 < plan.rows <= HW
+    assert plan.rows * plan.cluster >= HW > plan.rows * (plan.cluster - 1)
 
 
 # routes
@@ -157,7 +158,7 @@ def test_group_stats_routes():
     before = dict(_build.LAUNCHES)
 
     assert all(torch.equal(a, b) for a, b in zip(tnorm.group_stats(x, 16), tnorm._stats_lazy(x, 16)))
-    rows = tnorm._stats_rows(2, 64, 64, 4)
+    rows = tnorm._gn_plan(2, 64, 64, 16, 4, stats=True).rows
     plain = tnorm._stats_kernel_plain(x, 16, rows)
     assert all(torch.equal(a, b) for a, b in zip(tnorm.group_stats(x, 16, "plain"), plain))
 
