@@ -1,8 +1,9 @@
 r"""Azula-TPU ported to PyTorch and CUDA for the NVIDIA H100.
 
 The counterpart of :mod:`azula_tpu`, slice by slice: noise schedules,
-denoisers and their training losses, samplers, training utilities, the ADM
-model family and the DiT / ViT transformer backbones, with the Pallas
+denoisers and their training losses, samplers, structured covariances and
+Krylov solvers, guidance, training utilities, the ADM model family, the
+UNet and the DiT / ViT and Flux transformer backbones, with the Pallas
 kernels of the JAX package replaced by hand-written CUDA kernels (`csrc/`). Images are
 channels-last (B, H, W, C) and attention is (B, H, L, D), as in the JAX
 package. Entry points run on the card unless the caller asks for the CPU.
@@ -10,4 +11,4 @@ package. Entry points run on the card unless the caller asks for the CPU.
 
 __version__ = "0.1.0"
 
-from . import denoise, noise, sample, train  # noqa: F401
+from . import denoise, guidance, linalg, noise, sample, train  # noqa: F401

@@ -4,8 +4,8 @@ A denoiser approximates the posterior :math:`p(X \mid X_t)` of the clean
 data given a noisy :math:`x_t \sim \mathcal{N}(\alpha_t X, \sigma_t^2 I)`.
 
 Port of :mod:`azula_tpu.denoise` (`broadcast_scales`, `Posterior`,
-`DiracPosterior`, `GaussianPosterior`, `Denoiser`, `SimpleDenoiser`,
-`KarrasDenoiser`, with their training losses).
+`DiracPosterior`, `GaussianPosterior`, `Denoiser`, `GaussianDenoiser`,
+`SimpleDenoiser`, `KarrasDenoiser`, with their training losses).
 
 The losses draw the perturbation noise from a `torch.Generator` where JAX
 takes a key; the two never give the same numbers, so the noise is drawn in
@@ -17,6 +17,7 @@ from __future__ import annotations
 __all__ = [
     "Denoiser",
     "DiracPosterior",
+    "GaussianDenoiser",
     "GaussianPosterior",
     "KarrasDenoiser",
     "Posterior",
@@ -31,6 +32,7 @@ import torch
 
 from torch import Tensor, nn
 
+from .linalg.covariance import Covariance, IsotropicCovariance
 from .nn.utils import get_module_dtype
 from .noise import Schedule
 
@@ -112,6 +114,37 @@ class Denoiser(nn.Module, abc.ABC):
         """
 
         pass
+
+
+class GaussianDenoiser(Denoiser):
+    r"""Creates an analytical Gaussian denoiser.
+
+    Let :math:`X \sim \mathcal{N}(\mu_x, \Sigma_x)` and
+    :math:`X_t \sim \mathcal{N}(\alpha_t X, \sigma_t^2 I)`; the posterior mean
+    is closed form through the structured covariance algebra.
+
+    Arguments:
+        mean: The mean vector :math:`\mu_x`, with shape :math:`(N_1, ..., N_d)`.
+        cov: The covariance :math:`\Sigma_x`.
+        schedule: A noise schedule.
+    """
+
+    def __init__(self, mean: Tensor, cov: Covariance, schedule: Schedule) -> None:
+        super().__init__()
+
+        self.mean = mean
+        self.cov = cov
+        self.schedule = schedule
+
+    def forward(self, x_t: Tensor, t: Tensor, **kwargs) -> DiracPosterior:
+        alpha_t, sigma_t = self.schedule(torch.as_tensor(t))
+
+        mean_t = alpha_t * self.mean
+        cov_t = IsotropicCovariance(alpha_t**2) * self.cov + IsotropicCovariance(sigma_t**2)
+
+        mean = (x_t + sigma_t**2 * cov_t.inv(mean_t - x_t)) / alpha_t
+
+        return DiracPosterior(mean=mean)
 
 
 class SimpleDenoiser(Denoiser):

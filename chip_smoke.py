@@ -186,7 +186,51 @@ Phases, each of which raises on failure:
    norm="group": exactly 18 `group_norm` + 18 `group_stats` launches per
    step and no other kernel; then bench's norm="layer": none. Prints train
    images/s, ms/step, peak memory and a profile of one step of each.
-28. the kernels line `{"kernels": [...]}`, then the result line.
+28. the eleven samplers (DDPM, DDIM, Euler, Heun, Ito, zAB, vAB, zEAB, xEAB,
+   REAB, PC) on the tiny ADM, 8 steps, on the CPU (plain versions) and on the
+   card (kernels), float32, the stochastic ones fed the same seeded draws.
+29. the tiny CFG slice: a tiny class-conditional ADM under `CFGDenoiser`,
+   two-call and batched, CPU against card: the mean at two times, a DDIM-4
+   trajectory, exactly twice the forward's launches for two calls and once
+   batched.
+30. adm256_cfg at full width (`bench.py:103-120, 590-595`):
+   imagenet_256x256_cond with random bf16 weights, batch 8, DDIM-64, labels
+   arange(8) % 1000 against label 0, guidance 1.5; two-call (exactly
+   2 x 84 + 2 x 17 GroupNorm and 2 x 16 attention launches per step) and
+   batched (one call at batch 16: 84 + 17 and 16), each from the same noise,
+   with images/s, ms/step, peak memory and a profile of one step; every call
+   that the two warm-up steps recorded against its plain version at its
+   shape and plan (GroupNorm with its recorded affine inputs, at batch 8
+   and 16); then the batched mean against the two-call mean at t = 0.5
+   (`TOL_CFG_BATCHED`; in float32 `TOL_CFG_FLOAT32`) beside where their
+   difference comes from (the denoiser at batch 16 against 8, with the
+   kernels and with the plain versions) and three controls that a broken
+   batched path would give, which must lie above the limit.
+31. the guidance slices: MMPS, TMPD, DiffPIR, JFPS (means at two times),
+   DPS, PGDM, RePaint (steps, the same draws) and TDS (4 steps, the same
+   draws and ancestors) on the tiny ADM, CPU against card, under
+   `torch.no_grad()`: the VJP methods on the training route's kernels;
+   TMPD held to the CPU's float64 (`TOL_TMPD_SLICE`).
+32. mmps32 at full width (`bench.py:159-186`): unet32 (norm="layer": no
+   kernel of ours) under MMPS with gmres-1, left-half inpainting, bf16,
+   batch 64, DDIM-64; images/s, ms/step, the network's VJPs per step
+   (counted by a backward hook on the untimed warm-up step: exactly 2),
+   peak memory and a profile.
+33. ADM-256 under the guidance VJP: MMPS (gmres-1) on imagenet_256x256, bf16,
+   batch 8, a seeded mask of half the pixels, DDIM cut to 4 steps (not a
+   timing path): per step exactly 84 + 17 GroupNorm launches through the
+   autograd node, 101 statistics launches, 16 LSE forwards and 32
+   backwards (two VJPs; by L: 10 at 1024, 10 at 256, 12 at 64); peak
+   memory; every call of one step against its plain version at its shape:
+   GroupNorm, the statistics, and the LSE forward with the backward at
+   each (B, H, L, D), bf16 (also against their rounding points) and
+   float32.
+34. ADM's six cards at full width: one bf16 forward at batch 1 of each
+   card's `make_model`, finite, with the manifest's parameter count and
+   every attention block on the attention kernel (the 128-px card's heads
+   of D = 128, 192 and 256 at L = 1024, 256 and 64), every recorded call
+   against its plain version.
+35. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -198,9 +242,11 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import itertools
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -211,8 +257,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from azula_tpu_torch import train
+from azula_tpu_torch import guidance, sample, train
 from azula_tpu_torch.denoise import KarrasDenoiser
+from azula_tpu_torch.guidance import CFGDenoiser, MMPSDenoiser
+from azula_tpu_torch.linalg import IsotropicCovariance
 from azula_tpu_torch.models import adm
 from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
 from azula_tpu_torch.models.utils import load_cards
@@ -407,6 +455,67 @@ TOL_COMPOSITION = 3e-2
 # the gradients agree to ~1e-6 relative, so the updates agree far inside a
 # tenth of one step
 TOL_TRAIN_PARAMS = 1e-5
+
+# adm256_cfg (bench.py:103-120, 590-595): imagenet_256x256_cond under
+# CFGDenoiser, labels arange(8) % 1000 against label 0, guidance 1.5
+CFG_CARD = "imagenet_256x256_cond"
+CFG_GUIDANCE = 1.5
+# the batched (2B) CFG mean against the two-call mean at t = CFG_TIME,
+# max |error| / max |mean|. The rows are independent, but the library's
+# convolutions and matmuls round a batch of 16 elsewhere than one of 8: the
+# denoiser's own mean moves by up to 4.7e-2 of max |mean| between the two
+# batches, with our kernels and with GroupNorm and attention on their plain
+# versions alike, and not at all when run twice at one batch. CFG's
+# (1 + w) mu+ - w mu- carries that shift times 1 + 2 w over a max |mean| of
+# up to 1 + 2 w: about 4.7e-2 of it at most; the limit is twice that. A
+# broken batched path (the halves swapped, one label for both, the labels
+# rolled) lies at 1.25 or more, and each run checks that it lies above the
+# limit. In float32 the two forms agree to 8.3e-6 (the limit: 1e-4)
+TOL_CFG_BATCHED = 0.1
+TOL_CFG_FLOAT32 = 1e-4
+CFG_TIME = 0.5
+
+# mmps32 (bench.py:159-186): unet32 (norm="layer") under MMPS, gmres-1
+MMPS_BATCH = 64
+MMPS_STEPS = 64
+MMPS_NOISE = 0.05
+# the network VJPs of one MMPS step: one per gmres iteration and one after
+MMPS_VJPS_PER_STEP = 2
+
+# ADM-256 under the guidance VJP: MMPSDenoiser (gmres-1) on imagenet_256x256,
+# bf16, batch 8, cut from DDIM-64 to 4 steps (not a timing path)
+GUIDED_STEPS = 4
+GUIDED_LAUNCHES_PER_STEP = {
+    "group_norm_silu": 84, "group_norm": 17, "group_stats": 101,
+    "attention_fwd_lse": 16, "attention_bwd": 16 * MMPS_VJPS_PER_STEP,
+}
+# per step, by sequence length: the LSE forwards and the backwards (rows 9 at
+# L = 1024, row 8's form at L = 256 and 64)
+GUIDED_ATTENTION_BY_L = {
+    "attention_fwd_lse": {1024: 5, 256: 5, 64: 6},
+    "attention_bwd": {1024: 5 * MMPS_VJPS_PER_STEP, 256: 5 * MMPS_VJPS_PER_STEP, 64: 6 * MMPS_VJPS_PER_STEP},
+}
+
+# the CPU-against-card slices of the samplers and the guidance methods
+SLICE_STEPS = 8
+SLICE_CLASSES = 10
+# TMPD divides by var_y + A cov_x A^T 1, which crosses zero on a random
+# network (|d| down to 3.6e-4 against var_y = 2.5e-3 on the slice's tiny
+# ADM at t = 0.3), so its float32 result carries the division's
+# amplification: on the CPU it lies 1.07e-4 from the float64 result there,
+# where the other methods lie within 1.3e-5, and the card's float32 has
+# lain 1.6e-4 to 2.4e-4 from the CPU's. So the card is held to the CPU's
+# float64 result, at the sum of those two distances rounded up, scaled by
+# sigma / alpha as the other slices' bound
+TOL_TMPD_SLICE = 4e-4
+
+# each ADM card's checkpoint manifest: parameter names and shapes (data,
+# read as JSON)
+ADM_MANIFESTS = pathlib.Path(__file__).resolve().parent / "azula_tpu" / "models" / "manifests" / "adm"
+
+# attention shapes off the main path that phase 3 also checks: a ragged
+# length and the other head dims (shape: scale)
+ATTENTION_EXTRA = {(8, 16, 100, 64): 0.125, (4, 8, 256, 32): 32**-0.5, (2, 4, 200, 128): 128**-0.5}
 
 TINY = dict(  # noqa: C408  the tiny ADM of tests/test_torch_adm.py, with the card's flags
     image_size=32,
@@ -672,7 +781,10 @@ def add_timing(entry: dict, count: int, ms: float, plain: float, library: float,
 @contextlib.contextmanager
 def recording():
     r"""Records the kernel calls (shape, dtype, flags and one set of affine
-    inputs per distinct call) that the main path makes while it is active."""
+    inputs per distinct call) that the main path makes while it is active:
+    GroupNorm, the group statistics, the attention forwards (exact,
+    max-free, fused MSA) and the attention training route (the LSE forward
+    and the backward)."""
 
     calls = collections.Counter()
     affine = {}
@@ -703,13 +815,31 @@ def recording():
         calls[("max_free", tuple(q.shape), q.dtype, scale)] += 1
         return max_free_kernel(q, k, v, scale)
 
+    def lse(q, k, v, scale, *masked):
+        calls[("lse", tuple(q.shape), q.dtype, scale)] += 1
+        return lse_kernel(q, k, v, scale, *masked)
+
+    def bwd(q, k, v, o, lse_, g, scale, *masked):
+        calls[("bwd", tuple(q.shape), q.dtype, scale)] += 1
+        return bwd_kernel(q, k, v, o, lse_, g, scale, *masked)
+
+    def stats(x, groups):
+        calls[("stats", tuple(x.shape), x.dtype, groups)] += 1
+        return stats_kernel(x, groups)
+
+    lse_kernel, bwd_kernel = attention._attention_lse_kernel, attention._attention_bwd_kernel
+    stats_kernel = norm._STATS["kernel"]
     norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose_affine, gn, attn
     fused_msa._fused_msa_kernel, attention._attention_max_free_kernel = msa, max_free
+    attention._attention_lse_kernel, attention._attention_bwd_kernel = lse, bwd
+    norm._STATS["kernel"] = stats
     try:
         yield calls, affine
     finally:
         norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose, gn_kernel, attn_kernel
         fused_msa._fused_msa_kernel, attention._attention_max_free_kernel = msa_kernel, max_free_kernel
+        attention._attention_lse_kernel, attention._attention_bwd_kernel = lse_kernel, bwd_kernel
+        norm._STATS["kernel"] = stats_kernel
 
 
 def kernel_name(key) -> str:
@@ -717,14 +847,26 @@ def kernel_name(key) -> str:
 
     if key[0] == "gn":
         return "group_norm_silu" if key[4] else "group_norm"
-    return {"attn": "attention_fwd", "msa": "fused_msa", "max_free": "attention_fwd_max_free"}[key[0]]
+    return {
+        "attn": "attention_fwd", "msa": "fused_msa", "max_free": "attention_fwd_max_free",
+        "lse": "attention_fwd_lse", "bwd": "attention_bwd", "stats": "group_stats",
+    }[key[0]]
 
 
-def full_width_model(generator: torch.Generator):
-    r"""The imagenet_256x256 ADM denoiser with random bf16 weights: every
-    layer that the backbone zero-initializes is drawn like the others."""
+def manifest_parameters(name: str) -> int:
+    r"""The parameters of ADM card `name`'s backbone, as its checkpoint
+    manifest lists them."""
 
-    card = load_cards(adm)["imagenet_256x256"]
+    shapes = json.loads((ADM_MANIFESTS / f"{name}.model.json").read_text())
+    return sum(math.prod(shape) for shape in shapes.values())
+
+
+def full_width_model(generator: torch.Generator, name: str = "imagenet_256x256"):
+    r"""The ADM denoiser of card `name` (the main path's imagenet_256x256 by
+    default) with random bf16 weights: every layer that the backbone
+    zero-initializes is drawn like the others."""
+
+    card = load_cards(adm)[name]
     denoiser = adm.make_model(**card.config, device="cuda", generator=generator)
 
     backbone = denoiser.backbone
@@ -807,26 +949,22 @@ def sweep_plans(shapes, generator) -> None:
         f"within 3% of the fastest at {near}")
 
 
-def check_group_norm(calls, affine, generator) -> dict:
-    r"""Each recorded GroupNorm call against the plain version, in bf16 (the
-    main path's dtype, timed by events and on the device) and float32, with
-    the plan and its shared memory held against the C entry's; plus a
-    large-mean input, designs (a) and (b) at (8, 65536, 256), the plan
-    against its neighbours (`sweep_plans`), and the host's cost of the
-    autograd node that a direct call no longer makes."""
+def check_gn_calls(calls, affine, generator, per_kernel=None, quiet=False) -> dict:
+    r"""Each recorded GroupNorm call, with its recorded affine inputs, against
+    the plain version in bf16 and float32, with the plan and its shared
+    memory held against the C entry's; where `per_kernel` is given, timed
+    in the call's own dtype (by events and on the device) and summed into
+    it. Returns the largest relative error by dtype; `quiet` leaves out the
+    line per call."""
 
     lib = _build.library()
-    per_kernel = {
-        name: new_entry()
-        for name in ("group_norm_silu", "group_norm")
-    }
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
 
     keys = sorted((k for k in calls if k[0] == "gn"), key=lambda k: (k[4], k[5], k[1]))
     for key in keys:
         _, shape, dtype, groups, silu, modulated = key
         P, Q, eps = affine[key]
         name = "group_norm_silu" if silu else "group_norm"
-        entry = per_kernel[name]
         count = calls[key]
 
         for check_dtype in (torch.bfloat16, torch.float32):
@@ -839,13 +977,15 @@ def check_group_norm(calls, affine, generator) -> dict:
             abs_err, rel_err = errors(got, want)
             if rel_err > TOL_GN[check_dtype]:
                 raise AssertionError(f"group norm {shape} {check_dtype} silu={silu}: {rel_err} > {TOL_GN[check_dtype]}")
+            worst[check_dtype] = max(worst[check_dtype], rel_err)
 
             line = (
                 f"  group_norm {shape} {str(check_dtype)[6:]} silu={silu} mod={modulated} x{count}/fwd: "
                 f"max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {TOL_GN[check_dtype]})"
             )
 
-            if check_dtype == dtype:  # the main path's dtype: time it
+            if per_kernel is not None and check_dtype == dtype:  # the main path's dtype: time it
+                entry = per_kernel[name]
                 ms = elapsed_ms(lambda: norm._group_norm_kernel(x, P, Q, groups, eps, silu))
                 dev = device_ms(lambda: norm._group_norm_kernel(x, P, Q, groups, eps, silu), reps=10)
                 plain = elapsed_ms(lambda: norm._group_norm_plain(x, P, Q, groups, eps, silu))
@@ -870,8 +1010,29 @@ def check_group_norm(calls, affine, generator) -> dict:
                 entry["max_err"] = max(entry["max_err"], rel_err)
                 line += (f"; {ms:.4f} ms, device {dev:.4f} ms, plain {plain:.4f} ms, library {library} ms, "
                          f"bound {bound:.4f} ms ({by}); {plan_text(plan)}")
+            elif check_dtype == dtype:
+                line += f"; {plan_text(plan)}"
 
-            log(line)
+            if not quiet:
+                log(line)
+
+    return worst
+
+
+def check_group_norm(calls, affine, generator) -> dict:
+    r"""Each recorded GroupNorm call against the plain version
+    (`check_gn_calls`, timed in bf16); plus a large-mean input, designs (a)
+    and (b) at (8, 65536, 256), the plan against its neighbours
+    (`sweep_plans`), and the host's cost of the autograd node that a direct
+    call no longer makes."""
+
+    lib = _build.library()
+    per_kernel = {
+        name: new_entry()
+        for name in ("group_norm_silu", "group_norm")
+    }
+    check_gn_calls(calls, affine, generator, per_kernel)
+    keys = [k for k in calls if k[0] == "gn"]
 
     # off the main path: modulation without SiLU, and |mean| / std = 1e4
     B, C = 8, 512
@@ -952,15 +1113,17 @@ def check_group_norm(calls, affine, generator) -> dict:
     return per_kernel
 
 
-def check_attention(calls, generator) -> dict:
+def check_attention(calls, generator, entry=None, extra=None, quiet=False) -> dict:
     r"""The attention kernel against the plain version at the recorded shapes
-    (timed, with SDPA as the library yardstick) and at a ragged length and
-    the other head dims, in bf16 and float32."""
+    and at those of `extra` (shape: scale), in bf16 and float32, bf16 also
+    against its own rounding points; where `entry` is given, the recorded
+    shapes timed in bf16 (with SDPA as the library yardstick) and summed
+    into it. Returns the largest relative error by dtype; `quiet` leaves
+    out the line per call."""
 
-    entry = new_entry()
-
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     recorded = {k[1]: (calls[k], k[3]) for k in calls if k[0] == "attn"}
-    extra = {(8, 16, 100, 64): (0, 0.125), (4, 8, 256, 32): (0, 32**-0.5), (2, 4, 200, 128): (0, 128**-0.5)}
+    extra = {shape: (0, scale) for shape, scale in (extra or {}).items()}
 
     for shape, (count, scale) in sorted({**recorded, **extra}.items()):
         for dtype in (torch.bfloat16, torch.float32):
@@ -970,13 +1133,14 @@ def check_attention(calls, generator) -> dict:
             abs_err, rel_err = errors(got, want)
             if rel_err > TOL_ATTN[dtype]:
                 raise AssertionError(f"attention {shape} {dtype}: {rel_err} > {TOL_ATTN[dtype]}")
+            worst[dtype] = max(worst[dtype], rel_err)
 
             line = f"  attention {shape} {str(dtype)[6:]} x{count}/fwd: max abs err {abs_err:.3e}, rel {rel_err:.3e} (tol {TOL_ATTN[dtype]})"
             if dtype == torch.bfloat16:
                 tiled = check_tiled(got, attention._attention_tiled_plain(q, k, v, scale)[0], f"attention {shape}")
                 line += f"; against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
 
-            if count and dtype == torch.bfloat16:
+            if entry is not None and count and dtype == torch.bfloat16:
                 ms = elapsed_ms(lambda: attention._attention_kernel(q, k, v, scale))
                 plain = elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale))
                 library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
@@ -987,17 +1151,17 @@ def check_attention(calls, generator) -> dict:
                 line += (f"; {ms:.4f} ms ({speed(ops, ms, bound)}), plain {plain:.4f} ms, SDPA {library:.4f} ms, "
                          f"bound {bound:.4f} ms ({by})")
 
-            log(line)
+            if not quiet:
+                log(line)
 
-    return entry
+    return worst
 
 
-def check_slice() -> None:
-    r"""The tiny ADM on the CPU (plain versions) and on the card (kernels),
-    with the same random weights, in float32."""
+def tiny_adm_pair(rng: np.random.Generator, **config):
+    r"""The tiny ADM (`TINY`, with `config`) on the CPU and on the card, float32,
+    with the same weights drawn from `rng`."""
 
-    rng = np.random.default_rng(0)
-    cpu = adm.make_model(**TINY, device="cpu")
+    cpu = adm.make_model(**TINY, **config, device="cpu")
     state = {}
     for key, value in cpu.backbone.state_dict().items():
         if key.endswith("norm.weight"):
@@ -1009,8 +1173,18 @@ def check_slice() -> None:
         state[key] = torch.from_numpy(array.astype(np.float32))
     cpu.backbone.load_state_dict(state)
 
-    card = adm.make_model(**TINY, device="cuda")
+    card = adm.make_model(**TINY, **config, device="cuda")
     card.backbone.load_state_dict(state)
+
+    return cpu, card
+
+
+def check_slice() -> None:
+    r"""The tiny ADM on the CPU (plain versions) and on the card (kernels),
+    with the same random weights, in float32."""
+
+    rng = np.random.default_rng(0)
+    cpu, card = tiny_adm_pair(rng)
 
     x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
 
@@ -1646,6 +1820,45 @@ def train_full_width(denoiser, batch: int, side: int, calls_per_step: dict, gene
     return result
 
 
+def check_training_pair(shape, dtype, scale, generator) -> tuple:
+    r"""The LSE forward and the backward kernels on random q, k, v, g of
+    `shape` against their plain versions (the plain backward takes the
+    kernel's own o and lse, as autograd hands it the forward's), and in bf16
+    against their own rounding points. Returns q, k, v, g, o, lse, the
+    kernel's (dq, dk, dv), the errors by output and the line to log."""
+
+    q, k, v, g = (torch.randn(shape, generator=generator, device="cuda").to(dtype) for _ in range(4))
+
+    o, lse = attention._attention_lse_kernel(q, k, v, scale)
+    grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale)
+    want_o, want_lse = attention._attention_lse_plain(q, k, v, scale)
+    want_grads = attention._attention_bwd_plain(q, k, v, o, lse, g, scale)
+
+    errs = {"o": errors(o, want_o), "lse": errors(lse, want_lse)}
+    errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
+    del want_o, want_lse, want_grads
+    tol = TOL_ATTN[dtype]
+    bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
+    if bad:
+        raise AssertionError(f"attention training kernels {shape} {dtype}: {bad} > {tol}")
+
+    line = f"  attention_fwd_lse + attention_bwd (B, H, L, D) = {shape} {str(dtype)[6:]}: rel err " + ", ".join(
+        f"{name} {rel:.3e}" for name, (_, rel) in errs.items()
+    ) + f" (tol {tol})"
+    if dtype == torch.bfloat16:
+        tiled_o, tiled_lse = attention._attention_tiled_plain(q, k, v, scale)
+        tiled = check_tiled(o, tiled_o, f"attention_fwd_lse {shape}", lse, tiled_lse)
+        line += f"; o against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
+        del tiled_o, tiled_lse
+        unrounded = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, rounded=False)
+        rel = check_bwd_tc(grads, unrounded, f"attention_bwd {shape}")
+        line += "; dq, dk, dv against their rounding points " + ", ".join(
+            f"{name} {err:.3e}" for name, err in rel.items()) + f" (tol {TOL_BWD_TC})"
+        del unrounded
+
+    return q, k, v, g, o, lse, grads, errs, line
+
+
 def check_attention_training(generator) -> dict:
     r"""The LSE forward and the backward kernels against their plain versions
     at dit64's shape and the batched TPU kernels' lengths (timed in bf16,
@@ -1667,34 +1880,7 @@ def check_attention_training(generator) -> dict:
         B, H, L, D = shape
         scale = 1 / math.sqrt(D)
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, g = (torch.randn(shape, generator=generator, device="cuda").to(dtype) for _ in range(4))
-
-            o, lse = attention._attention_lse_kernel(q, k, v, scale)
-            grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale)
-            want_o, want_lse = attention._attention_lse_plain(q, k, v, scale)
-            want_grads = attention._attention_bwd_plain(q, k, v, o, lse, g, scale)
-
-            errs = {"o": errors(o, want_o), "lse": errors(lse, want_lse)}
-            errs.update({name: errors(a, b) for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads)})
-            del want_grads
-            tol = TOL_ATTN[dtype]
-            bad = {name: rel for name, (_, rel) in errs.items() if rel > tol}
-            if bad:
-                raise AssertionError(f"attention training kernels {shape} {dtype}: {bad} > {tol}")
-
-            line = f"  attention_fwd_lse + attention_bwd (B, H, L, D) = {shape} {str(dtype)[6:]}: rel err " + ", ".join(
-                f"{name} {rel:.3e}" for name, (_, rel) in errs.items()
-            ) + f" (tol {tol})"
-            if dtype == torch.bfloat16:
-                tiled_o, tiled_lse = attention._attention_tiled_plain(q, k, v, scale)
-                tiled = check_tiled(o, tiled_o, f"attention_fwd_lse {shape}", lse, tiled_lse)
-                line += f"; o against its rounding points rel {tiled:.3e} (tol {TOL_TC})"
-                del tiled_o, tiled_lse
-                unrounded = attention._attention_bwd_plain(q, k, v, o, lse, g, scale, rounded=False)
-                rel = check_bwd_tc(grads, unrounded, f"attention_bwd {shape}")
-                line += "; dq, dk, dv against their rounding points " + ", ".join(
-                    f"{name} {err:.3e}" for name, err in rel.items()) + f" (tol {TOL_BWD_TC})"
-                del unrounded
+            q, k, v, g, o, lse, grads, errs, line = check_training_pair(shape, dtype, scale, generator)
 
             if shape in timed and dtype == torch.bfloat16:
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1730,7 +1916,7 @@ def check_attention_training(generator) -> dict:
                 del out, leaves
 
             log(line)
-            del q, k, v, g, o, lse, grads, want_o, want_lse
+            del q, k, v, g, o, lse, grads
         torch.cuda.empty_cache()
 
     return entries
@@ -2264,6 +2450,35 @@ def unet32_model(generator: torch.Generator, norm: str) -> KarrasDenoiser:
     return KarrasDenoiser(backbone.to(torch.bfloat16), VPSchedule())
 
 
+def check_stats_case(shape, groups, dtype, generator) -> tuple:
+    r"""The statistics kernel against its plain version on 100 + 3 N inputs
+    of `shape`, and both against the exact statistics in float64. Returns
+    x, the plan, the mean's absolute and relative errors, the variance's
+    relative error and the line to log."""
+
+    B, HW, C = shape
+    x = (100 + 3 * torch.randn(shape, generator=generator, device="cuda")).to(dtype)
+    plan = norm._gn_plan(B, HW, C, groups, x.element_size(), stats=True)
+    mean, var = norm._stats_kernel(x, groups)
+    want_mean, want_var = norm._stats_kernel_plain(x, groups, plan.rows)
+    exact_var, exact_mean = torch.var_mean(x.double().view(B, HW, groups, -1), dim=(1, 3), correction=0)
+
+    mean_abs, mean_rel = errors(mean, want_mean)
+    var_rel = ((var.double() - want_var.double()).abs() / want_var.double()).max().item()
+    exact_rel = ((var.double() - exact_var).abs() / exact_var).max().item()
+    exact_mean_rel = errors(mean, exact_mean)[1]
+    tol = TOL_STATS[dtype]
+    line = (f"  group_stats {shape} G={groups} {str(dtype)[6:]} (bands of {plan.band}, clusters of "
+            f"{plan.cluster} x {plan.rows} rows; JAX's TPU kernel "
+            f"{'covers' if norm.stats_kernel_eligible(shape) else 'does not cover'} it): "
+            f"mean rel {mean_rel:.3e}, var rel {var_rel:.3e}; against float64 mean {exact_mean_rel:.3e}, "
+            f"var {exact_rel:.3e} (tol {tol})")
+    if max(mean_rel, var_rel, exact_rel, exact_mean_rel) > tol:
+        raise AssertionError(line)
+
+    return x, plan, mean_abs, mean_rel, var_rel, line
+
+
 def check_group_stats(generator) -> dict:
     r"""The statistics kernel against its plain version on 100 + 3 N inputs
     (|mean| / std ~ 33), in bf16 and float32, at unet32's three GroupNorm
@@ -2286,24 +2501,7 @@ def check_group_stats(generator) -> dict:
     for shape, groups, timed in cases:
         B, HW, C = shape
         for dtype in (torch.bfloat16, torch.float32):
-            x = (100 + 3 * torch.randn(shape, generator=generator, device="cuda")).to(dtype)
-            plan = norm._gn_plan(B, HW, C, groups, x.element_size(), stats=True)
-            mean, var = norm._stats_kernel(x, groups)
-            want_mean, want_var = norm._stats_kernel_plain(x, groups, plan.rows)
-            exact_var, exact_mean = torch.var_mean(x.double().view(B, HW, groups, -1), dim=(1, 3), correction=0)
-
-            mean_abs, mean_rel = errors(mean, want_mean)
-            var_rel = ((var.double() - want_var.double()).abs() / want_var.double()).max().item()
-            exact_rel = ((var.double() - exact_var).abs() / exact_var).max().item()
-            exact_mean_rel = errors(mean, exact_mean)[1]
-            tol = TOL_STATS[dtype]
-            line = (f"  group_stats {shape} G={groups} {str(dtype)[6:]} (bands of {plan.band}, clusters of "
-                    f"{plan.cluster} x {plan.rows} rows; JAX's TPU kernel "
-                    f"{'covers' if norm.stats_kernel_eligible(shape) else 'does not cover'} it): "
-                    f"mean rel {mean_rel:.3e}, var rel {var_rel:.3e}; against float64 mean {exact_mean_rel:.3e}, "
-                    f"var {exact_rel:.3e} (tol {tol})")
-            if max(mean_rel, var_rel, exact_rel, exact_mean_rel) > tol:
-                raise AssertionError(line)
+            x, plan, mean_abs, mean_rel, var_rel, line = check_stats_case(shape, groups, dtype, generator)
 
             if timed and dtype == torch.bfloat16:
                 xv = x.view(B, HW, groups, C // groups)
@@ -2676,6 +2874,621 @@ def unet32_sampling(generator) -> dict:
     return result
 
 
+def check_recorded(label: str, calls, affine, seed: int, quiet: bool = True) -> None:
+    r"""Every kernel call that a path recorded (`recording()`) against its
+    plain version at the recorded shape, in bf16 and float32: GroupNorm with
+    the recorded affine inputs (`check_gn_calls`, the planner's plan for
+    the recorded batch), the attention forward (`check_attention`), the
+    statistics (`check_stats_case`) and the LSE forward with the backward
+    (`check_training_pair`, also against their bf16 rounding points). The
+    inputs come from a generator seeded with `seed`, so that the path's own
+    draws stay as they were. One line for the path, and one per training
+    pair; `quiet=False` adds one per call."""
+
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    worst = collections.defaultdict(float)
+    with torch.no_grad():
+        if any(k[0] == "gn" for k in calls):
+            for dtype, err in check_gn_calls(calls, affine, generator, quiet=quiet).items():
+                worst["group_norm", dtype] = err
+        if any(k[0] == "attn" for k in calls):
+            for dtype, err in check_attention(calls, generator, quiet=quiet).items():
+                worst["attention_fwd", dtype] = err
+        for key in sorted(k for k in calls if k[0] == "stats"):
+            for dtype in (torch.bfloat16, torch.float32):
+                *_, mean_rel, var_rel, line = check_stats_case(key[1], key[3], dtype, generator)
+                worst["group_stats", dtype] = max(worst["group_stats", dtype], mean_rel, var_rel)
+                if not quiet:
+                    log(line)
+        pairs = sorted({(k[1], k[3]) for k in calls if k[0] in ("lse", "bwd")})
+        for shape, scale in pairs:
+            for dtype in (torch.bfloat16, torch.float32):
+                *_, errs, line = check_training_pair(shape, dtype, scale, generator)
+                worst["attention_fwd_lse + attention_bwd", dtype] = max(
+                    worst["attention_fwd_lse + attention_bwd", dtype], *(rel for _, rel in errs.values())
+                )
+                log(line)
+        torch.cuda.empty_cache()
+
+    shapes = collections.Counter(kernel_name(k) for k in calls)
+    log(f"  {label}: every recorded call against its plain version, distinct shapes {dict(shapes)}; worst rel err "
+        + ", ".join(f"{name} {str(dtype)[6:]} {err:.3e}" for (name, dtype), err in worst.items()))
+
+
+def launch_counts(calls) -> dict:
+    r"""Recorded calls summed by kernel."""
+
+    counts = collections.Counter()
+    for key, n in calls.items():
+        counts[kernel_name(key)] += n
+    return dict(counts)
+
+
+def cfg_full_width(generator, steps: int) -> dict:
+    r"""adm256_cfg at full width (phase 30): two-call CFG, then batched,
+    each a DDIM trajectory from the same noise with exact launch counts,
+    images/s, ms/step, peak memory and a profile of one step; every call
+    that either recorded held against its plain version (`check_recorded`:
+    GroupNorm at the batch-16 plans too); then the batched mean against
+    the two-call mean at one time beside its sources and controls
+    (`cfg_readings`)."""
+
+    denoiser = full_width_model(generator, CFG_CARD)
+    n_params = sum(p.numel() for p in denoiser.backbone.parameters())
+    if n_params != manifest_parameters(CFG_CARD):
+        raise AssertionError(f"{CFG_CARD} has {n_params:,} parameters, its manifest {manifest_parameters(CFG_CARD):,}")
+    labels = torch.arange(BATCH, device="cuda") % 1000
+    cond = dict(positive={"label": labels}, negative={"label": torch.zeros_like(labels)}, guidance=CFG_GUIDANCE)  # noqa: C408
+    log(f"{CFG_CARD}: {n_params:,} parameters (its manifest's); labels {labels.tolist()}, negative 0, "
+        f"guidance {CFG_GUIDANCE}")
+
+    x = DDIMSampler(denoiser, steps=steps).init((BATCH, 256, 256, 3), generator=generator)
+    results, recorded = {}, {}
+    for batched in (False, True):
+        sampler = DDIMSampler(CFGDenoiser(denoiser, batched=batched), eta=0.0, steps=steps)
+        calls_per_step = CALLS_PER_FORWARD if batched else {name: 2 * n for name, n in CALLS_PER_FORWARD.items()}
+        label = "batched (one call at batch 16)" if batched else "two-call (two calls at batch 8)"
+
+        with torch.inference_mode():
+            grid = sampler.timesteps.cuda()
+            with recording() as (calls, affine):
+                sampler.step(x, grid[0], grid[1], **cond)  # warm-up
+            recorded[batched] = label, calls, affine
+            torch.cuda.synchronize()
+            batches = {key[1][0] for key in calls}
+            log(f"{label}: calls in one step {launch_counts(calls)}, batch {sorted(batches)}")
+            if launch_counts(calls) != calls_per_step or batches != {2 * BATCH if batched else BATCH}:
+                raise AssertionError(f"expected {calls_per_step} calls per CFG step at one batch")
+            torch.cuda.reset_peak_memory_stats()
+
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            y = sampler(x, **cond)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+
+        peak = torch.cuda.max_memory_allocated()
+        if not bool(torch.isfinite(y).all()) or y.shape != x.shape:
+            raise AssertionError("the adm256_cfg trajectory is not finite")
+        expected = {name: n * steps for name, n in calls_per_step.items()}
+        log(f"launches {launches}, expected {expected}")
+        if launches != expected:
+            raise AssertionError("the adm256_cfg launch counts are not exact")
+        results[batched] = dict(images_s=BATCH / seconds, ms=seconds / steps * 1e3, peak_gib=peak / 2**30)  # noqa: C408
+        log(f"adm256_cfg {label}: trajectory {seconds:.3f} s, {BATCH / seconds:.4f} images/s, "
+            f"{seconds / steps * 1e3:.2f} ms/step, peak memory {peak / 2**30:.2f} GiB; "
+            f"sample mean {y.float().mean().item():.4f}, std {y.float().std().item():.4f}")
+        with torch.inference_mode():
+            profile_step(lambda sampler=sampler, grid=grid: sampler.step(x, grid[0], grid[1], **cond))
+
+    for batched, (label, calls, affine) in recorded.items():
+        check_recorded(f"adm256_cfg {label}", calls, affine, seed=300 + batched)
+
+    t = torch.tensor(CFG_TIME, device="cuda")
+    readings = cfg_readings(denoiser, x, t, cond)
+    err, err32 = readings["batched"][0], readings["float32"][0]
+    controls = min(reading[0] for name, reading in readings.items() if name.startswith("control"))
+    log(f"batched against two-call mean at t = {CFG_TIME}: rel err {err:.3e} (tol {TOL_CFG_BATCHED}), "
+        f"float32 {err32:.3e} (tol {TOL_CFG_FLOAT32}); the nearest control {controls:.3e}")
+    if err > TOL_CFG_BATCHED or err32 > TOL_CFG_FLOAT32:
+        raise AssertionError("the batched CFG mean disagrees with the two-call mean")
+    if controls <= TOL_CFG_BATCHED:
+        raise AssertionError("a broken batched CFG path would pass the limit")
+    log(f"adm256_cfg: batched / two-call ms per step {results[True]['ms'] / results[False]['ms']:.3f}")
+
+    del denoiser, x, y, sampler
+    torch.cuda.empty_cache()
+
+    return results
+
+
+@contextlib.contextmanager
+def plain_forwards():
+    r"""GroupNorm and the attention forward on their plain versions on the
+    card while it is active: a reading of where a difference comes from,
+    never a path whose launches are counted."""
+
+    def gn(x, P, Q, groups, eps, silu):
+        return norm._group_norm_plain(x, P, Q, groups, eps, silu)
+
+    def attn(q, k, v, scale, bias=None, *masked):
+        if bias is not None:
+            raise NotImplementedError("plain_forwards() covers attention without a bias")
+        return attention._attention_plain(q, k, v, scale=scale)
+
+    gn_kernel, attn_kernel = norm._group_norm_kernel, attention._attention_kernel
+    norm._group_norm_kernel, attention._attention_kernel = gn, attn
+    try:
+        yield
+    finally:
+        norm._group_norm_kernel, attention._attention_kernel = gn_kernel, attn_kernel
+
+
+def cfg_readings(denoiser, x, t, cond) -> dict:
+    r"""The batched CFG mean against the two-call mean at time `t`, beside
+    where their difference comes from and what a broken batched path would
+    give: (max |error| / max |want|, rms error / rms want) of each.
+
+    - batched: the batched mean against the two-call mean;
+    - denoiser at 16 against 8 (kernels or plain): the denoiser's mean of
+      the positive rows at batch 16 (beside the negative rows, as the
+      batched call runs them) against the same rows at batch 8, with the
+      kernels or with GroupNorm and attention on their plain versions;
+    - denoiser run twice: the batch-8 call against itself;
+    - float32: batched against two-call with the backbone in float32
+      (the float32 kernels), after the bf16 readings;
+    - controls: the halves swapped (the guidance term's sign reversed), the
+      negative label for both halves, and the positive labels rolled by
+      one, each against the two-call mean."""
+
+    def rel(got, want):
+        diff = (got.double() - want.double())
+        return (diff.abs().max().item() / want.double().abs().max().item(),
+                diff.pow(2).mean().sqrt().item() / want.double().pow(2).mean().sqrt().item())
+
+    labels, negative = cond["positive"]["label"], cond["negative"]["label"]
+    readings = {}
+    with torch.inference_mode():
+        two = CFGDenoiser(denoiser)(x, t, **cond).mean
+        readings["batched"] = rel(CFGDenoiser(denoiser, batched=True)(x, t, **cond).mean, two)
+
+        x2, labels2 = torch.cat([x, x]), torch.cat([labels, negative])
+        eight = {}
+        for name, context in (("kernels", contextlib.nullcontext), ("plain", plain_forwards)):
+            with context():
+                eight[name] = denoiser(x, t, label=labels).mean
+                sixteen = denoiser(x2, t, label=labels2).mean[:BATCH]
+            readings[f"denoiser at 16 against 8 ({name})"] = rel(sixteen, eight[name])
+        readings["denoiser run twice"] = rel(denoiser(x, t, label=labels).mean, eight["kernels"])
+
+        controls = {
+            "control: halves swapped": dict(positive=cond["negative"], negative=cond["positive"]),  # noqa: C408
+            "control: the negative label for both": dict(positive=cond["negative"], negative=cond["negative"]),  # noqa: C408
+            "control: labels rolled by one": dict(  # noqa: C408
+                positive={"label": labels.roll(1)}, negative=cond["negative"],
+            ),
+        }
+        for name, swapped in controls.items():
+            readings[name] = rel(CFGDenoiser(denoiser, batched=True)(x, t, **swapped, guidance=CFG_GUIDANCE).mean, two)
+
+        denoiser.backbone.float()
+        two = CFGDenoiser(denoiser)(x, t, **cond).mean
+        readings["float32"] = rel(CFGDenoiser(denoiser, batched=True)(x, t, **cond).mean, two)
+        denoiser.backbone.to(torch.bfloat16)
+
+    for name, (max_rel, rms_rel) in readings.items():
+        log(f"  CFG at t = {t.item():.4f}, {name}: max {max_rel:.3e}, rms {rms_rel:.3e}")
+
+    return readings
+
+
+def left_half(x: torch.Tensor) -> torch.Tensor:
+    r"""mmps32's forward operator: the left half of each image, flattened."""
+
+    return x[..., : x.shape[-2] // 2, :].reshape(*x.shape[:-3], -1)
+
+
+def mmps32_full_width(generator) -> dict:
+    r"""mmps32 at full width (phase 32) as `bench.py` builds it: the unet32
+    denoiser (norm="layer": no kernel of ours), left-half inpainting, MMPS
+    with gmres-1, DDIM-64 at batch 64 under `torch.no_grad()`, with the
+    network's VJPs counted by a backward hook on the untimed warm-up step."""
+
+    denoiser = unet32_model(generator, "layer")
+    x_true = torch.randn((MMPS_BATCH, 32, 32, 3), generator=generator, device="cuda")
+    y = left_half(x_true)
+    y = y + MMPS_NOISE * torch.randn(y.shape, generator=generator, device="cuda")
+    guided = MMPSDenoiser(denoiser, y, left_half, IsotropicCovariance(MMPS_NOISE**2), solver="gmres", iterations=1)
+    sampler = DDIMSampler(guided, eta=0.0, steps=MMPS_STEPS)
+    x = sampler.init((MMPS_BATCH, 32, 32, 3), generator=generator)
+
+    vjps = [0]
+
+    def count(module, grad_input, grad_output):
+        vjps[0] += 1
+
+    # the VJPs are counted on the warm-up step only: the hook wraps every
+    # backbone call in autograd functions of its own, so the timed
+    # trajectory runs without it
+    hook = denoiser.backbone.register_full_backward_hook(count)
+    try:
+        with torch.no_grad():
+            grid = sampler.timesteps.cuda()
+            sampler.step(x, grid[0], grid[1])  # warm-up
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    counted = vjps[0]
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = sampler(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(out).all()) or out.shape != x.shape:
+        raise AssertionError("the mmps32 trajectory is not finite")
+    log(f"launches {launches}, expected none (norm='layer' runs no kernel of ours); "
+        f"network VJPs in the warm-up step {counted}, expected {MMPS_VJPS_PER_STEP}")
+    if launches or counted != MMPS_VJPS_PER_STEP:
+        raise AssertionError("the mmps32 path launched a kernel or took another count of VJPs")
+    residual = (left_half(out) - y).float().pow(2).mean().sqrt().item()
+    result = dict(images_s=MMPS_BATCH / seconds, ms=seconds / MMPS_STEPS * 1e3, peak_gib=peak / 2**30)  # noqa: C408
+    log(f"mmps32 trajectory {seconds:.3f} s, {result['images_s']:.4f} images/s, {result['ms']:.3f} ms/step, "
+        f"{counted} VJPs per step, peak memory {result['peak_gib']:.2f} GiB; "
+        f"observed-half residual rms {residual:.4f} (noise {MMPS_NOISE})")
+    with torch.no_grad():
+        profile_step(lambda: sampler.step(x, grid[0], grid[1]))
+
+    del denoiser, guided, sampler, x, out
+    torch.cuda.empty_cache()
+
+    return result
+
+
+def guided_adm(generator) -> dict:
+    r"""ADM-256 under the guidance VJP (phase 33): MMPSDenoiser (gmres-1) on
+    imagenet_256x256, bf16, batch 8, a seeded mask of half the pixels, DDIM
+    cut to `GUIDED_STEPS` steps, with the launches of GroupNorm through its
+    autograd node, the statistics it saves, the LSE forwards and the
+    backwards counted exactly per step, and every call of one step held
+    against its plain version at its recorded shape (`check_recorded`: the
+    LSE forward and the backward at each (B, H, L, D) of
+    `GUIDED_ATTENTION_BY_L`, bf16 and float32)."""
+
+    denoiser = full_width_model(generator)
+    pixels = 256 * 256
+    keep = torch.randperm(pixels, generator=torch.Generator().manual_seed(30))[: pixels // 2].sort().values.cuda()
+
+    def A(x):
+        return x.reshape(*x.shape[:-3], pixels, 3)[..., keep, :].reshape(*x.shape[:-3], -1)
+
+    x_true = torch.randn((BATCH, 256, 256, 3), generator=generator, device="cuda").clip(-1, 1)
+    y = A(x_true)
+    y = y + MMPS_NOISE * torch.randn(y.shape, generator=generator, device="cuda")
+    guided = MMPSDenoiser(denoiser, y, A, IsotropicCovariance(MMPS_NOISE**2), solver="gmres", iterations=1)
+    sampler = DDIMSampler(guided, eta=0.0, steps=GUIDED_STEPS)
+    x = sampler.init((BATCH, 256, 256, 3), generator=generator)
+    log(f"steps cut from 64 to {GUIDED_STEPS}; mask of {pixels // 2} of {pixels} pixels (seed 30)")
+
+    with torch.no_grad():
+        grid = sampler.timesteps.cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        with recording() as (calls, affine):
+            sampler.step(x, grid[0], grid[1])
+        torch.cuda.synchronize()
+        step_launches = dict(_build.LAUNCHES)
+        by_length = {name: collections.Counter() for name in GUIDED_ATTENTION_BY_L}
+        for key, n in calls.items():
+            if kernel_name(key) in by_length:
+                by_length[kernel_name(key)][key[1][2]] += n
+        by_length = {name: dict(counter) for name, counter in by_length.items()}
+        log(f"one guided step: launches {step_launches}; attention by L {by_length}")
+        if step_launches != GUIDED_LAUNCHES_PER_STEP or by_length != GUIDED_ATTENTION_BY_L:
+            raise AssertionError(f"expected {GUIDED_LAUNCHES_PER_STEP} launches per guided step, by L {GUIDED_ATTENTION_BY_L}")
+
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = sampler(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(out).all()) or out.shape != x.shape:
+        raise AssertionError("the guided ADM trajectory is not finite")
+    expected = {name: n * GUIDED_STEPS for name, n in GUIDED_LAUNCHES_PER_STEP.items()}
+    log(f"launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError("the guided ADM launch counts are not exact")
+    log(f"guided ADM-256: {GUIDED_STEPS} steps in {seconds:.3f} s ({seconds / GUIDED_STEPS * 1e3:.1f} ms/step, "
+        f"not a timing path), peak memory {peak / 2**30:.2f} GiB; sample mean {out.float().mean().item():.4f}, "
+        f"std {out.float().std().item():.4f}")
+    check_recorded("guided ADM-256", calls, affine, seed=330)
+    with torch.no_grad():
+        profile_step(lambda: sampler.step(x, grid[0], grid[1]))
+
+    del denoiser, guided, sampler, x, out
+    torch.cuda.empty_cache()
+
+    return dict(launches=launches, peak_gib=peak / 2**30)  # noqa: C408
+
+
+class SeededNormal:
+    r"""Normal draws from a seeded NumPy generator, in the requested dtype and
+    on the requested device: the same draws on the CPU and on the card."""
+
+    def __init__(self, seed: int) -> None:
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, generator, shape, like: torch.Tensor) -> torch.Tensor:
+        draw = torch.from_numpy(self.rng.standard_normal(tuple(shape)).astype(np.float32))
+        return draw.to(device=like.device, dtype=like.dtype)
+
+
+class SeededAncestors:
+    r"""TDS's ancestors by the Gumbel-max trick on seeded Gumbel noise: the
+    same draws on both devices, so the same indices for (nearly) equal
+    weights."""
+
+    def __init__(self, seed: int) -> None:
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, log_w: torch.Tensor, generator) -> torch.Tensor:
+        K = log_w.shape[0]
+        gumbel = torch.from_numpy(self.rng.gumbel(size=(K, K))).to(log_w.device)
+        return torch.argmax(log_w[None, :].double() + gumbel, dim=1)
+
+
+SAMPLER_SLICES = {
+    "DDPMSampler": lambda d: sample.DDPMSampler(d, steps=SLICE_STEPS),
+    "DDIMSampler": lambda d: sample.DDIMSampler(d, eta=0.5, steps=SLICE_STEPS),
+    "EulerSampler": lambda d: sample.EulerSampler(d, steps=SLICE_STEPS),
+    "HeunSampler": lambda d: sample.HeunSampler(d, steps=SLICE_STEPS),
+    "ItoSampler": lambda d: sample.ItoSampler(d, steps=SLICE_STEPS),
+    "zABSampler": lambda d: sample.zABSampler(d, order=3, steps=SLICE_STEPS),
+    "vABSampler": lambda d: sample.vABSampler(d, steps=SLICE_STEPS),
+    "zEABSampler": lambda d: sample.zEABSampler(d, steps=SLICE_STEPS),
+    "xEABSampler": lambda d: sample.xEABSampler(d, order=3, steps=SLICE_STEPS),
+    "REABSampler": lambda d: sample.REABSampler(d, steps=SLICE_STEPS),
+    "PCSampler": lambda d: sample.PCSampler(d, steps=SLICE_STEPS),
+}
+
+
+def check_sampler_slices() -> None:
+    r"""Each of the eleven samplers on the tiny ADM, CPU (plain versions)
+    against the card (kernels), float32, `SLICE_STEPS` steps, the stochastic
+    ones fed the same draws on both devices."""
+
+    cpu, card = tiny_adm_pair(np.random.default_rng(31))
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal((2, 32, 32, 3)).astype(np.float32))
+
+    with torch.inference_mode():
+        for i, (name, make) in enumerate(SAMPLER_SLICES.items()):
+            out = []
+            for model, device in ((cpu, "cpu"), (card, "cuda")):
+                sampler = make(model)
+                sampler._normal = SeededNormal(100 + i)
+                _build.LAUNCHES.clear()
+                out.append(sampler(x.to(device), generator=torch.Generator(device=device)).cpu())
+                launched = dict(_build.LAUNCHES)
+            _, err = errors(out[1], out[0])
+            log(f"  {name}: {SLICE_STEPS} steps, rel err {err:.3e} (tol {TOL_TRAJECTORY}); card launches {launched}")
+            if err > TOL_TRAJECTORY or set(launched) != set(CALLS_PER_FORWARD):
+                raise AssertionError(f"{name} on the card disagrees with the CPU or missed a kernel")
+
+
+def check_cfg_slice() -> None:
+    r"""A tiny class-conditional ADM under CFG, two-call and batched, CPU
+    against the card, float32: the mean at two times, a DDIM-4 trajectory,
+    exact launches (twice the forward's for two calls, once batched)."""
+
+    cpu, card = tiny_adm_pair(np.random.default_rng(33), num_classes=SLICE_CLASSES)
+    x = torch.from_numpy(np.random.default_rng(34).standard_normal((2, 32, 32, 3)).astype(np.float32))
+
+    def cond(device):
+        return dict(positive={"label": torch.tensor([3, 7], device=device)},  # noqa: C408
+                    negative={"label": torch.tensor([0], device=device)}, guidance=CFG_GUIDANCE)
+
+    with torch.inference_mode():
+        _build.LAUNCHES.clear()
+        card(x.cuda(), torch.tensor(0.5, device="cuda"), label=torch.tensor([3, 7], device="cuda"))
+        forward = dict(_build.LAUNCHES)
+
+        for batched in (False, True):
+            for t in (0.3, 0.9):
+                want = CFGDenoiser(cpu, batched=batched)(x, torch.tensor(t), **cond("cpu")).mean
+                _build.LAUNCHES.clear()
+                got = CFGDenoiser(card, batched=batched)(x.cuda(), torch.tensor(t, device="cuda"), **cond("cuda")).mean
+                launched = dict(_build.LAUNCHES)
+                alpha, sigma = cpu.schedule(torch.tensor(t))
+                tol = TOL_SLICE * max(1.0, float(sigma / alpha)) * (1 + 2 * CFG_GUIDANCE)
+                _, err = errors(got.cpu(), want)
+                expected = forward if batched else {name: 2 * n for name, n in forward.items()}
+                log(f"  CFG {'batched' if batched else 'two-call'} t={t}: rel err {err:.3e} (tol {tol:.1e}), "
+                    f"launches {launched} (expected {expected})")
+                if err > tol or launched != expected:
+                    raise AssertionError("the tiny CFG denoiser on the card disagrees with the CPU")
+
+            want = DDIMSampler(CFGDenoiser(cpu, batched=batched), steps=4)(x, **cond("cpu"))
+            got = DDIMSampler(CFGDenoiser(card, batched=batched), steps=4)(x.cuda(), **cond("cuda"))
+            _, err = errors(got.cpu(), want)
+            tol = TOL_TRAJECTORY * (1 + 2 * CFG_GUIDANCE)
+            log(f"  CFG {'batched' if batched else 'two-call'} DDIM-4: rel err {err:.3e} (tol {tol:.1e})")
+            if err > tol:
+                raise AssertionError("the tiny CFG trajectory on the card disagrees with the CPU")
+
+
+def tiny_inverse_problem(device: str):
+    r"""mmps32's left-half inpainting on the tiny ADM's 32 x 32 images: the
+    observation y, the masked image and the mask, from seeded draws."""
+
+    rng = np.random.default_rng(35)
+    x_true = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)).clip(-1, 1)
+    y = left_half(x_true) + MMPS_NOISE * torch.from_numpy(rng.standard_normal((2, 16 * 32 * 3)).astype(np.float32))
+    mask = torch.arange(32)[None, :, None] < 16
+    return y.to(device), torch.where(mask, x_true, 0.0).to(device), mask.expand(32, 32, 3).to(device)
+
+
+def left_half_inverse(y: torch.Tensor) -> torch.Tensor:
+    r"""A pseudo-inverse of `left_half` on 32 x 32 images: zeros on the right."""
+
+    left = y.reshape(*y.shape[:-1], 32, 16, 3)
+    return torch.cat([left, torch.zeros_like(left)], dim=-2)
+
+
+GUIDED_WRAPPERS = {
+    "MMPSDenoiser": lambda d, y: MMPSDenoiser(d, y, left_half, IsotropicCovariance(MMPS_NOISE**2)),
+    "TMPDenoiser": lambda d, y: guidance.TMPDenoiser(d, y, left_half, MMPS_NOISE**2),
+    "DiffPIRDenoiser": lambda d, y: guidance.DiffPIRDenoiser(d, y, left_half, MMPS_NOISE**2, lmbda=1.0, iterations=2),
+    "JFPSDenoiser": lambda d, y: guidance.JFPSDenoiser(
+        d, y, left_half, IsotropicCovariance(MMPS_NOISE**2), IsotropicCovariance(1.0), iterations=2
+    ),
+}
+
+GUIDED_SAMPLERS = {
+    "DPSSampler": lambda d, y, obs, mask: guidance.DPSSampler(d, y, left_half, zeta=0.3, steps=SLICE_STEPS),
+    "PGDMSampler": lambda d, y, obs, mask: guidance.PGDMSampler(d, y, left_half, left_half_inverse, eta=0.5, steps=SLICE_STEPS),
+    "RePaintSampler": lambda d, y, obs, mask: guidance.RePaintSampler(d, obs, mask, iterations=2, eta=0.5, steps=SLICE_STEPS),
+}
+
+# the kernels each guidance method runs on the tiny ADM: a VJP through the
+# denoiser takes the training route (GroupNorm's autograd node with its
+# statistics, the LSE forward and the backward)
+GRAD_ROUTE = {"group_norm_silu", "group_norm", "group_stats", "attention_fwd_lse", "attention_bwd"}
+
+
+def check_guidance_slices() -> None:
+    r"""Each guidance method on the tiny ADM, CPU (plain versions) against
+    the card (kernels, under grad where the method takes VJPs), float32,
+    under `torch.no_grad()`: the wrappers' means at two times, the sampler
+    subclasses' steps and a 4-step TDS trajectory with the same draws."""
+
+    cpu, card = tiny_adm_pair(np.random.default_rng(36))
+    x = torch.from_numpy(np.random.default_rng(37).standard_normal((2, 32, 32, 3)).astype(np.float32))
+    problem = {"cpu": tiny_inverse_problem("cpu"), "cuda": tiny_inverse_problem("cuda")}
+
+    def expect(name, launched):
+        route = GRAD_ROUTE if name != "DiffPIRDenoiser" and name != "JFPSDenoiser" else set(CALLS_PER_FORWARD)
+        if set(launched) != route:
+            raise AssertionError(f"{name} launched {sorted(launched)} on the card, expected {sorted(route)}")
+
+    exact = copy.deepcopy(cpu).double()
+    with torch.no_grad():
+        for name, make in GUIDED_WRAPPERS.items():
+            for t in (0.3, 0.6):
+                want = make(cpu, problem["cpu"][0])(x, torch.tensor(t)).mean
+                _build.LAUNCHES.clear()
+                got = make(card, problem["cuda"][0])(x.cuda(), torch.tensor(t, device="cuda")).mean
+                launched = dict(_build.LAUNCHES)
+                alpha, sigma = cpu.schedule(torch.tensor(t))
+                scale = max(1.0, float(sigma / alpha))
+                _, err = errors(got.cpu(), want)
+                if name == "TMPDenoiser":
+                    # held to the CPU's float64, beside the CPU's own float32
+                    exact_mean = make(exact, problem["cpu"][0].double())(
+                        x.double(), torch.tensor(t, dtype=torch.float64)
+                    ).mean
+                    _, err = errors(got.cpu(), exact_mean)
+                    tol = TOL_TMPD_SLICE * scale
+                    log(f"  {name} t={t}: rel err against the CPU's float64 {err:.3e} (tol {tol:.1e}); the CPU's "
+                        f"float32 {errors(want, exact_mean)[1]:.3e}, the card against it {errors(got.cpu(), want)[1]:.3e}; "
+                        f"card launches {launched}")
+                else:
+                    tol = TOL_SLICE * scale
+                    log(f"  {name} t={t}: rel err {err:.3e} (tol {tol:.1e}); card launches {launched}")
+                if err > tol:
+                    raise AssertionError(f"{name} on the card disagrees with the CPU")
+                expect(name, launched)
+
+        for i, (name, make) in enumerate(GUIDED_SAMPLERS.items()):
+            for t, s in ((1.0, 0.875), (0.5, 0.375), (0.125, 0.0)):
+                out = []
+                for model, device in ((cpu, "cpu"), (card, "cuda")):
+                    sampler = make(model, *problem[device])
+                    sampler._normal = SeededNormal(200 + i)
+                    _build.LAUNCHES.clear()
+                    out.append(sampler.step(
+                        x.to(device), torch.tensor(t, device=device), torch.tensor(s, device=device),
+                        generator=torch.Generator(device=device),
+                    ).cpu())
+                    launched = dict(_build.LAUNCHES)
+                _, err = errors(out[1], out[0])
+                log(f"  {name} step {t} -> {s}: rel err {err:.3e} (tol {TOL_TRAJECTORY}); card launches {launched}")
+                if err > TOL_TRAJECTORY:
+                    raise AssertionError(f"{name} on the card disagrees with the CPU")
+                if name != "RePaintSampler":
+                    expect(name, launched)
+                elif set(launched) != set(CALLS_PER_FORWARD):
+                    raise AssertionError(f"RePaintSampler launched {sorted(launched)} on the card")
+
+        xk = torch.from_numpy(np.random.default_rng(38).standard_normal((4, 32, 32, 3)).astype(np.float32))
+        for threshold in (1.0, 0.0):
+            out = []
+            for model, device in ((cpu, "cpu"), (card, "cuda")):
+                y0 = problem[device][0][0]
+
+                def twist(x_hat, ratio, y0=y0):
+                    return -torch.sum((y0 - left_half(x_hat)) ** 2, dim=-1) / (2 * (MMPS_NOISE**2 + ratio**2))
+
+                sampler = guidance.TDSSampler(model, twist, resample_threshold=threshold, return_weights=True, steps=4)
+                sampler._normal, sampler._resample = SeededNormal(300), SeededAncestors(301)
+                _build.LAUNCHES.clear()
+                particles, log_w = sampler(xk.to(device), generator=torch.Generator(device=device))
+                out.append((particles.cpu(), log_w.cpu()))
+                launched = dict(_build.LAUNCHES)
+            _, err = errors(out[1][0], out[0][0])
+            _, w_err = errors(out[1][1], out[0][1])
+            log(f"  TDSSampler threshold {threshold}: 4 steps, rel err {err:.3e}, log-weights {w_err:.3e} "
+                f"(tol {TOL_TRAJECTORY}); card launches {launched}")
+            if err > TOL_TRAJECTORY or w_err > TOL_TRAJECTORY:
+                raise AssertionError("TDSSampler on the card disagrees with the CPU")
+            if not GRAD_ROUTE <= set(launched):
+                raise AssertionError(f"TDSSampler launched {sorted(launched)} on the card")
+
+
+def check_cards(generator) -> None:
+    r"""Each of ADM's six cards once at full width (phase 34): one bf16
+    forward at batch 1 of `make_model(**card.config)` with random weights,
+    finite, with the manifest's parameter count, every attention block on
+    the attention kernel (the 128-px card's heads of 128, 192 and 256), and
+    every recorded call held against its plain version (`check_recorded`)."""
+
+    for i, (name, card) in enumerate(load_cards(adm).items()):
+        denoiser = full_width_model(generator, name)
+        n_params = sum(p.numel() for p in denoiser.backbone.parameters())
+        blocks = sum(isinstance(m, adm.backbone.ADMAttentionBlock) for m in denoiser.backbone.modules())
+        size = card.config["image_size"]
+        x = torch.randn((1, size, size, 3), generator=generator, device="cuda")
+        label = torch.tensor([7], device="cuda") if card.config.get("num_classes") else None
+
+        with torch.inference_mode(), recording() as (calls, affine):
+            out = denoiser(x, torch.tensor(0.5, device="cuda"), label=label)
+            torch.cuda.synchronize()
+        heads = sorted({(key[1][3], key[1][2]) for key in calls if key[0] == "attn"})
+        counts = launch_counts(calls)
+        log(f"  {name}: {n_params:,} parameters (manifest {manifest_parameters(name):,}), {size} px, "
+            f"calls {counts}, attention (D, L) {heads}; mean {out.mean.float().mean().item():.4f}")
+        if not bool(torch.isfinite(out.mean).all()) or out.mean.shape != x.shape:
+            raise AssertionError(f"{name}'s forward is not finite")
+        if n_params != manifest_parameters(name):
+            raise AssertionError(f"{name}'s parameter count is not its manifest's")
+        if counts.get("attention_fwd", 0) != blocks:
+            raise AssertionError(f"{name}: {counts.get('attention_fwd', 0)} attention kernel calls for {blocks} blocks")
+        if name == "imagenet_128x128_cond" and {D for D, _ in heads} != {128, 192, 256}:
+            raise AssertionError(f"{name}: heads {heads}, expected D = 128, 192 and 256 on the kernel")
+        check_recorded(name, calls, affine, seed=340 + i)
+
+        del denoiser, x, out
+        torch.cuda.empty_cache()
+
+
 def masked_source(name: str) -> tuple[str, str]:
     r"""The source and the TPU kernel of a masked or dropout form."""
 
@@ -2732,16 +3545,15 @@ def main() -> None:
 
     with torch.inference_mode(), recording() as (calls, affine):
         denoiser(x, sampler.timesteps[0].cuda())
-    recorded = collections.Counter()
-    for key, count in calls.items():
-        recorded[kernel_name(key)] += count
-    log(f"calls in one full-width forward: {dict(recorded)}")
-    if dict(recorded) != CALLS_PER_FORWARD:
+    recorded = launch_counts(calls)
+    log(f"calls in one full-width forward: {recorded}")
+    if recorded != CALLS_PER_FORWARD:
         raise AssertionError(f"expected {CALLS_PER_FORWARD} calls per forward")
 
     with torch.inference_mode():
         gn = check_group_norm(calls, affine, generator)
-        at = check_attention(calls, generator)
+        at = new_entry()
+        check_attention(calls, generator, at, ATTENTION_EXTRA)
 
     log("== 4. the tiny slice: CPU plain versions against the card's kernels, float32")
     check_slice()
@@ -2784,11 +3596,9 @@ def main() -> None:
 
     with torch.inference_mode(), recording() as (calls, _):
         dit(xd, dit_sampler.timesteps[0].cuda())
-    recorded = collections.Counter()
-    for key, count in calls.items():
-        recorded[kernel_name(key)] += count
-    log(f"calls in one full-width dit32 forward: {dict(recorded)}; {list(calls)}")
-    if dict(recorded) != DIT_CALLS_PER_FORWARD:
+    recorded = launch_counts(calls)
+    log(f"calls in one full-width dit32 forward: {recorded}; {list(calls)}")
+    if recorded != DIT_CALLS_PER_FORWARD:
         raise AssertionError(f"expected {DIT_CALLS_PER_FORWARD} calls per dit32 forward")
 
     with torch.inference_mode():
@@ -2954,7 +3764,33 @@ def main() -> None:
         f"peak {unet_group['peak_gib']:.2f} GiB; norm='layer' (bench.py's, this run): {unet_layer['ms']:.3f} ms/step, "
         f"{unet_layer['images_s']:.4f} train images/s, peak {unet_layer['peak_gib']:.2f} GiB")
 
-    log("== 28. result")
+    log("== 28. the eleven samplers: CPU plain versions against the card's kernels, float32")
+    check_sampler_slices()
+
+    log("== 29. the tiny CFG slice: CPU plain versions against the card's kernels, float32")
+    check_cfg_slice()
+
+    log(f"== 30. adm256_cfg at full width: {CFG_CARD}, bf16, batch {BATCH}, DDIM-{args.steps}, "
+        f"guidance {CFG_GUIDANCE}, two-call then batched")
+    cfg = cfg_full_width(generator, args.steps)
+
+    log("== 31. the guidance slices: CPU plain versions against the card's kernels, float32")
+    check_guidance_slices()
+
+    log(f"== 32. mmps32 at full width: unet32 (norm='layer'), bf16, batch {MMPS_BATCH}, DDIM-{MMPS_STEPS}, "
+        f"MMPS gmres-1")
+    mmps32 = mmps32_full_width(generator)
+
+    log(f"== 33. ADM-256 under the guidance VJP: MMPS gmres-1, imagenet_256x256, bf16, batch {BATCH}, "
+        f"DDIM-{GUIDED_STEPS}")
+    guided = guided_adm(generator)
+
+    log("== 34. ADM's six cards at full width: one bf16 forward at batch 1 each")
+    check_cards(generator)
+    log(f"new paths: adm256_cfg two-call {cfg[False]['images_s']:.4f} images/s, batched {cfg[True]['images_s']:.4f}; "
+        f"mmps32 {mmps32['images_s']:.4f} images/s; guided ADM-256 peak {guided['peak_gib']:.2f} GiB")
+
+    log("== 35. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
