@@ -5,8 +5,8 @@ r"""Weight conversion from the JAX package's ADM backbone.
 like `input_blocks.1.0.in_norm.scale`), and returns the state dict of the
 port's :class:`ADMUNet`: Linear weights go from :math:`(C_i, C_o)` to
 :math:`(C_o, C_i)`, convolution kernels from HWIO to OIHW, and GroupNorm
-`scale` becomes `weight`. The Linear and convolution rules and the strict
-check are those of :mod:`azula_tpu_torch.nn.convert`.
+`scale` becomes `weight`, the class embedding `label_emb` is copied as it
+is: the rules of :func:`azula_tpu_torch.models.utils.from_jax_arrays`.
 """
 
 from __future__ import annotations
@@ -20,19 +20,7 @@ import torch
 
 from collections.abc import Mapping
 
-from ...nn.convert import check_state_dict, convert_leaf
-
-
-def _convert(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
-    if key == "label_emb":
-        return key, value
-
-    prefix, _, leaf = key.rpartition(".")
-
-    if prefix and leaf == "scale":  # GroupNorm gain
-        return f"{prefix}.weight", value
-
-    return convert_leaf(key, value)
+from ..utils import from_jax_arrays
 
 
 def from_jax_state_dict(
@@ -55,12 +43,4 @@ def from_jax_state_dict(
         ValueError: On a shape mismatch.
     """
 
-    out = {}
-    for key, value in sd.items():
-        new, array = _convert(key, np.asarray(value))
-        out[new] = torch.from_numpy(np.ascontiguousarray(array))
-
-    if backbone is not None:
-        check_state_dict(out, backbone)
-
-    return out
+    return from_jax_arrays(sd, backbone, raw=("label_emb",))

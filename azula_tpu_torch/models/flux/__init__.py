@@ -4,15 +4,19 @@ Port of :mod:`azula_tpu.models.flux`: the `FluxDenoiser` (rectified-flow
 preconditioning :math:`c_\mathrm{in} = c_\mathrm{skip} = 1/(\alpha+\sigma)`,
 :math:`c_\mathrm{out} = -\sigma/(\alpha+\sigma)`), with cached image-coordinate
 ids and the distilled-guidance input, over the :class:`FluxTransformer`
-backbone. The text encoders, the auto-encoder and `load_model` are not
-ported yet.
+backbone; the 2x2 pixel-shuffle latent `AutoEncoder` around an
+:class:`~azula_tpu_torch.models.autoencoder.AutoencoderKL`, and the dual
+CLIP + T5 `TextEncoder`. `load_model` waits for checkpoint and tokenizer
+files in the repository.
 """
 
 from __future__ import annotations
 
 __all__ = [
+    "AutoEncoder",
     "FluxDenoiser",
     "FluxTransformer",
+    "TextEncoder",
 ]
 
 import functools
@@ -25,6 +29,106 @@ from ...denoise import Denoiser, DiracPosterior, time_scales
 from ...nn.utils import get_module_dtype
 from ...noise import DecaySchedule, Schedule
 from .backbone import FluxTransformer
+
+
+class AutoEncoder(nn.Module):
+    r"""Latent auto-encoder with 2x2 pixel-shuffle packing: images encode to
+    :math:`(B, H/16, W/16, 64)` packed latents.
+
+    Arguments:
+        vae: A module with `encode(x) -> (mean, std)` and `decode(z) -> x`.
+        shift: The latent shift factor (FLUX.1: 0.1159).
+        scale: The latent scale factor (FLUX.1: 0.3611).
+    """
+
+    def __init__(self, vae: nn.Module, shift: float = 0.0, scale: float = 1.0) -> None:
+        super().__init__()
+
+        self.vae = vae
+        self.shift = shift
+        self.scale = scale
+
+    def _normal(self, generator: torch.Generator | None, like: Tensor) -> Tensor:
+        r"""Standard normal draws of `like`'s shape, dtype and device: the
+        one draw of :meth:`encode`, where the tests inject JAX's."""
+
+        return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+
+    def encode(self, x: Tensor, generator: torch.Generator | None = None) -> Tensor:
+        r"""Encodes images, channels-last, to packed latents sampled from the
+        VAE's posterior with draws from `generator` (the JAX `key`)."""
+
+        mean, std = self.vae.encode(x)
+        z = mean + std * self._normal(generator, mean)
+        z = (z - self.shift) * self.scale
+
+        # 2x2 pixel shuffle: (B, h, w, c) -> (B, h/2, w/2, 4c), channels-last
+        B, h, w, c = z.shape
+        z = z.reshape(B, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+
+        return z.reshape(B, h // 2, w // 2, 4 * c)
+
+    def decode(self, z: Tensor) -> Tensor:
+        r"""Decodes packed latents to images, channels-last."""
+
+        B, h, w, c4 = z.shape
+        c = c4 // 4
+
+        z = z.reshape(B, h, w, c, 2, 2).permute(0, 1, 4, 2, 5, 3).reshape(B, 2 * h, 2 * w, c)
+        z = z / self.scale + self.shift
+
+        return self.vae.decode(z)
+
+
+class TextEncoder(nn.Module):
+    r"""Dual CLIP-pooled + T5 text encoder: CLIP's last hidden state pooled
+    at the largest id of each row (its end-of-text token), and T5's last
+    hidden state at `max_length` tokens.
+
+    Arguments:
+        clip: A CLIP text encoder (the last hidden state of ids).
+        clip_tokenizer: The CLIP tokenizer.
+        t5: A T5 encoder (the last hidden state of ids).
+        t5_tokenizer: The T5 tokenizer.
+        max_length: The T5 sequence length.
+    """
+
+    def __init__(self, clip: nn.Module, clip_tokenizer, t5: nn.Module, t5_tokenizer, max_length: int = 512) -> None:
+        super().__init__()
+
+        self.clip = clip
+        self.clip_tokenizer = clip_tokenizer
+        self.t5 = t5
+        self.t5_tokenizer = t5_tokenizer
+        self.max_length = max_length
+
+    def forward(self, prompt: str | list[str]) -> dict[str, Tensor]:
+        if isinstance(prompt, str):
+            prompt = [prompt]
+
+        clip_tokens = self.clip_tokenizer(
+            prompt,
+            truncation=True,
+            max_length=self.clip_tokenizer.model_max_length,
+            padding="max_length",
+            return_tensors="np",
+        )
+        t5_tokens = self.t5_tokenizer(
+            prompt,
+            truncation=True,
+            max_length=self.max_length,
+            padding="max_length",
+            return_tensors="np",
+        )
+
+        ids = torch.from_numpy(np.asarray(clip_tokens.input_ids)).to(next(self.clip.parameters()).device)
+        clip_out = self.clip(ids)
+        clip_out = clip_out[torch.arange(ids.shape[0], device=ids.device), ids.argmax(dim=-1)]
+
+        ids = torch.from_numpy(np.asarray(t5_tokens.input_ids)).to(next(self.t5.parameters()).device)
+        t5_out = self.t5(ids)
+
+        return {"prompt_clip": clip_out, "prompt_t5": t5_out}
 
 
 class FluxDenoiser(Denoiser):

@@ -24,12 +24,13 @@ import torch
 
 from collections.abc import Mapping
 
-from ...nn.convert import check_state_dict, convert_leaf
+from ..utils import from_jax_arrays
 
 _FEED_FORWARDS = ("ff", "ff_context")
 
 
-def _rename(parts: list[str]) -> list[str]:
+def _rename(key: str) -> str:
+    *parts, leaf = key.split(".")
     out = []
     for i, part in enumerate(parts):
         parent = parts[i - 1] if i else None
@@ -43,17 +44,7 @@ def _rename(parts: list[str]) -> list[str]:
             out += ["to_out", "0"]
         else:
             out.append(part)
-    return out
-
-
-def _convert(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
-    *path, leaf = key.split(".")
-    path = _rename(path)
-
-    if path and leaf == "scale" and value.ndim == 1:  # RMSNorm gain
-        return ".".join([*path, "weight"]), value
-
-    return convert_leaf(".".join([*path, leaf]), value)
+    return ".".join([*out, leaf])
 
 
 def from_jax_state_dict(
@@ -71,12 +62,4 @@ def from_jax_state_dict(
         The port's state dict, as CPU tensors of the arrays' dtypes.
     """
 
-    out = {}
-    for key, value in sd.items():
-        new, array = _convert(key, np.asarray(value))
-        out[new] = torch.from_numpy(np.ascontiguousarray(array))
-
-    if backbone is not None:
-        check_state_dict(out, backbone)
-
-    return out
+    return from_jax_arrays(sd, backbone, rename=_rename)

@@ -14,6 +14,7 @@ __all__ = [
     "Conv",
     "ConvNd",
     "Dropout",
+    "Embedding",
     "GroupNorm",
     "Identity",
     "LayerNorm",
@@ -47,6 +48,22 @@ def _uniform(shape, bound, device, dtype, generator) -> nn.Parameter:
     w = torch.empty(shape, device=device, dtype=dtype)
     w.uniform_(-bound, bound, generator=generator)
     return nn.Parameter(w)
+
+
+class Embedding(nn.Module):
+    r"""A table of `num` vectors of `dim` features, looked up by integer ids,
+    drawn from :math:`\mathcal{N}(0, 0.02^2)` as the JAX model zoo draws its
+    tables. The table is `weight`, as in PyTorch's `nn.Embedding`."""
+
+    def __init__(self, num: int, dim: int, *, device=None, dtype=None, generator=None) -> None:
+        super().__init__()
+
+        w = torch.empty((num, dim), device=device, dtype=dtype)
+        w.normal_(0.0, 0.02, generator=generator)
+        self.weight = nn.Parameter(w)
+
+    def forward(self, ids: Tensor) -> Tensor:
+        return F.embedding(ids, self.weight)
 
 
 class Linear(nn.Module):

@@ -103,7 +103,8 @@ Phases, each of which raises on failure:
    random T5 tokens and a random CLIP pooled prompt, guidance 4: one recorded
    warm-up step (57 max-free calls at (1, 24, 4608, 128) and nothing else),
    then a timed DDIM-4 trajectory with exactly 57 max-free launches per step.
-   Prints ms/step, images/s, peak memory and a profile of one step.
+   Prints ms/step, images/s, peak memory and a profile of one step. The
+   transformer then waits in host memory for phase 36.
 16. attention training kernels: the LSE forward (`attention_fwd.cu`'s third
    entry) and the backward (`attention_bwd.cu`: in bf16 the one-pass
    tensor-core kernel between its delta and dq-rounding kernels, in float32
@@ -230,7 +231,35 @@ Phases, each of which raises on failure:
    every attention block on the attention kernel (the 128-px card's heads
    of D = 128, 192 and 256 at L = 1024, 256 and 64), every recorded call
    against its plain version.
-35. the kernels line `{"kernels": [...]}`, then the result line.
+35. the text-to-image slices: the small modules of the CPU tests on the CPU
+   (plain versions) and on the card (kernels), same random weights,
+   float32: the VAE (encode and decode, with and without the quant
+   convolutions), CLIP, T5, Gemma (a padding mask), Flux's `TextEncoder`
+   and `AutoEncoder` (the same injected draws), `SanaTransformer` under
+   `SanaDenoiser` (one call, DDIM-4) and the DC-AE (both attention
+   branches); exactly 72 GroupNorm launches, each recorded call against its
+   plain version.
+36. FLUX.1-dev from a prompt to pixels at full width: T5-XXL, CLIP-L and the
+   VAE (16 latent channels, no quant convolutions) drawn in bf16 on the card
+   beside phase 15's transformer (moved back from host memory), each module against the port's manifest
+   (`flux_1_dev.{text_encoder,text_encoder_2,vae,transformer}`); the
+   prompt's seeded ids (512 T5, 77 CLIP) through `TextEncoder`, DDIM-4 and
+   `AutoEncoder.decode` to a finite (1, 1024, 1024, 3) image with exactly 57
+   max-free launches a step and 30 GroupNorm launches in the decode. Prints
+   the ms of the text encoders, of a step and of the decode, images/s, peak
+   memory, a profile of the decode, and each GroupNorm call of the decode
+   against its plain version with its plan, its time by events and on the
+   device, its bound and `F.group_norm`'s time.
+37. sana1k at full width (`bench.py:49-82, 583-601`): Sana 1.6B (bf16) under
+   `SanaDenoiser`, Gemma-2-2B (bf16) through the Sana `TextEncoder` (300
+   prompt tokens after the instruction prefix), DDIM-20 at batch 8 from
+   `sampler.init` noise, DC-AE (float32) to a finite (8, 1024, 1024, 3);
+   each module against the port's manifest
+   (`sana_1.6b_1024.{transformer,text_encoder,vae}`). Prints the
+   trajectory's images/s under bench.py's metric name, the text encoder's
+   and the decode's ms, peak memory of each part and a profile of one
+   step; no kernel of ours launches.
+38. the kernels line `{"kernels": [...]}`, then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -261,9 +290,15 @@ from azula_tpu_torch import guidance, sample, train
 from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.guidance import CFGDenoiser, MMPSDenoiser
 from azula_tpu_torch.linalg import IsotropicCovariance
-from azula_tpu_torch.models import adm
+from azula_tpu_torch.models import adm, flux, sana
+from azula_tpu_torch.models.autoencoder import AutoencoderKL, canonicalize_vae_keys
+from azula_tpu_torch.models.clip import CLIPTextEncoder, canonicalize_clip_keys
 from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
-from azula_tpu_torch.models.utils import load_cards
+from azula_tpu_torch.models.gemma import Gemma2TextModel, canonicalize_gemma_keys
+from azula_tpu_torch.models.sana import SanaDenoiser, SanaTransformer
+from azula_tpu_torch.models.sana.autoencoder import AutoencoderDC
+from azula_tpu_torch.models.t5 import T5Encoder, canonicalize_t5_keys
+from azula_tpu_torch.models.utils import SeededTokenizer, check_manifest, load_cards
 from azula_tpu_torch.nn.attention import MultiheadSelfAttention
 from azula_tpu_torch.nn.embedding import Modulated
 from azula_tpu_torch.nn.layers import Conv
@@ -364,6 +399,43 @@ TINY_FLUX = dict(  # noqa: C408
 )
 TINY_FLUX_SIDE = 24
 TINY_FLUX_TEXT = 64
+
+# text to image (phases 35-37). One prompt, its ids drawn by seeded stand-ins
+# of the tokenizers (the real vocabularies and lengths; no tokenizer file
+# ships), every weight random from the phase's seeded generator.
+T2I_PROMPT = "A photograph of an astronaut riding a horse on the moon, earth rising behind, detailed, 8k"
+# FLUX.1-dev's VAE (`AutoencoderKL(latent_channels=16, use_quant_conv=False)`,
+# bf16) decodes the (1, 64, 64, 64) packed latent to (1, 1024, 1024, 3): its
+# GroupNorms (32 groups) are the mid block's 5, two in each of the four up
+# blocks' three resnets, and `conv_norm_out`; SiLU runs apart (`F.silu`)
+FLUX_VAE_CALLS = {"group_norm": 5 + 4 * 3 * 2 + 1}
+FLUX_VAE_SHIFT, FLUX_VAE_SCALE = 0.1159, 0.3611
+# sana1k (bench.py:49-82, 583-601): Sana 1.6B (`ARCHS["1.6b"]`, bf16) under
+# `SanaDenoiser`, batch 8 of (32, 32, 32) latents, DDIM-20 (eta = 0), on
+# Gemma-2-2B (bf16) over 300 prompt tokens; DC-AE decodes in float32, the
+# `vae` dtype of the sana_1.6b_1024 card. Nothing cut. No kernel of ours
+SANA_METRIC = "sana_1.6b_1024px_flow20_sampling_throughput"
+SANA_BATCH = 8
+SANA_SHAPE = (32, 32, 32)
+SANA_STEPS = 20
+SANA_TEXT = 300
+SANA_SCALE = 0.41407
+# the small text-to-image modules of phase 35 (those of the CPU tests)
+TINY_VAE = dict(latent_channels=4, block_out_channels=(32, 64), layers_per_block=1)  # noqa: C408
+TINY_CLIP = dict(vocab_size=99, hidden=32, layers=2, heads=4, intermediate=64, max_positions=16)  # noqa: C408
+TINY_T5 = dict(vocab_size=99, dim=32, heads=4, head_dim=8, ff_dim=64, layers=3)  # noqa: C408
+TINY_GEMMA = dict(  # noqa: C408
+    vocab_size=127, dim=32, layers=3, heads=4, kv_heads=2, head_dim=8, intermediate=64, query_pre_attn_scalar=8.0,
+    attn_logit_softcapping=1.5, sliding_window=5,
+)
+TINY_SANA = dict(  # noqa: C408
+    in_channels=8, out_channels=8, num_attention_heads=4, attention_head_dim=8, num_cross_attention_heads=2,
+    cross_attention_head_dim=16, caption_channels=32, num_layers=2,
+)
+TINY_DCAE = dict(  # noqa: C408
+    latent_channels=4, block_types=("ResBlock", "EfficientViTBlock"), block_out_channels=(8, 16),
+    encoder_layers_per_block=(1, 1), decoder_layers_per_block=(2, 1), qkv_multiscales=((), (5,)), head_dim=4,
+)
 
 # unet32 (bench.py's `_unet32`): `Modulated(UNet(3, 3, mod_features=64,
 # hid_channels=(64, 128, 256), hid_blocks=(3, 3, 3)), 64)` under
@@ -509,9 +581,9 @@ SLICE_CLASSES = 10
 # sigma / alpha as the other slices' bound
 TOL_TMPD_SLICE = 4e-4
 
-# each ADM card's checkpoint manifest: parameter names and shapes (data,
-# read as JSON)
-ADM_MANIFESTS = pathlib.Path(__file__).resolve().parent / "azula_tpu" / "models" / "manifests" / "adm"
+# the port's checkpoint manifests: each card's parameter names and shapes
+# (data, read as JSON)
+MANIFESTS = pathlib.Path(__file__).resolve().parent / "azula_tpu_torch" / "models" / "manifests"
 
 # attention shapes off the main path that phase 3 also checks: a ragged
 # length and the other head dims (shape: scale)
@@ -857,7 +929,7 @@ def manifest_parameters(name: str) -> int:
     r"""The parameters of ADM card `name`'s backbone, as its checkpoint
     manifest lists them."""
 
-    shapes = json.loads((ADM_MANIFESTS / f"{name}.model.json").read_text())
+    shapes = json.loads((MANIFESTS / "adm" / f"{name}.model.json").read_text())
     return sum(math.prod(shape) for shape in shapes.values())
 
 
@@ -1455,10 +1527,10 @@ def check_dit_slice() -> None:
         raise AssertionError("the dit slices on the card did not run the attention and fused MSA kernels")
 
 
-def profile_step(step) -> None:
-    r"""Device time of one full-width step (`step()`, a DDIM or train step) by
-    kind of kernel, and the share of the step's wall time in which the card
-    ran no kernel."""
+def profile_step(step, what: str = "one step") -> None:
+    r"""Device time of one full-width step (`step()`, a DDIM or train step, or
+    `what` else) by kind of kernel, and the share of its wall time in which
+    the card ran no kernel."""
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -1528,7 +1600,7 @@ def profile_step(step) -> None:
         log("profile: the profiler saw no device time (not measured)")
         return
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.most_common())
-    log(f"profile of one step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+    log(f"profile of {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}), {launched} kernels; {parts}")
     for name, ms in top.most_common(12):
         log(f"  {ms:9.3f} ms  {name[:150]}")
@@ -3489,6 +3561,280 @@ def check_cards(generator) -> None:
         torch.cuda.empty_cache()
 
 
+def tokenizers(clip: int = 49408, t5: int = 32128, gemma: int = 256000, clip_length: int = 77) -> dict:
+    r"""Seeded stand-ins of the CLIP, T5 and Gemma tokenizers, with their
+    special ids and lengths, over vocabularies of the given sizes (the real
+    ones by default)."""
+
+    return {
+        "clip": SeededTokenizer(clip, clip_length, bos=clip - 2, eos=clip - 1, pad=clip - 1, seed=1),
+        "t5": SeededTokenizer(t5, 512, eos=1, pad=0, seed=2),
+        "gemma": SeededTokenizer(gemma, 8192, bos=2, pad=0, seed=3),
+    }
+
+
+def slice_check(label: str, got: torch.Tensor, want: torch.Tensor, tol: float = TOL_SLICE) -> None:
+    _, err = errors(got.float().cpu(), want.float())
+    log(f"  {label}: rel err {err:.3e} (tol {tol})")
+    if err > tol:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+
+def check_t2i_slices() -> None:
+    r"""The small text-to-image modules on the CPU (plain versions) and on
+    the card (kernels), same random weights, float32: the VAE (encode and
+    decode, with and without the quant convolutions; every GroupNorm call it
+    recorded against its plain version), CLIP, T5 and Gemma (a padding mask),
+    Flux's `TextEncoder` and `AutoEncoder`, `SanaTransformer` under
+    `SanaDenoiser` (one call and DDIM-4), and the DC-AE (both attention
+    branches)."""
+
+    def pair(cls, seed, **config):
+        cpu = cls(**config, device="cpu", generator=torch.Generator().manual_seed(seed))
+        return cpu, copy.deepcopy(cpu).cuda()
+
+    rng = np.random.default_rng(35)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    _build.LAUNCHES.clear()
+    recorded = []  # held against their plain versions once the slices' launches are read
+    with torch.inference_mode():
+        for quant in (True, False):
+            cpu, card = pair(AutoencoderKL, 40 + quant, **TINY_VAE, use_quant_conv=quant)
+            x, z = normal(2, 32, 32, 3), normal(2, 8, 8, 4)
+            before = dict(_build.LAUNCHES)
+            want = (*cpu.encode(x), cpu.decode(z))
+            if dict(_build.LAUNCHES) != before:
+                raise AssertionError("a kernel ran on the CPU path")
+            with recording() as (calls, affine):
+                got = (*card.encode(x.cuda()), card.decode(z.cuda()))
+            recorded.append((f"VAE quant_conv={quant}", calls, affine))
+            for name, g, w in zip(("encode mean", "encode std", "decode"), got, want, strict=True):
+                slice_check(f"VAE quant_conv={quant} {name}", g, w)
+
+        ids = torch.from_numpy(rng.integers(0, 99, (2, 16)))
+        for label, cls, config in (("CLIP", CLIPTextEncoder, TINY_CLIP), ("T5", T5Encoder, TINY_T5)):
+            cpu, card = pair(cls, 42, **config)
+            slice_check(f"{label} last hidden state", card(ids.cuda()), cpu(ids))
+        cpu, card = pair(Gemma2TextModel, 43, **TINY_GEMMA)
+        ids = torch.from_numpy(rng.integers(0, 127, (2, 12)))
+        mask = torch.ones(2, 12, dtype=torch.int64)
+        mask[1, 7:] = 0
+        slice_check("Gemma last hidden state, padding mask", card(ids.cuda(), mask.cuda()), cpu(ids, mask))
+
+        # Flux's text encoder and auto-encoder
+        (clip_cpu, clip_card), (t5_cpu, t5_card) = pair(CLIPTextEncoder, 44, **TINY_CLIP), pair(T5Encoder, 45, **TINY_T5)
+        tok = tokenizers(TINY_CLIP["vocab_size"], TINY_T5["vocab_size"], clip_length=TINY_CLIP["max_positions"])
+        want = flux.TextEncoder(clip_cpu, tok["clip"], t5_cpu, tok["t5"], 24)(T2I_PROMPT)
+        got = flux.TextEncoder(clip_card, tok["clip"], t5_card, tok["t5"], 24)(T2I_PROMPT)
+        for key in ("prompt_clip", "prompt_t5"):
+            slice_check(f"Flux TextEncoder {key}", got[key], want[key])
+        vae_cpu, vae_card = pair(AutoencoderKL, 46, **TINY_VAE, use_quant_conv=False)
+        ae_cpu = flux.AutoEncoder(vae_cpu, FLUX_VAE_SHIFT, FLUX_VAE_SCALE)
+        ae_card = flux.AutoEncoder(vae_card, FLUX_VAE_SHIFT, FLUX_VAE_SCALE)
+        noise = normal(2, 16, 16, 4)
+        ae_cpu._normal = ae_card._normal = lambda generator, like: noise.to(like.device)  # the same draws
+        x = normal(2, 32, 32, 3)
+        with recording() as (calls, affine):
+            got = ae_card.encode(x.cuda())
+            slice_check("Flux AutoEncoder encode", got, ae_cpu.encode(x))
+            slice_check("Flux AutoEncoder decode", ae_card.decode(got), ae_cpu.decode(got.cpu()))
+        recorded.append(("Flux AutoEncoder", calls, affine))
+
+        # Sana: the transformer under the denoiser, and the DC-AE
+        cpu, card = pair(SanaTransformer, 47, **TINY_SANA)
+        cpu, card = SanaDenoiser(cpu), SanaDenoiser(card)
+        cond = {"prompt_embeds": normal(1, 6, 32), "prompt_mask": torch.tensor([[1.0, 1, 1, 1, 0, 0]])}
+        card_cond = {k: v.cuda() for k, v in cond.items()}
+        x = normal(2, 8, 8, 8)
+        for t in (0.3, 0.9):
+            slice_check(f"SanaDenoiser t={t}", card(x.cuda(), torch.tensor(t, device="cuda"), **card_cond).mean,
+                        cpu(x, torch.tensor(t), **cond).mean)
+        slice_check("SanaDenoiser DDIM-4 trajectory", DDIMSampler(card, steps=4)(x.cuda(), **card_cond),
+                    DDIMSampler(cpu, steps=4)(x, **cond), TOL_TRAJECTORY)
+        cpu, card = pair(AutoencoderDC, 48, **TINY_DCAE)
+        for side, branch in ((16, "linear"), (4, "quadratic")):
+            x = normal(2, side, side, 3)
+            slice_check(f"DC-AE encode, {branch} attention", card.encode(x.cuda()), cpu.encode(x))
+            z = normal(2, side // 2, side // 2, 4)
+            slice_check(f"DC-AE decode, {branch} attention", card.decode(z.cuda()), cpu.decode(z))
+
+    launched = dict(_build.LAUNCHES)
+    # each small VAE's encode (10 GroupNorms) and decode (14), three times
+    expected = {"group_norm": 3 * (10 + 14)}
+    counted = sum(launch_counts(calls).get("group_norm", 0) for _, calls, _ in recorded)
+    log(f"  kernel launches on the card: {launched}, recorded {counted}, expected {expected}")
+    if launched != expected or counted != expected["group_norm"]:
+        raise AssertionError("the text-to-image slices' launch counts are not exact")
+    for label, calls, affine in recorded:
+        check_recorded(label, calls, affine, seed=36)
+
+
+def flux_text_to_image(denoiser: FluxDenoiser, generator) -> dict:
+    r"""FLUX.1-dev from a prompt to pixels at full width (phase 36): T5-XXL,
+    CLIP-L and the VAE drawn on the card in bf16 beside phase 15's
+    transformer, checked against the port's manifests; the prompt through
+    `TextEncoder`, DDIM-`FLUX_STEPS`, `AutoEncoder.decode`, each timed, with
+    exact launch counts; a profile of the decode; and each GroupNorm call of
+    the decode against its plain version, with its plan, its time on the
+    device, its bound and `F.group_norm`'s."""
+
+    t0 = time.perf_counter()
+    factory = dict(device="cuda", dtype=torch.bfloat16, generator=generator)  # noqa: C408
+    t5, clip = T5Encoder(**factory), CLIPTextEncoder(**factory)
+    vae = AutoencoderKL(latent_channels=16, use_quant_conv=False, **factory)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters()) for name, m in (("T5", t5), ("CLIP", clip), ("VAE", vae))}
+    log(f"drawn on the card in {time.perf_counter() - t0:.1f} s: {counts} bf16 parameters; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB with the transformer")
+    for component, module, canonicalize in (
+        ("text_encoder", clip, canonicalize_clip_keys),
+        ("text_encoder_2", t5, canonicalize_t5_keys),
+        ("vae", vae, canonicalize_vae_keys),
+        ("transformer", denoiser.backbone, None),
+    ):
+        check_manifest(module.state_dict(), "flux", "flux_1_dev", component, canonicalize)
+    log("flux_1_dev.{text_encoder, text_encoder_2, vae, transformer}: the port's modules match the manifests")
+
+    tok = tokenizers()
+    encoder = flux.TextEncoder(clip, tok["clip"], t5, tok["t5"], max_length=FLUX_TEXT)
+    autoencoder = flux.AutoEncoder(vae, FLUX_VAE_SHIFT, FLUX_VAE_SCALE)
+    sampler = DDIMSampler(denoiser, eta=0.0, steps=FLUX_STEPS)
+    x = sampler.init((FLUX_BATCH, FLUX_SIDE, FLUX_SIDE, 64), generator=generator)
+    ids = tok["t5"]([T2I_PROMPT], truncation=True, max_length=FLUX_TEXT, padding="max_length")
+    log(f"prompt: {len(T2I_PROMPT)} characters, {int(ids.attention_mask.sum())} of {FLUX_TEXT} T5 ids, "
+        f"{int(tok['clip']([T2I_PROMPT]).attention_mask.sum())} of 77 CLIP ids")
+
+    with torch.inference_mode():
+        grid = sampler.timesteps.cuda()
+        cond = encoder(T2I_PROMPT)  # warm-up of each part, untimed
+        sampler.step(x, grid[0], grid[1], **cond, guidance=FLUX_GUIDANCE)
+        # the sampler's float32 latents go to the VAE in its dtype (bf16):
+        # its convolutions take their input's dtype
+        with recording() as (calls, affine):
+            autoencoder.decode(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        cond = encoder(T2I_PROMPT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = sampler(x, **cond, guidance=FLUX_GUIDANCE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        image = autoencoder.decode(y.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(image.shape) != (FLUX_BATCH, 16 * FLUX_SIDE, 16 * FLUX_SIDE, 3) or not bool(torch.isfinite(image).all()):
+        raise AssertionError(f"FLUX.1-dev's image is not finite of shape (1, 1024, 1024, 3): {tuple(image.shape)}")
+    if tuple(cond["prompt_t5"].shape) != (1, FLUX_TEXT, 4096) or tuple(cond["prompt_clip"].shape) != (1, 768):
+        raise AssertionError("the text encoders' outputs have the wrong shapes")
+    expected = {name: n * FLUX_STEPS for name, n in FLUX_CALLS_PER_FORWARD.items()} | FLUX_VAE_CALLS
+    log(f"launches {launches}, expected {expected}; recorded in the decode: {launch_counts(calls)}")
+    if launches != expected or launch_counts(calls) != FLUX_VAE_CALLS:
+        raise AssertionError("the FLUX.1-dev text-to-image path's launch counts are not exact")
+    total = t3 - t0
+    log(f"FLUX.1-dev prompt to pixels: text encoders {(t1 - t0) * 1e3:.2f} ms, {(t2 - t1) / FLUX_STEPS * 1e3:.2f} ms "
+        f"per step ({FLUX_STEPS} steps, {(t2 - t1) * 1e3:.2f} ms), decode {(t3 - t2) * 1e3:.2f} ms; "
+        f"{FLUX_BATCH / total:.6f} images/s end to end ({total:.3f} s), peak memory {peak / 2**30:.2f} GiB; "
+        f"image mean {image.float().mean().item():.4f}, std {image.float().std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: autoencoder.decode(y.to(torch.bfloat16)), "the decode")
+        per_kernel = {name: new_entry() for name in ("group_norm", "group_norm_silu")}
+        check_gn_calls(calls, affine, generator, per_kernel)
+    entry = per_kernel["group_norm"]
+    log(f"the decode's {FLUX_VAE_CALLS['group_norm']} GroupNorm calls: {entry['ms']:.4f} ms by events, device "
+        f"{entry['device_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+        f"F.group_norm {entry['library_ms']:.4f} ms")
+
+    del t5, clip, vae, encoder, autoencoder, sampler, x, y, image, cond
+    torch.cuda.empty_cache()
+    return {"launches": launches, "group_norm": entry, "ms": total * 1e3}
+
+
+def sana_full_width(generator) -> dict:
+    r"""sana1k at full width (phase 37), as `bench.py:49-82, 583-601` builds
+    it, with its text encoder and its decoder: Gemma-2-2B through the Sana
+    `TextEncoder`, DDIM-20 at batch 8 under `SanaDenoiser`, DC-AE in float32;
+    each part timed, the trajectory as images/s under bench.py's metric
+    name; peak memory, a profile of one step, no launch of our kernels, and
+    the three modules against the port's manifests."""
+
+    t0 = time.perf_counter()
+    backbone = SanaTransformer(**sana.ARCHS["1.6b"], device="cuda", dtype=torch.bfloat16, generator=generator)
+    gemma = Gemma2TextModel(device="cuda", dtype=torch.bfloat16, generator=generator)
+    dcae = AutoencoderDC(device="cuda", dtype=torch.float32, generator=generator)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters()) for name, m in (("Sana", backbone), ("Gemma", gemma),
+                                                                            ("DC-AE", dcae))}
+    log(f"drawn on the card in {time.perf_counter() - t0:.1f} s: {counts} parameters (bf16, bf16, float32); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    for component, module, canonicalize in (
+        ("transformer", backbone, None), ("text_encoder", gemma, canonicalize_gemma_keys), ("vae", dcae, None)
+    ):
+        check_manifest(module.state_dict(), "sana", "sana_1.6b_1024", component, canonicalize)
+    log("sana_1.6b_1024.{transformer, text_encoder, vae}: the port's modules match the manifests")
+
+    encoder = sana.TextEncoder(gemma, tokenizers()["gemma"], max_length=SANA_TEXT)
+    autoencoder = sana.AutoEncoder(dcae, scale=SANA_SCALE)
+    sampler = DDIMSampler(SanaDenoiser(backbone), eta=0.0, steps=SANA_STEPS)
+    x = sampler.init((SANA_BATCH, *SANA_SHAPE), generator=generator)
+
+    peaks, seconds = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    with torch.inference_mode():
+        grid = sampler.timesteps.cuda()
+        cond = encoder(T2I_PROMPT)  # warm-up of each part, untimed
+        sampler.step(x, grid[0], grid[1], **cond)
+        autoencoder.decode(x[:1])
+
+        _build.LAUNCHES.clear()
+        cond = timed("text", lambda: encoder(T2I_PROMPT))
+        y = timed("trajectory", lambda: sampler(x, **cond))
+        images = timed("decode", lambda: autoencoder.decode(y))
+        launches = dict(_build.LAUNCHES)
+
+    if tuple(cond["prompt_embeds"].shape) != (1, SANA_TEXT, 2304) or tuple(cond["prompt_mask"].shape) != (1, SANA_TEXT):
+        raise AssertionError("the Gemma text encoder's outputs have the wrong shapes")
+    if tuple(images.shape) != (SANA_BATCH, 1024, 1024, 3) or not bool(torch.isfinite(images).all()):
+        raise AssertionError(f"sana1k's images are not finite of shape (8, 1024, 1024, 3): {tuple(images.shape)}")
+    if images.dtype != torch.float32:
+        raise AssertionError("DC-AE decoded in another dtype than float32")
+    log(f"launches of our kernels {launches}, expected none")
+    if launches:
+        raise AssertionError("sana1k launched a kernel of ours")
+    log(f"{SANA_METRIC}: {SANA_BATCH / seconds['trajectory']:.4f} images/s (DDIM-{SANA_STEPS} at batch {SANA_BATCH}, "
+        f"{seconds['trajectory']:.3f} s, {seconds['trajectory'] / SANA_STEPS * 1e3:.2f} ms/step)")
+    log(f"sana1k: text encoder {seconds['text'] * 1e3:.2f} ms ({int(cond['prompt_mask'].sum())} of {SANA_TEXT} "
+        f"prompt tokens kept), decode {seconds['decode'] * 1e3:.2f} ms (batch {SANA_BATCH}, float32, whole); peak "
+        f"memory: text {peaks['text'] / 2**30:.2f}, trajectory {peaks['trajectory'] / 2**30:.2f}, decode "
+        f"{peaks['decode'] / 2**30:.2f} GiB; {SANA_BATCH / sum(seconds.values()):.4f} images/s end to end; "
+        f"image mean {images.mean().item():.4f}, std {images.std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: sampler.step(x, grid[0], grid[1], **cond))
+
+    del backbone, gemma, dcae, encoder, autoencoder, sampler, x, y, images, cond
+    torch.cuda.empty_cache()
+    return {"images_s": SANA_BATCH / seconds["trajectory"], "seconds": seconds}
+
+
 def masked_source(name: str) -> tuple[str, str]:
     r"""The source and the TPU kernel of a masked or dropout form."""
 
@@ -3709,8 +4055,14 @@ def main() -> None:
         f"sample mean {yf.float().mean().item():.4f}, std {yf.float().std().item():.4f}")
     with torch.inference_mode():
         profile_step(lambda: flux_sampler.step(xf, flux_grid[0], flux_grid[1], **cond))
-    del flux, flux_sampler, xf, yf, cond
+    # phase 36 reuses the transformer (two copies do not fit on the card
+    # beside T5-XXL); it waits in host memory, so that phases 16-34 measure
+    # the peaks of their own paths
+    del flux_sampler, xf, yf, cond
+    t0 = time.perf_counter()
+    flux.to("cpu")
     torch.cuda.empty_cache()
+    log(f"FLUX.1-dev's transformer moved to host memory for phase 36 in {time.perf_counter() - t0:.1f} s")
 
     log("== 16. attention training kernels against their plain versions at the dit64 shape")
     lse_bwd = check_attention_training(generator)
@@ -3790,7 +4142,24 @@ def main() -> None:
     log(f"new paths: adm256_cfg two-call {cfg[False]['images_s']:.4f} images/s, batched {cfg[True]['images_s']:.4f}; "
         f"mmps32 {mmps32['images_s']:.4f} images/s; guided ADM-256 peak {guided['peak_gib']:.2f} GiB")
 
-    log("== 35. result")
+    log("== 35. the text-to-image slices: CPU plain versions against the card's kernels, float32")
+    check_t2i_slices()
+
+    log(f"== 36. FLUX.1-dev from a prompt to pixels at full width: T5-XXL, CLIP-L, phase 15's transformer, "
+        f"DDIM-{FLUX_STEPS}, the VAE, bf16, {FLUX_SIDE * 16} px")
+    t0 = time.perf_counter()
+    flux.to("cuda")
+    log(f"phase 15's transformer back on the card in {time.perf_counter() - t0:.1f} s")
+    t2i = flux_text_to_image(flux, generator)
+    del flux
+    torch.cuda.empty_cache()
+
+    log(f"== 37. sana1k at full width: Sana 1.6B and Gemma-2-2B in bf16, batch {SANA_BATCH}, DDIM-{SANA_STEPS}, "
+        f"DC-AE in float32")
+    sana1k = sana_full_width(generator)
+    log(f"new paths: FLUX.1-dev prompt to pixels {t2i['ms']:.1f} ms; {SANA_METRIC} {sana1k['images_s']:.4f} images/s")
+
+    log("== 38. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -3888,6 +4257,21 @@ def main() -> None:
             "library_ms": entry["library_ms"] if name != "group_norm_silu" else None,
             "calls_per_forward": per_forward[name],
         })
+
+    # the text-to-image path's launches (phase 36) beside each kernel's own
+    # main path's; the VAE decode's GroupNorm calls timed as phase 3 times ADM's
+    for entry in kernels:
+        extra = t2i["launches"].get(entry["name"], 0)
+        if extra:
+            entry["launches_by_path"] = {"main": entry["launches"], "flux_text_to_image": extra}
+            entry["launches"] += extra
+        if entry["name"] == "group_norm":
+            vae = t2i["group_norm"]
+            entry["flux_vae_decode"] = {
+                "calls": FLUX_VAE_CALLS["group_norm"], "ms": vae["ms"], "device_ms": vae["device_ms"],
+                "plain_ms": vae["plain_ms"], "bound_ms": vae["bound_ms"], "library_ms": vae["library_ms"],
+                "max_err": vae["max_err"],
+            }
 
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

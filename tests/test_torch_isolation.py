@@ -1,9 +1,11 @@
 r"""The PyTorch port stands apart from the JAX package: it imports neither JAX
-nor `azula_tpu`, its main path calls no library attention, GroupNorm or
-compiler, and its kernels are built for Hopper from sources it ships."""
+nor `azula_tpu`, reads no file under `azula_tpu/` (nor does `chip_smoke.py`),
+its main path calls no library attention, GroupNorm or compiler, and its
+kernels are built for Hopper from sources it ships."""
 
 import ast
 import pathlib
+import re
 import tomllib
 
 import pytest
@@ -43,6 +45,73 @@ def test_no_jax_import(path):
     tree = ast.parse(path.read_text())
     bad = [name for name in _imports(tree) if _forbidden_import(name)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _docstrings(tree: ast.AST) -> set[int]:
+    nodes = (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)
+    return {
+        id(node.body[0].value)
+        for node in ast.walk(tree)
+        if isinstance(node, nodes) and node.body and isinstance(node.body[0], ast.Expr)
+    }
+
+
+# a path component or a path inside the JAX package; "azula_tpu/<file>.py:<line>"
+# (a reference in a message) is no path the code opens
+_JAX_PATH = re.compile(r"(^|[^\w.])azula_tpu(?=$|[/\\])(?![/\\][\w/]+\.py:\d)")
+
+
+def _paths_into_jax(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text())
+    skip = _docstrings(tree)
+    return [
+        f"{path.name}:{node.lineno}: {node.value!r}"
+        for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in skip
+        and _JAX_PATH.search(node.value)
+    ]
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_reads_no_file_of_the_jax_package(path):
+    assert not _paths_into_jax(path)
+
+
+@pytest.mark.parametrize(
+    "text, flagged",
+    [
+        ('x = "azula_tpu"', True),
+        ('x = "azula_tpu/models/manifests/adm"', True),
+        ('x = f"{root}/azula_tpu/ops"', True),
+        ('x = "azula_tpu/ops/norm.py:463 (_gn_fused_tpu)"', False),
+        ('x = "see azula_tpu/ops/attention.py:92 and azula_tpu/ops/conv.py:53"', False),
+        ('x = "azula_tpu_torch/csrc/group_norm.cu"', False),
+        ('x = "azula_tpu.models.adm"', False),
+        ('def f():\n    "a docstring naming azula_tpu/models/manifests"', False),
+    ],
+)
+def test_paths_into_the_jax_package_are_told_from_references(tmp_path, text, flagged):
+    source = tmp_path / "source.py"
+    source.write_text(text + "\n")
+    assert bool(_paths_into_jax(source)) == flagged
+
+
+def test_manifests_are_the_ports_own():
+    manifests = PACKAGE / "models" / "manifests"
+    for family in ("adm", "flux", "sana"):
+        ours = sorted(p.name for p in (manifests / family).glob("*.json"))
+        theirs = sorted(p.name for p in (ROOT / "azula_tpu" / "models" / "manifests" / family).glob("*.json"))
+        assert ours and ours == theirs, family
+        for name in ours:
+            assert (manifests / family / name).read_bytes() == (
+                ROOT / "azula_tpu" / "models" / "manifests" / family / name
+            ).read_bytes()
+
+    config = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert "manifests/*/*.json" in config["tool"]["setuptools"]["package-data"]["azula_tpu_torch.models"]
+    assert '"azula_tpu_torch" / "models" / "manifests"' in (ROOT / "chip_smoke.py").read_text()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
