@@ -171,7 +171,7 @@ def from_jax_arrays(
             key = f"{prefix}.weight"
         else:
             key, value = convert_leaf(key, value)
-        out[key] = torch.from_numpy(np.ascontiguousarray(value))
+        out[key] = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape))  # keeps 0-d arrays 0-d
 
     if module is not None:
         check_state_dict(out, module)

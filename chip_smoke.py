@@ -259,7 +259,46 @@ Phases, each of which raises on failure:
    trajectory's images/s under bench.py's metric name, the text encoder's
    and the decode's ms, peak memory of each part and a profile of one
    step; no kernel of ours launches.
-38. the kernels line `{"kernels": [...]}`, then the result line.
+38. the SD, EDM and EDM2 slices: the small modules of the CPU tests on the
+   CPU (plain versions) and on the card (kernels), same random weights,
+   float32: SD's UNet in both projection layouts (one head a level, so the
+   attention kernel runs at heads of 32 and 64), `StableDenoiser` with both
+   predictions, a batched-CFG DDIM-4 trajectory, the `AutoEncoder` (the
+   same injected draws) and the `TextEncoder`; EDM's `SongUNet` (DDPM++
+   under VP, NCSN++ under VE, skip, conditional) and `DhariwalUNet`,
+   `ElucidatedDenoiser`, Heun-4; EDM2's network with and without labels,
+   `ElucidatedLatentDenoiser`, Heun-4, its `AutoEncoder`. Exact launches,
+   each recorded call against its plain version.
+39. sd2_768 from prompts to pixels: the sd_2 card's UNet, CLIP-H and VAE
+   drawn in bf16 on the card, each against the port's manifest; four
+   prompts and the empty negative (77 seeded ids each) through
+   `TextEncoder`, batched CFG at 6.5 under `StableDenoiser` (velocity),
+   DDIM-25 (users run 50) on (4, 96, 96, 4) latents, `AutoEncoder.decode`
+   to a finite (4, 768, 768, 3): exactly 61 GroupNorm and 16 attention
+   launches a UNet call (5 at L = 9216, 5 at 2304, 5 at 576, 1 at 144, heads
+   of 64, batch 8) and 30 GroupNorm launches in the decode. Prints the text
+   encoder's, a step's and the decode's ms, images/s, peak memory, profiles
+   of a step and of the decode, each attention call beside SDPA and its
+   bound, each decode GroupNorm beside `F.group_norm`; every recorded call
+   against its plain version (the attention at L = 9216 at batch 1, where
+   the plain version's weights fit).
+40. sd1_512: the sd_1.5 UNet (bf16, against its manifest), one batched CFG
+   call at batch 2 on (2, 64, 64, 4): finite, exactly 61 GroupNorm launches
+   and none of attention (heads of 40, 80, 160: the plain route).
+41. edm64: imagenet_64x64_cond (`DhariwalUNet` under `EDMPrecond`, bf16)
+   under `ElucidatedDenoiser`, Heun-18 at batch 64 with one-hot labels
+   arange(64) % 1000: finite, exactly 95 GroupNorm launches a network call
+   (groups of min(32, C // 4)); images/s, ms per network call, peak memory,
+   a profile of one step; every recorded call against its plain version.
+42. edm2_xxl: imagenet_512x512_xxl (`EDM2UNet` under `EDM2Precond`, bf16,
+   gains drawn) under `ElucidatedLatentDenoiser`, Heun-32 at batch 8 with
+   labels arange(8) % 1000 (no kernel of ours), then the sd-vae-ft-mse VAE
+   (against the SD VAE manifest) with StabilityVAEEncoder's statistics to a
+   finite (8, 512, 512, 3) with exactly 30 GroupNorm launches; images/s, ms
+   per network call, the decode's ms, peak memory, profiles, each decode
+   GroupNorm against its plain version beside `F.group_norm`.
+43. the kernels line `{"kernels": [...]}` (the launches of phases 36 and
+   39-42 added to their kernels' entries, by path), then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -290,7 +329,7 @@ from azula_tpu_torch import guidance, sample, train
 from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.guidance import CFGDenoiser, MMPSDenoiser
 from azula_tpu_torch.linalg import IsotropicCovariance
-from azula_tpu_torch.models import adm, flux, sana
+from azula_tpu_torch.models import adm, edm, eldm, flux, sana, sd
 from azula_tpu_torch.models.autoencoder import AutoencoderKL, canonicalize_vae_keys
 from azula_tpu_torch.models.clip import CLIPTextEncoder, canonicalize_clip_keys
 from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
@@ -301,7 +340,7 @@ from azula_tpu_torch.models.t5 import T5Encoder, canonicalize_t5_keys
 from azula_tpu_torch.models.utils import SeededTokenizer, check_manifest, load_cards
 from azula_tpu_torch.nn.attention import MultiheadSelfAttention
 from azula_tpu_torch.nn.embedding import Modulated
-from azula_tpu_torch.nn.layers import Conv
+from azula_tpu_torch.nn.layers import Conv, GroupNorm
 from azula_tpu_torch.nn.unet import UNet, UNetBlock
 from azula_tpu_torch.nn.vit import ViT
 from azula_tpu_torch.noise import DecaySchedule, VPSchedule
@@ -436,6 +475,84 @@ TINY_DCAE = dict(  # noqa: C408
     latent_channels=4, block_types=("ResBlock", "EfficientViTBlock"), block_out_channels=(8, 16),
     encoder_layers_per_block=(1, 1), decoder_layers_per_block=(2, 1), qkv_multiscales=((), (5,)), head_dim=4,
 )
+
+# Stable Diffusion, EDM and EDM2 (phases 38-42), every weight random from the
+# phase's seeded generator, bf16 unless stated.
+# sd2_768, the sd_2 card (stabilityai/stable-diffusion-2, 768-v): ARCHS["sd2"]'s
+# UNet (heads of 64 at L = 9216, 2304, 576 and 144), CLIP-H text encoder and
+# the SD VAE, velocity prediction; four prompts and the empty negative prompt
+# (77 ids each, seeded stand-in tokenizer) under batched CFG at guidance 6.5
+# (diffusers' 7.5: its noise is u + 7.5 (c - u), ours (1 + w) c - w u),
+# DDIM cut from the 50 steps users run to 25, the latents (4, 96, 96, 4)
+# decoded to (4, 768, 768, 3)
+SD2_PROMPTS = (
+    "A photograph of an astronaut riding a horse on the moon, earth rising behind, detailed, 8k",
+    "An oil painting of a lighthouse on a cliff in a storm, dramatic light",
+    "A bowl of ramen on a wooden table, steam rising, shallow depth of field",
+    "A watercolor map of an imaginary island with mountains and rivers",
+)
+SD2_SIDE = 96
+SD2_STEPS = 25
+SD2_GUIDANCE = 6.5
+SD_SCALE = 0.18215
+# per UNet call: two GroupNorms in each of 22 resnets, one in each of 16
+# transformers, `conv_norm_out`; the 16 transformers' self-attention (heads
+# of 64 on the kernel; cross-attention's 77 keys take the plain route)
+SD2_CALLS_PER_FORWARD = {"group_norm": 61, "attention_fwd": 16}
+SD2_ATTENTION_BY_L = {9216: 5, 2304: 5, 576: 5, 144: 1}
+SD2_HEADS_BY_L = {9216: 5, 2304: 10, 576: 20, 144: 20}
+# the SD VAE's decode: the mid block's 5, two in each of 4 x 3 up resnets, conv_norm_out
+SD_VAE_CALLS = {"group_norm": 30}
+# sd1_512, the sd_1.5 card's UNet (ARCHS["sd1"]: heads of 40, 80 and 160, the
+# plain route): one batched CFG denoiser call at batch 2 on (2, 64, 64, 4)
+SD1_BATCH = 2
+SD1_CALLS_PER_FORWARD = {"group_norm": 61}
+# edm64, the imagenet_64x64_cond card (edm-imagenet-64x64-cond-adm, as
+# NVlabs/edm's train.py --arch=adm builds it) under EDMPrecond and
+# ElucidatedDenoiser, Heun with EDM's generate.py's 18 steps (two network
+# calls a step), batch 64, one-hot labels arange(64) % 1000. Per network
+# call: two GroupNorms in each of 36 blocks, one in each of 22 attention
+# blocks, `out_norm` (groups of min(32, C // 4); SiLU apart)
+EDM64 = dict(  # noqa: C408
+    img_resolution=64, in_channels=3, out_channels=3, label_dim=1000, model_channels=192,
+    channel_mult=(1, 2, 3, 4), num_blocks=3, attn_resolutions=(32, 16, 8),
+)
+EDM64_BATCH = 64
+EDM64_STEPS = 18
+EDM64_CALLS_PER_FORWARD = {"group_norm": 95}
+# edm2_xxl, the imagenet_512x512_xxl card (NVlabs/edm2's XXL preset: 448
+# channels) under EDM2Precond and ElucidatedLatentDenoiser, Heun with EDM2's
+# generate_images.py's 32 steps, batch 8, labels arange(8) % 1000: no kernel
+# of ours (no GroupNorm; inline attention). Its latents decode through the
+# sd-vae-ft-mse AutoencoderKL with NVlabs/edm2 training/encoders.py
+# StabilityVAEEncoder's statistics: z = (raw - raw_mean) * final_std / raw_std
+EDM2_XXL = dict(  # noqa: C408
+    img_resolution=64, img_channels=4, label_dim=1000, model_channels=448,
+    channel_mult=(1, 2, 3, 4), num_blocks=3, attn_resolutions=(16, 8),
+)
+EDM2_BATCH = 8
+EDM2_STEPS = 32
+EDM2_RAW_MEAN = (5.81, 3.25, 0.12, -2.15)
+EDM2_RAW_STD = (4.17, 4.62, 3.71, 3.28)
+EDM2_FINAL_STD = 0.5
+# the small modules of phase 38 (those of the CPU tests); SD's with one head
+# a level (heads of 32 at 16 x 16 and 64 at 8 x 8: the attention kernel)
+TINY_SD = dict(  # noqa: C408
+    in_channels=4, out_channels=4, block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=24,
+    attention_head_dim=1, cross_attention_levels=(True, False),
+)
+TINY_SONG = dict(  # noqa: C408
+    img_resolution=16, in_channels=3, out_channels=3, model_channels=16, channel_mult=(1, 2), channel_mult_emb=2,
+    num_blocks=1, attn_resolutions=(8,),
+)
+TINY_DHARIWAL = {**TINY_SONG, "label_dim": 10}
+TINY_EDM2 = dict(  # noqa: C408
+    img_resolution=16, img_channels=4, label_dim=10, model_channels=16, channel_mult=(1, 2), num_blocks=1,
+    attn_resolutions=(8,),
+)
+# the largest float32 weights (B H L L) the plain attention's check may take:
+# calls above it are checked at batch 1
+ATTENTION_CHECK_BYTES = 4 * 2**30
 
 # unet32 (bench.py's `_unet32`): `Modulated(UNet(3, 3, mod_features=64,
 # hid_channels=(64, 128, 256), hid_blocks=(3, 3, 3)), 64)` under
@@ -633,7 +750,10 @@ def device_ms(fn, reps: int = 20) -> float:
     counts its mean time per launch times its launches per call (its count
     over `reps`, at least one): the profiler's activity records are now and
     then lost, in part or whole, and a trace that lost some still reads the
-    calls' time; one that lost all is taken again, up to three times."""
+    calls' time; one that lost all is taken again, up to three times. Where
+    all three lost everything the time is not measured: NaN, which the
+    lines print as such and the kernels line as null (a timing, not a
+    check, so the run goes on)."""
 
     fn()
     torch.cuda.synchronize()
@@ -652,7 +772,8 @@ def device_ms(fn, reps: int = 20) -> float:
                 per_call += us / event.count * max(1, round(event.count / reps))
         if per_call:
             return per_call / 1e3
-    raise AssertionError("the profiler saw no device time in three traces")
+    log("  the profiler saw no device time in three traces: not measured")
+    return math.nan
 
 
 def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -3835,6 +3956,503 @@ def sana_full_width(generator) -> dict:
     return {"images_s": SANA_BATCH / seconds["trajectory"], "seconds": seconds}
 
 
+def fit_attention(calls) -> collections.Counter:
+    r"""`calls` with each attention call whose plain check would hold more
+    than `ATTENTION_CHECK_BYTES` of float32 weights (B H L L) moved to batch
+    1: the kernel's blocks are (batch, head) pairs, so batch 1 runs the same
+    code at the same L and D."""
+
+    fitted = collections.Counter()
+    for key, n in calls.items():
+        if key[0] == "attn":
+            B, H, L, D = key[1]
+            if B * H * L * L * 4 > ATTENTION_CHECK_BYTES:
+                log(f"  attention {key[1]}: held to its plain version at batch 1")
+                key = (key[0], (1, H, L, D), *key[2:])
+        fitted[key] += n
+    return fitted
+
+
+def draw_gains(module: torch.nn.Module, generator: torch.Generator) -> None:
+    r"""Draws EDM2's scalar gains (`emb_gain`, `out_gain`, zero at
+    initialization, which would zero the network's output and its embedding
+    modulation) uniformly in [0.5, 1], as the layers that ADM zero-initializes
+    are drawn for its full-width runs."""
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("_gain"):
+                p.copy_(torch.empty((), device=generator.device).uniform_(0.5, 1.0, generator=generator))
+
+
+def per_forward(module: torch.nn.Module) -> collections.Counter:
+    r"""The launches of one forward of `module` on the card: one GroupNorm
+    per `GroupNorm` layer, and one attention forward per SD self-attention
+    whose heads are a kernel's head dim (`attention._HEAD_DIMS`)."""
+
+    counts = collections.Counter()
+    for name, m in module.named_modules():
+        if isinstance(m, GroupNorm):
+            counts["group_norm"] += 1
+        elif isinstance(m, sd.backbone.CrossAttention) and name.endswith("attn1"):
+            if m.to_q.weight.shape[0] // m.heads in attention._HEAD_DIMS:
+                counts["attention_fwd"] += 1
+    return counts
+
+
+def check_family_slices() -> None:
+    r"""The small SD, EDM and EDM2 modules of the CPU tests on the CPU (plain
+    versions) and on the card (kernels), same random weights, float32: SD's
+    UNet in both projection layouts (one head a level: the attention kernel
+    at heads of 32 and 64), `StableDenoiser` with both predictions, a
+    batched-CFG DDIM-4 trajectory, the `AutoEncoder` (the same injected
+    draws) and the `TextEncoder`; EDM's `SongUNet` (DDPM++ under VP, NCSN++
+    under VE, the skip form and the conditional one) and `DhariwalUNet`
+    under EDM's precond, `ElucidatedDenoiser` and a Heun-4 trajectory;
+    EDM2's network with and without labels, `ElucidatedLatentDenoiser`,
+    Heun-4 and its `AutoEncoder`. Launches exact, each recorded call against
+    its plain version."""
+
+    rng = np.random.default_rng(38)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def pair(build, seed):
+        cpu = build(device="cpu", generator=torch.Generator().manual_seed(seed))
+        draw_gains(cpu, torch.Generator().manual_seed(seed))
+        return cpu, copy.deepcopy(cpu).cuda()
+
+    def card(tree):
+        if isinstance(tree, dict):
+            return {k: card(v) for k, v in tree.items()}
+        return None if tree is None else tree.cuda()
+
+    expected = collections.Counter()
+    recorded = []
+
+    def on_card(label, fn, launches):
+        with recording() as (calls, affine):
+            out = fn()
+        recorded.append((label, calls, affine))
+        expected.update(launches)
+        return out
+
+    _build.LAUNCHES.clear()
+    with torch.inference_mode():
+        # Stable Diffusion
+        for linear in (False, True):
+            cpu, gpu = pair(lambda linear=linear, **f: sd.SDUNet(**TINY_SD, use_linear_projection=linear, **f), 380 + linear)
+            z, t, ctx = normal(2, 16, 16, 4), torch.tensor([10, 999]), normal(2, 7, 24)
+            got = on_card(f"SDUNet linear={linear}", lambda: gpu(z.cuda(), t.cuda(), ctx.cuda()), per_forward(gpu))
+            slice_check(f"SDUNet use_linear_projection={linear}", got, cpu(z, t, ctx))
+
+            prediction = "velocity" if linear else "epsilon"
+            den_cpu, den_gpu = sd.StableDenoiser(cpu, prediction=prediction), sd.StableDenoiser(gpu, prediction=prediction)
+            ctx = normal(1, 7, 24)
+            for time_ in (torch.tensor(0.3), torch.tensor([0.2, 0.9])):
+                got = on_card(
+                    f"StableDenoiser {prediction}", lambda: den_gpu(z.cuda(), time_.cuda(), prompt_embeds=ctx.cuda()).mean,
+                    per_forward(gpu),
+                )
+                alpha, sigma = den_cpu.schedule(time_)
+                slice_check(f"StableDenoiser {prediction} t={time_.tolist()}", got,
+                            den_cpu(z, time_, prompt_embeds=ctx).mean, TOL_SLICE * max(1.0, float((sigma / alpha).max())))
+
+            cond = {"positive": {"prompt_embeds": normal(2, 7, 24)}, "negative": {"prompt_embeds": normal(1, 7, 24)},
+                    "guidance": 6.5}
+            cond_gpu = {**cond, "positive": card(cond["positive"]), "negative": card(cond["negative"])}
+            got = on_card(
+                f"SD CFG DDIM-4 linear={linear}",
+                lambda: DDIMSampler(CFGDenoiser(den_gpu, batched=True), steps=4)(z.cuda(), **cond_gpu),
+                {k: 4 * n for k, n in per_forward(gpu).items()},
+            )
+            slice_check(f"StableDenoiser {prediction} under batched CFG, DDIM-4 trajectory", got,
+                        DDIMSampler(CFGDenoiser(den_cpu, batched=True), steps=4)(z, **cond), TOL_TRAJECTORY)
+
+        vae_cpu, vae_gpu = pair(lambda **f: AutoencoderKL(**TINY_VAE, **f), 383)
+        ae_cpu, ae_gpu = sd.AutoEncoder(vae_cpu, SD_SCALE), sd.AutoEncoder(vae_gpu, SD_SCALE)
+        noise = normal(2, 16, 16, 4)
+        ae_cpu._normal = ae_gpu._normal = lambda generator, like: noise.to(like.device)  # the same draws
+        x = normal(2, 32, 32, 3)
+        got = on_card("SD AutoEncoder", lambda: ae_gpu.encode(x.cuda()), per_forward(vae_gpu.encoder))
+        slice_check("SD AutoEncoder encode", got, ae_cpu.encode(x))
+        z = normal(1, 8, 8, 4)
+        got = on_card("SD AutoEncoder", lambda: ae_gpu.decode(z.cuda()), per_forward(vae_gpu.decoder))
+        slice_check("SD AutoEncoder decode", got, ae_cpu.decode(z))
+        clip_cpu, clip_gpu = pair(lambda **f: CLIPTextEncoder(**TINY_CLIP, act="gelu", **f), 384)
+        tok = tokenizers(TINY_CLIP["vocab_size"], clip_length=TINY_CLIP["max_positions"])["clip"]
+        slice_check("SD TextEncoder", sd.TextEncoder(clip_gpu, tok)(list(SD2_PROMPTS[:2]))["prompt_embeds"],
+                    sd.TextEncoder(clip_cpu, tok)(list(SD2_PROMPTS[:2]))["prompt_embeds"])
+
+        # EDM: each network under a precond at two noise levels
+        labels = torch.eye(10)[[3, 7]]
+        for name, precond, unet, config in (
+            ("DDPM++ under VPPrecond", edm.VPPrecond, edm.SongUNet, {}),
+            ("NCSN++ under VEPrecond", edm.VEPrecond, edm.SongUNet, dict(  # noqa: C408
+                embedding_type="fourier", encoder_type="residual", resample_filter=(1, 3, 3, 1), channel_mult_noise=2)),
+            ("skip SongUNet under EDMPrecond", edm.EDMPrecond, edm.SongUNet, dict(encoder_type="skip", decoder_type="skip")),  # noqa: C408
+            ("conditional SongUNet under VPPrecond", edm.VPPrecond, edm.SongUNet, dict(label_dim=10)),  # noqa: C408
+            ("DhariwalUNet under EDMPrecond", edm.EDMPrecond, edm.DhariwalUNet, TINY_DHARIWAL),
+        ):
+            cpu, gpu = pair(lambda precond=precond, unet=unet, config=config, **f: precond(
+                unet(**{**TINY_SONG, **config}, **f)), 385)
+            x, sigma = normal(2, 16, 16, 3), torch.tensor([0.3, 5.0])
+            y = labels if config.get("label_dim") else None
+            got = on_card(f"EDM {name}", lambda: gpu(x.cuda(), sigma.cuda(), class_labels=card(y)), per_forward(gpu))
+            slice_check(f"EDM {name}", got, cpu(x, sigma, class_labels=y))
+
+        den_cpu, den_gpu = edm.ElucidatedDenoiser(cpu), edm.ElucidatedDenoiser(gpu)
+        for time_ in (torch.tensor(0.4), torch.tensor([0.15, 0.8])):
+            got = on_card("ElucidatedDenoiser", lambda: den_gpu(x.cuda(), time_.cuda(), label=labels.cuda()).mean,
+                          per_forward(gpu))
+            slice_check(f"ElucidatedDenoiser t={time_.tolist()}", got, den_cpu(x, time_, label=labels).mean)
+        x1 = normal(2, 16, 16, 3) * 80
+        got = on_card("EDM Heun-4", lambda: sample.HeunSampler(den_gpu, steps=4)(x1.cuda(), label=labels.cuda()),
+                      {k: 8 * n for k, n in per_forward(gpu).items()})
+        slice_check("ElucidatedDenoiser Heun-4 trajectory", got,
+                    sample.HeunSampler(den_cpu, steps=4)(x1, label=labels), TOL_TRAJECTORY)
+
+        # EDM2: the network with and without labels, the denoiser, Heun-4, the auto-encoder
+        for label_dim in (10, 0):
+            cpu, gpu = pair(lambda label_dim=label_dim, **f: eldm.EDM2Precond(
+                eldm.EDM2UNet(**{**TINY_EDM2, "label_dim": label_dim}, **f), label_dim=label_dim), 386)
+            x, sigma = normal(2, 16, 16, 4), torch.tensor([0.5, 7.0])
+            y = labels if label_dim else None
+            got = on_card(f"EDM2 label_dim={label_dim}", lambda: gpu(x.cuda(), sigma.cuda(), class_labels=card(y)), {})
+            slice_check(f"EDM2Precond label_dim={label_dim}", got, cpu(x, sigma, class_labels=y))
+        den_cpu, den_gpu = eldm.ElucidatedLatentDenoiser(cpu), eldm.ElucidatedLatentDenoiser(gpu)
+        slice_check("ElucidatedLatentDenoiser t=[0.15, 0.8]",
+                    den_gpu(x.cuda(), torch.tensor([0.15, 0.8], device="cuda")).mean,
+                    den_cpu(x, torch.tensor([0.15, 0.8])).mean)
+        x1 = normal(2, 16, 16, 4) * 80
+        slice_check("ElucidatedLatentDenoiser Heun-4 trajectory", sample.HeunSampler(den_gpu, steps=4)(x1.cuda()),
+                    sample.HeunSampler(den_cpu, steps=4)(x1), TOL_TRAJECTORY)
+        scale = EDM2_FINAL_STD / torch.tensor(EDM2_RAW_STD)
+        shift = -torch.tensor(EDM2_RAW_MEAN) * scale
+        ae_cpu, ae_gpu = eldm.AutoEncoder(vae_cpu, shift, scale), eldm.AutoEncoder(vae_gpu, shift, scale)
+        ae_cpu._normal = ae_gpu._normal = lambda generator, like: noise.to(like.device)
+        x = normal(2, 32, 32, 3)
+        got = on_card("EDM2 AutoEncoder", lambda: ae_gpu.encode(x.cuda()), per_forward(vae_gpu.encoder))
+        slice_check("EDM2 AutoEncoder encode", got, ae_cpu.encode(x))
+        z = normal(1, 8, 8, 4)
+        got = on_card("EDM2 AutoEncoder", lambda: ae_gpu.decode(z.cuda()), per_forward(vae_gpu.decoder))
+        slice_check("EDM2 AutoEncoder decode", got, ae_cpu.decode(z))
+
+    launched = dict(_build.LAUNCHES)
+    counted = collections.Counter()
+    for _, calls, _ in recorded:
+        counted.update(launch_counts(calls))
+    log(f"  kernel launches on the card: {launched}, recorded {dict(counted)}, expected {dict(expected)}")
+    if launched != dict(expected) or dict(counted) != dict(expected):
+        raise AssertionError("the SD, EDM and EDM2 slices' launch counts are not exact")
+    for label, calls, affine in recorded:
+        if calls:
+            check_recorded(label, calls, affine, seed=38)
+
+
+def sd2_text_to_image(generator) -> dict:
+    r"""sd2_768 from prompts to pixels (phase 39): the sd_2 card's UNet,
+    CLIP-H and VAE drawn on the card in bf16 and held against the port's
+    manifests; four prompts and the empty negative through `TextEncoder`,
+    batched CFG at `SD2_GUIDANCE` under `StableDenoiser` (velocity),
+    DDIM-`SD2_STEPS`, `AutoEncoder.decode` to (4, 768, 768, 3), each timed,
+    with exact launch counts (per UNet call 61 GroupNorm and 16 attention
+    launches by L, 30 GroupNorm in the decode); a profile of one step;
+    each attention call timed at its shape beside SDPA and its bound, each
+    decode GroupNorm timed beside `F.group_norm`, and every recorded call
+    against its plain version."""
+
+    t0 = time.perf_counter()
+    factory = dict(device="cuda", dtype=torch.bfloat16, generator=generator)  # noqa: C408
+    unet = sd.make_backbone("sd_2", **factory)
+    clip = CLIPTextEncoder(**sd.ARCHS["sd2"]["clip"], **factory)
+    vae = AutoencoderKL(**factory)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters()) for name, m in (("UNet", unet), ("CLIP-H", clip), ("VAE", vae))}
+    log(f"drawn on the card in {time.perf_counter() - t0:.1f} s: {counts} bf16 parameters; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    for component, module, canonicalize in (
+        ("unet", unet, None), ("text_encoder", clip, canonicalize_clip_keys), ("vae", vae, canonicalize_vae_keys)
+    ):
+        check_manifest(module.state_dict(), "sd", "sd_2", component, canonicalize)
+    log("sd_2.{unet, text_encoder, vae}: the port's modules match the manifests")
+
+    prediction = load_cards(sd)["sd_2"].config["prediction"]
+    encoder = sd.TextEncoder(clip, tokenizers()["clip"])
+    denoiser = CFGDenoiser(sd.StableDenoiser(unet, prediction=prediction), batched=True)
+    autoencoder = sd.AutoEncoder(vae, scale=SD_SCALE)
+    sampler = DDIMSampler(denoiser, eta=0.0, steps=SD2_STEPS)
+    B = len(SD2_PROMPTS)
+    x = sampler.init((B, SD2_SIDE, SD2_SIDE, 4), generator=generator)
+
+    def encode():
+        return {"positive": encoder(list(SD2_PROMPTS)), "negative": encoder(""), "guidance": SD2_GUIDANCE}
+
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with torch.inference_mode():
+        grid = sampler.timesteps.cuda()
+        cond = encode()  # warm-up of each part, untimed, recorded
+        with recording() as (calls, affine):
+            sampler.step(x, grid[0], grid[1], **cond)
+        with recording() as (decode_calls, decode_affine):
+            autoencoder.decode(x.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        _build.LAUNCHES.clear()
+        cond = timed("text", encode)
+        y = timed("trajectory", lambda: sampler(x, **cond))
+        # the sampler's float32 latents go to the VAE in its dtype (bf16)
+        images = timed("decode", lambda: autoencoder.decode(y.to(torch.bfloat16)))
+        launches = dict(_build.LAUNCHES)
+
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(images.shape) != (B, 8 * SD2_SIDE, 8 * SD2_SIDE, 3) or not bool(torch.isfinite(images).all()):
+        raise AssertionError(f"sd2_768's images are not finite of shape (4, 768, 768, 3): {tuple(images.shape)}")
+    hidden = sd.ARCHS["sd2"]["clip"]["hidden"]
+    if tuple(cond["positive"]["prompt_embeds"].shape) != (B, 77, hidden) or tuple(
+            cond["negative"]["prompt_embeds"].shape) != (1, 77, hidden):
+        raise AssertionError("CLIP-H's outputs have the wrong shapes")
+    by_l = collections.Counter()
+    for key, n in calls.items():
+        if key[0] == "attn":
+            B2, H, L, D = key[1]
+            if (B2, D, H) != (2 * B, 64, SD2_HEADS_BY_L.get(L)):
+                raise AssertionError(f"sd2_768: an attention call at {key[1]}")
+            by_l[L] += n
+    expected = {name: n * SD2_STEPS for name, n in SD2_CALLS_PER_FORWARD.items()}
+    expected["group_norm"] += SD_VAE_CALLS["group_norm"]
+    log(f"launches {launches}, expected {expected}; recorded in a step {launch_counts(calls)}, attention by L "
+        f"{dict(by_l)}; in the decode {launch_counts(decode_calls)}")
+    if (launches != expected or launch_counts(calls) != SD2_CALLS_PER_FORWARD or dict(by_l) != SD2_ATTENTION_BY_L
+            or launch_counts(decode_calls) != SD_VAE_CALLS):
+        raise AssertionError("the sd2_768 path's launch counts are not exact")
+    total = sum(seconds.values())
+    log(f"sd2_768 prompts to pixels: text encoder {seconds['text'] * 1e3:.2f} ms ({B} prompts and the negative), "
+        f"{seconds['trajectory'] / SD2_STEPS * 1e3:.2f} ms per step (DDIM-{SD2_STEPS}, batched CFG at batch "
+        f"{2 * B}, {seconds['trajectory']:.3f} s), decode {seconds['decode'] * 1e3:.2f} ms (batch {B}, 768 px); "
+        f"{B / seconds['trajectory']:.4f} images/s for the trajectory, {B / total:.4f} end to end ({total:.3f} s), "
+        f"peak memory {peak / 2**30:.2f} GiB; image mean {images.float().mean().item():.4f}, "
+        f"std {images.float().std().item():.4f}")
+
+    with torch.inference_mode():
+        profile_step(lambda: sampler.step(x, grid[0], grid[1], **cond), "one step (batched CFG, batch 8)")
+        profile_step(lambda: autoencoder.decode(y.to(torch.bfloat16)), "the decode")
+        attn = new_entry()
+        for key, n in sorted(calls.items()):
+            if key[0] != "attn":
+                continue
+            q, k, v = (torch.randn(key[1], generator=generator, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+            scale = key[3]
+            ms = elapsed_ms(lambda: attention._attention_kernel(q, k, v, scale))
+            plain = elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale), reps=3, warmup=1)
+            library = elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            Bq, H, L, D = key[1]
+            ops = 4 * Bq * H * L * L * D
+            bound, by = bound_ms(4 * q.numel() * q.element_size(), ops, torch.bfloat16)
+            add_timing(attn, n, ms, plain, library, bound, by, 0.0, 0.0, ops)
+            log(f"  attention {key[1]} bfloat16 x{n}/UNet call: {ms:.4f} ms ({speed(ops, ms, bound)}), "
+                f"plain {plain:.4f} ms, SDPA {library:.4f} ms, bound {bound:.4f} ms ({by})")
+            del q, k, v
+        log(f"the UNet call's {SD2_CALLS_PER_FORWARD['attention_fwd']} attention calls: {attn['ms']:.4f} ms by events ({attn['ops'] / attn['ms'] / 1e9:.1f} "
+            f"TFLOP/s), bound {attn['bound_ms']:.4f} ms, plain {attn['plain_ms']:.4f} ms, SDPA {attn['library_ms']:.4f} ms")
+        per_kernel = {name: new_entry() for name in ("group_norm", "group_norm_silu")}
+        check_gn_calls(decode_calls, decode_affine, generator, per_kernel)
+    gn = per_kernel["group_norm"]
+    log(f"the decode's {SD_VAE_CALLS['group_norm']} GroupNorm calls: {gn['ms']:.4f} ms by events, device "
+        f"{gn['device_ms']:.4f} ms, bound {gn['bound_ms']:.4f} ms, plain {gn['plain_ms']:.4f} ms, "
+        f"F.group_norm {gn['library_ms']:.4f} ms")
+
+    del unet, clip, vae, encoder, denoiser, autoencoder, sampler, x, y, images, cond
+    torch.cuda.empty_cache()
+    check_recorded("sd2_768, one UNet call under batched CFG (batch 8)", fit_attention(calls), affine, seed=390)
+    return {"launches": launches, "seconds": seconds, "images_s": B / seconds["trajectory"], "attention": attn}
+
+
+def sd1_call(generator) -> dict:
+    r"""sd1_512 (phase 40): the sd_1.5 card's UNet in bf16, held against its
+    manifest, under `StableDenoiser` (epsilon) and batched CFG: one call at
+    batch 2 on (2, 64, 64, 4) latents with random prompt embeddings, finite,
+    with exactly 61 GroupNorm launches and no attention launch (heads of 40,
+    80 and 160: the plain route), timed, profiled, every recorded call
+    against its plain version."""
+
+    unet = sd.make_backbone("sd_1.5", device="cuda", dtype=torch.bfloat16, generator=generator)
+    check_manifest(unet.state_dict(), "sd", "sd_1.5", "unet")
+    log(f"sd_1.5 UNet: {sum(p.numel() for p in unet.parameters()):,} bf16 parameters, matching the manifest")
+    denoiser = CFGDenoiser(sd.StableDenoiser(unet), batched=True)
+    x = torch.randn((SD1_BATCH, 64, 64, 4), generator=generator, device="cuda")
+    cond = {
+        "positive": {"prompt_embeds": torch.randn((SD1_BATCH, 77, 768), generator=generator, device="cuda")},
+        "negative": {"prompt_embeds": torch.randn((1, 77, 768), generator=generator, device="cuda")},
+        "guidance": SD2_GUIDANCE,
+    }
+    t = torch.tensor(0.5, device="cuda")
+
+    with torch.inference_mode():
+        with recording() as (calls, affine):
+            denoiser(x, t, **cond)  # warm-up, recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = denoiser(x, t, **cond).mean
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("sd1_512's batched CFG call is not finite")
+    log(f"launches {launches}, expected {SD1_CALLS_PER_FORWARD}; recorded {launch_counts(calls)}")
+    if launches != SD1_CALLS_PER_FORWARD or launch_counts(calls) != SD1_CALLS_PER_FORWARD:
+        raise AssertionError("sd1_512's launch counts are not exact")
+    log(f"sd1_512: one batched CFG call at batch {2 * SD1_BATCH} (64 x 64 latents) {ms:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean {out.mean().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: denoiser(x, t, **cond), "one batched CFG call (batch 4)")
+
+    del unet, denoiser, x, cond, out
+    torch.cuda.empty_cache()
+    check_recorded("sd1_512", calls, affine, seed=400)
+    return {"launches": launches, "ms": ms}
+
+
+def heun_full_width(label: str, denoiser, shape, steps: int, labels, per_call: dict, generator) -> tuple:
+    r"""`steps` Heun steps from `sampler.init` noise at `shape` with
+    `labels`: one recorded network call (exactly `per_call` launches), a
+    warm-up step, then the timed trajectory with exactly `per_call` launches
+    per network call (two a step); prints images/s, ms per network call,
+    peak memory and a profile of one step. Returns the trajectory, its
+    launches, its seconds and the recorded call."""
+
+    sampler = sample.HeunSampler(denoiser, steps=steps)
+    x = sampler.init(shape, generator=generator)
+    network_calls = [0]
+    hook = denoiser.backbone.register_forward_pre_hook(lambda *_: network_calls.__setitem__(0, network_calls[0] + 1))
+
+    with torch.inference_mode():
+        grid = sampler.timesteps.cuda()
+        with recording() as (calls, affine):
+            denoiser(x, grid[1], label=labels)
+        sampler.step(x, grid[0], grid[1], label=labels)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        network_calls[0] = 0
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        y = sampler(x, label=labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    hook.remove()
+
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(y.shape) != tuple(shape) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{label}'s trajectory is not finite")
+    expected = {name: n * network_calls[0] for name, n in per_call.items()}
+    log(f"launches {launches}, expected {expected} ({network_calls[0]} network calls); recorded in one call "
+        f"{launch_counts(calls)}")
+    if network_calls[0] != 2 * steps or launches != expected or launch_counts(calls) != per_call:
+        raise AssertionError(f"{label}'s launch counts are not exact")
+    log(f"{label}: Heun-{steps}, batch {shape[0]}: {seconds:.3f} s, {shape[0] / seconds:.4f} images/s, "
+        f"{seconds / network_calls[0] * 1e3:.2f} ms per network call, peak memory {peak / 2**30:.2f} GiB; "
+        f"sample mean {y.float().mean().item():.4f}, std {y.float().std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: sampler.step(x, grid[0], grid[1], label=labels), "one Heun step (two network calls)")
+    return y, launches, seconds, (calls, affine)
+
+
+def edm64_full_width(generator) -> dict:
+    r"""edm64 (phase 41): the imagenet_64x64_cond network in bf16 under
+    EDMPrecond and `ElucidatedDenoiser`, Heun-18 at batch 64 with one-hot
+    labels arange(64) % 1000 (`heun_full_width`: exactly 95 GroupNorm
+    launches a network call), every recorded call against its plain
+    version."""
+
+    net = edm.EDMPrecond(edm.DhariwalUNet(**EDM64, device="cuda", dtype=torch.bfloat16, generator=generator))
+    log(f"edm64 (imagenet_64x64_cond): {sum(p.numel() for p in net.parameters()):,} bf16 parameters")
+    labels = F.one_hot(torch.arange(EDM64_BATCH, device="cuda") % 1000, 1000).float()
+    _, launches, seconds, (calls, affine) = heun_full_width(
+        "edm64", edm.ElucidatedDenoiser(net), (EDM64_BATCH, 64, 64, 3), EDM64_STEPS, labels, EDM64_CALLS_PER_FORWARD,
+        generator,
+    )
+    del net
+    torch.cuda.empty_cache()
+    check_recorded("edm64, one network call (batch 64)", calls, affine, seed=410)
+    return {"launches": launches, "images_s": EDM64_BATCH / seconds, "ms_per_call": seconds / (2 * EDM64_STEPS) * 1e3}
+
+
+def edm2_full_width(generator) -> dict:
+    r"""edm2_xxl (phase 42): the imagenet_512x512_xxl network in bf16 (its
+    gains drawn) under EDM2Precond and `ElucidatedLatentDenoiser`, Heun-32 at
+    batch 8 with labels arange(8) % 1000 (`heun_full_width`: no launch of
+    ours), then the decode through the sd-vae-ft-mse VAE (bf16, the SD VAE
+    manifest's architecture) with StabilityVAEEncoder's statistics to a
+    finite (8, 512, 512, 3): exactly 30 GroupNorm launches, timed, profiled,
+    each GroupNorm call against its plain version, timed beside
+    `F.group_norm`."""
+
+    net = eldm.EDM2Precond(
+        eldm.EDM2UNet(**EDM2_XXL, device="cuda", dtype=torch.bfloat16, generator=generator), label_dim=1000
+    )
+    draw_gains(net, generator)
+    vae = AutoencoderKL(device="cuda", dtype=torch.bfloat16, generator=generator)
+    check_manifest(vae.state_dict(), "sd", "sd_1.5", "vae", canonicalize_vae_keys)
+    log(f"edm2_xxl (imagenet_512x512_xxl): {sum(p.numel() for p in net.parameters()):,} bf16 parameters; the VAE "
+        f"matches the SD VAE manifest")
+    scale = EDM2_FINAL_STD / torch.tensor(EDM2_RAW_STD)
+    autoencoder = eldm.AutoEncoder(vae, shift=-torch.tensor(EDM2_RAW_MEAN) * scale, scale=scale).to(torch.bfloat16)
+    labels = F.one_hot(torch.arange(EDM2_BATCH, device="cuda") % 1000, 1000).float()
+    y, launches, seconds, _ = heun_full_width(
+        "edm2_xxl", eldm.ElucidatedLatentDenoiser(net), (EDM2_BATCH, 64, 64, 4), EDM2_STEPS, labels, {}, generator
+    )
+
+    with torch.inference_mode():
+        with recording() as (calls, affine):
+            autoencoder.decode(y.to(torch.bfloat16))  # warm-up, recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        images = autoencoder.decode(y.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        decode_launches = dict(_build.LAUNCHES)
+
+    if tuple(images.shape) != (EDM2_BATCH, 512, 512, 3) or not bool(torch.isfinite(images).all()):
+        raise AssertionError(f"edm2_xxl's images are not finite of shape (8, 512, 512, 3): {tuple(images.shape)}")
+    log(f"decode launches {decode_launches}, expected {SD_VAE_CALLS}; recorded {launch_counts(calls)}")
+    if decode_launches != SD_VAE_CALLS or launch_counts(calls) != SD_VAE_CALLS:
+        raise AssertionError("the edm2_xxl decode's launch counts are not exact")
+    log(f"edm2_xxl decode: {decode_ms:.2f} ms (batch {EDM2_BATCH}, 512 px), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {EDM2_BATCH / (seconds + decode_ms / 1e3):.4f} "
+        f"images/s with the decode; image mean {images.float().mean().item():.4f}, std {images.float().std().item():.4f}")
+    with torch.inference_mode():
+        profile_step(lambda: autoencoder.decode(y.to(torch.bfloat16)), "the decode")
+        per_kernel = {name: new_entry() for name in ("group_norm", "group_norm_silu")}
+        check_gn_calls(calls, affine, generator, per_kernel)
+    gn = per_kernel["group_norm"]
+    log(f"the decode's {SD_VAE_CALLS['group_norm']} GroupNorm calls: {gn['ms']:.4f} ms by events, device "
+        f"{gn['device_ms']:.4f} ms, bound {gn['bound_ms']:.4f} ms, plain {gn['plain_ms']:.4f} ms, "
+        f"F.group_norm {gn['library_ms']:.4f} ms")
+
+    del net, vae, autoencoder, y, images
+    torch.cuda.empty_cache()
+    launches = {name: launches.get(name, 0) + n for name, n in decode_launches.items()}
+    return {"launches": launches, "images_s": EDM2_BATCH / seconds, "ms_per_call": seconds / (2 * EDM2_STEPS) * 1e3}
+
+
 def masked_source(name: str) -> tuple[str, str]:
     r"""The source and the TPU kernel of a masked or dropout form."""
 
@@ -4159,7 +4777,26 @@ def main() -> None:
     sana1k = sana_full_width(generator)
     log(f"new paths: FLUX.1-dev prompt to pixels {t2i['ms']:.1f} ms; {SANA_METRIC} {sana1k['images_s']:.4f} images/s")
 
-    log("== 38. result")
+    log("== 38. the SD, EDM and EDM2 slices: CPU plain versions against the card's kernels, float32")
+    check_family_slices()
+
+    log(f"== 39. sd2_768 from prompts to pixels: SD 2 (768-v), CLIP-H, the VAE, bf16, {len(SD2_PROMPTS)} prompts, "
+        f"batched CFG {SD2_GUIDANCE}, DDIM-{SD2_STEPS} (cut from 50)")
+    sd2 = sd2_text_to_image(generator)
+
+    log(f"== 40. sd1_512: the sd_1.5 UNet, bf16, one batched CFG call at batch {SD1_BATCH}")
+    sd1 = sd1_call(generator)
+
+    log(f"== 41. edm64: imagenet_64x64_cond, bf16, batch {EDM64_BATCH}, Heun-{EDM64_STEPS}")
+    edm64 = edm64_full_width(generator)
+
+    log(f"== 42. edm2_xxl: imagenet_512x512_xxl, bf16, batch {EDM2_BATCH}, Heun-{EDM2_STEPS}, the VAE decode")
+    edm2 = edm2_full_width(generator)
+    log(f"new paths: sd2_768 {sd2['images_s']:.4f} images/s (trajectory); sd1_512 {sd1['ms']:.2f} ms a call; edm64 "
+        f"{edm64['images_s']:.4f} images/s, {edm64['ms_per_call']:.2f} ms per network call; edm2_xxl "
+        f"{edm2['images_s']:.4f} images/s, {edm2['ms_per_call']:.2f} ms per network call")
+
+    log("== 43. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -4240,7 +4877,7 @@ def main() -> None:
             "ms": entry["ms"],
             # the same calls' kernel time on the device (the profiler):
             # without the host's gaps that CUDA events count around short calls
-            "device_ms": entry.get("device_ms") or None,
+            "device_ms": entry.get("device_ms") if not math.isnan(entry.get("device_ms") or math.nan) else None,
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
             # what bounds the larger share of bound_ms
@@ -4258,13 +4895,15 @@ def main() -> None:
             "calls_per_forward": per_forward[name],
         })
 
-    # the text-to-image path's launches (phase 36) beside each kernel's own
-    # main path's; the VAE decode's GroupNorm calls timed as phase 3 times ADM's
+    # the launches of the text-to-image path (phase 36) and of the SD, EDM
+    # and EDM2 paths (phases 39-42) beside each kernel's own main path's; the
+    # FLUX.1-dev VAE decode's GroupNorm calls timed as phase 3 times ADM's
+    paths = {"flux_text_to_image": t2i, "sd2_768": sd2, "sd1_512": sd1, "edm64": edm64, "edm2_xxl": edm2}
     for entry in kernels:
-        extra = t2i["launches"].get(entry["name"], 0)
+        extra = {path: run["launches"][entry["name"]] for path, run in paths.items() if run["launches"].get(entry["name"])}
         if extra:
-            entry["launches_by_path"] = {"main": entry["launches"], "flux_text_to_image": extra}
-            entry["launches"] += extra
+            entry["launches_by_path"] = {"main": entry["launches"], **extra}
+            entry["launches"] += sum(extra.values())
         if entry["name"] == "group_norm":
             vae = t2i["group_norm"]
             entry["flux_vae_decode"] = {

@@ -45,7 +45,42 @@ PRODUCTION = [
     ((8, 65536, 256), 32), ((8, 16384, 512), 32), ((2, 4096, 1024), 32), ((4, 9216, 384), 32),
     ((8, 66049, 256), 32), ((2, 4096, 192), 24),
 ]
+# (B, HW, C) of the GroupNorms (32 groups each) of the paths of
+# `chip_smoke.py`'s phases 39-42: SD 2's UNet at 96 x 96 latents under
+# batched CFG (batch 8), SD 1's at 64 x 64 (batch 4), the SD VAE's decode to
+# 768 x 768 (batch 4), EDM's ImageNet-64 network (batch 64; groups of
+# min(32, C // 4): 42 channels at C = 1344, a 168-byte bf16 band row; 30 at
+# C = 960) and the EDM2 decode to 512 x 512 (batch 8), as
+# `test_new_paths_shapes_are_recorded` records them on the meta device
+SD2_768 = [
+    (8, HW, C) for HW, C in (
+        (144, 1280), (144, 2560), (576, 640), (576, 1280), (576, 1920), (576, 2560), (2304, 320), (2304, 640),
+        (2304, 960), (2304, 1280), (2304, 1920), (9216, 320), (9216, 640), (9216, 960),
+    )
+]
+SD1_512 = [
+    (4, HW, C) for HW, C in (
+        (64, 1280), (64, 2560), (256, 640), (256, 1280), (256, 1920), (256, 2560), (1024, 320), (1024, 640),
+        (1024, 960), (1024, 1280), (1024, 1920), (4096, 320), (4096, 640), (4096, 960),
+    )
+]
+SD_VAE_768 = [
+    (4, HW, C) for HW, C in ((9216, 512), (36864, 512), (147456, 256), (147456, 512), (589824, 128), (589824, 256))
+]
+EDM64 = [
+    (64, HW, C) for HW, C in (
+        (64, 576), (64, 768), (64, 1344), (64, 1536), (256, 384), (256, 576), (256, 768), (256, 960), (256, 1152),
+        (256, 1344), (1024, 192), (1024, 384), (1024, 576), (1024, 768), (1024, 960), (4096, 192), (4096, 384),
+        (4096, 576),
+    )
+]
+EDM2_VAE_512 = [
+    (8, HW, C) for HW, C in ((4096, 512), (16384, 512), (65536, 256), (65536, 512), (262144, 128), (262144, 256))
+]
+NEW_PATHS = {"sd2_768": SD2_768, "sd1_512": SD1_512, "sd_vae_768": SD_VAE_768, "edm64": EDM64, "edm2_vae_512": EDM2_VAE_512}
+
 CASES = [((8, HW, C), 32) for HW, C in ADM] + [(shape, 16) for shape in UNET32] + PRODUCTION
+CASES += [(shape, 32) for shape in dict.fromkeys(sum(NEW_PATHS.values(), [])) if (shape, 32) not in CASES]
 
 
 def _rel_err(got, want) -> float:
@@ -221,3 +256,65 @@ def test_forward_only_launches_directly_without_grad():
     assert y.grad_fn is not None
     with pytest.raises(NotImplementedError, match="the toy kernel has no backward yet"):
         y.sum().backward()
+
+
+def test_new_paths_shapes_are_recorded(monkeypatch):
+    # the shapes above are those that the paths' modules hand to the
+    # GroupNorm on the meta device (no arithmetic runs)
+    from azula_tpu_torch.models import sd
+    from azula_tpu_torch.models.autoencoder import AutoencoderKL
+    from azula_tpu_torch.models.edm.backbone import DhariwalUNet, EDMPrecond
+
+    calls = []
+
+    def spy(x, P, Q, groups, eps, silu, implementation):
+        calls.append((tuple(x.shape), groups))
+        return x
+
+    monkeypatch.setattr(tnorm, "_gn_forward", spy)
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    edm64 = EDMPrecond(DhariwalUNet(64, 3, 3, label_dim=1000, device="meta"))
+    vae = AutoencoderKL(device="meta")
+    paths = {
+        "sd2_768": (lambda: sd.make_backbone("sd_2", device="meta")(meta(8, 96, 96, 4), 0, meta(8, 77, 1024)), 61),
+        "sd1_512": (lambda: sd.make_backbone("sd_1.5", device="meta")(meta(4, 64, 64, 4), 0, meta(4, 77, 768)), 61),
+        "sd_vae_768": (lambda: vae.decode(meta(4, 96, 96, 4)), 30),
+        "edm64": (lambda: edm64(meta(64, 64, 64, 3), 1.0, class_labels=meta(64, 1000)), 95),
+        "edm2_vae_512": (lambda: vae.decode(meta(8, 64, 64, 4)), 30),
+    }
+    with torch.no_grad():
+        for name, (run, n) in paths.items():
+            calls.clear()
+            run()
+            assert len(calls) == n, name
+            assert sorted({shape for shape, _ in calls}) == sorted(NEW_PATHS[name]), name
+            assert all(groups == 32 for _, groups in calls), name
+
+
+# the new paths' groups that are not a multiple of 8 channels (EDM's 42 and
+# SD's and EDM's 30), and the widest
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 64, 1344), (64, 256, 960), (8, 2304, 960), (8, 144, 2560)], ids=str)
+def test_group_norm_plain_at_new_shapes_matches_jax(shape, dtype):
+    B, HW, C = shape
+    rng = np.random.default_rng(24)
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    if dtype == "bfloat16":  # rounded as JAX's bf16 input would be
+        x = np.array(jnp.asarray(x, dtype=jnp.bfloat16).astype(jnp.float32))
+    P = (1 + 0.3 * rng.standard_normal((B, C))).astype(np.float32)
+    Q = (0.3 * rng.standard_normal((B, C))).astype(np.float32)
+    jdtype, tdtype = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+
+    plan = tnorm._gn_plan(B, HW, C, 32, 4 if dtype == "float32" else 2)
+    want = jnorm._gn_fused_xla(
+        jnp.asarray(x, dtype=jdtype), jnp.asarray(P)[:, None], jnp.asarray(Q)[:, None], 32, 1e-5, False
+    )
+    got = tnorm._group_norm_plain(
+        torch.from_numpy(x).to(tdtype), torch.from_numpy(P), torch.from_numpy(Q), 32, 1e-5, False
+    )
+
+    assert got.dtype == tdtype and plan.band % (C // 32) == 0
+    assert _rel_err(got.float(), want) <= (5e-6 if dtype == "float32" else 1e-2)
