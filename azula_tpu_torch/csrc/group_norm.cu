@@ -29,6 +29,14 @@
 // The TPU kernel carried its sums along a sequential grid; the first port
 // split that into three launches with partials in device memory, which
 // this design has none of.
+//
+// A group wider than a band (C / G > Cb, as in the single-group norms of
+// v-diffusion's 1024- and 2048-channel levels) stays one launch: its span
+// bands' blocks make one cluster (at most 16 blocks, span * nr), each block
+// folds every channel of the group over its band's nr blocks, then the
+// whole block folds the group's channels, the same bits in every block of
+// the cluster; the group's pilot is the one value x[b, 0, first channel of
+// the group] in every band.
 #include "group_stats.cuh"
 
 namespace {
@@ -51,11 +59,19 @@ struct Sums {
   }
 };
 
+// the float32 values of the fold: t1, t2 per channel of the band (of the
+// group where it spans bands), A, M, Q per channel of the band, a group's
+// mean and 1/std per channel of the band; where the group spans bands, its
+// pilot row and the scratch of the block's sums
+__host__ __device__ constexpr int fold_floats(int Cb, int span) {
+  return span > 1 ? 3 * span * Cb + 5 * Cb + 3 * kWarps : 7 * Cb;
+}
+
 // dynamic shared memory: the resident rows, the scratch, the published
 // sums, the pilot row
 template <typename T>
-int shared_bytes(int Cb, int resident, int vec) {
-  return align16(resident * Cb * static_cast<int>(sizeof(T))) + scratch_bytes<Sums>(Cb, vec, 7) +
+int shared_bytes(int Cb, int span, int resident, int vec) {
+  return align16(resident * Cb * static_cast<int>(sizeof(T))) + scratch_bytes<Sums>(Cb, vec, fold_floats(Cb, span)) +
          align16(Cb * static_cast<int>(sizeof(Sums))) + align16(Cb * 4);
 }
 
@@ -65,7 +81,8 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ P, const fl
                   int HW, int C, int G, int Cb, int N, int rows, int resident, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Unit u(Cb, N, rows, HW, static_cast<int>(cluster.block_rank()));
+  const int cpg = C / G;
+  const Unit u(cpg, Cb, N, rows, HW, static_cast<int>(cluster.block_rank()));
   const Lanes<VEC> L(Cb);
   // cp.async moves 4, 8 or 16 bytes: a band of odd bf16 channels goes
   // through registers, twice, and keeps nothing
@@ -83,7 +100,8 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ P, const fl
 
   T* stage = reinterpret_cast<T*>(smem);
   Sums* red = reinterpret_cast<Sums*>(smem + align16(resident * Cb * static_cast<int>(sizeof(T))));
-  Sums* pub = reinterpret_cast<Sums*>(reinterpret_cast<unsigned char*>(red) + scratch_bytes<Sums>(Cb, VEC, 7));
+  Sums* pub = reinterpret_cast<Sums*>(reinterpret_cast<unsigned char*>(red) +
+                                      scratch_bytes<Sums>(Cb, VEC, fold_floats(Cb, u.span)));
   float* kp =  // the pilot row of the band
       reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(pub) + align16(Cb * static_cast<int>(sizeof(Sums))));
 
@@ -133,51 +151,79 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ P, const fl
   // 2. the cluster's sums per channel, in rank order, then the group fold
   // (_stats_pilot's recombination about the group's first pilot, so that
   // every sum is O(n * std) and the mean is rounded once, at the end)
-  float* t1 = reinterpret_cast<float*>(red);  // t1, t2, A, M, Q per channel; per group mean, 1/std
-  float* t2 = t1 + Cb;
-  float* A = t2 + Cb;
+  const int F = u.span > 1 ? cpg : Cb;  // the channels folded: the band's, or the wide group's
+  float* t1 = reinterpret_cast<float*>(red);  // t1, t2 per channel folded; A, M, Q per channel; mean, 1/std
+  float* t2 = t1 + F;
+  float* A = t2 + F;
   float* M = A + Cb;
   float* Qc = M + Cb;
   float* g_mean = Qc + Cb;
   float* g_inv = g_mean + Cb;
-  for (int c = threadIdx.x; c < Cb; c += kThreads) {
-    const Sums t = cluster_fold(cluster, pub, c, N);
+  float* kg = g_inv + Cb;  // a wide group's pilot row
+  float* ws = kg + cpg;    // a wide group's block sums
+  const size_t pilot = static_cast<size_t>(u.b) * HW * C + u.g0;
+  for (int c = threadIdx.x; c < F; c += kThreads) {
+    const int j = c / Cb;  // the band of channel c in the unit
+    const Sums t = cluster_fold(cluster, pub, c - j * Cb, j * u.nr, u.nr);
     t1[c] = t.s1;
     t2[c] = t.s2;
+    if (u.span > 1) kg[c] = azula::to_float(x[pilot + c]);
   }
   cluster_arrive();
   __syncthreads();
 
-  const int cpg = C / G;
   const float hw = static_cast<float>(HW);
   const float n = hw * static_cast<float>(cpg);
-  const int lane = threadIdx.x % 32;
-  for (int g = threadIdx.x / 32; g < Cb / cpg; g += kWarps) {
-    const int c0 = g * cpg;
-    const float kref = kp[c0];
-    float s = 0.f;
-    for (int i = lane; i < cpg; i += 32) s += t1[c0 + i] + hw * (kp[c0 + i] - kref);
-    const float dm = warp_sum(s) / n;  // mean - kref
+  if (u.span == 1) {
+    const int lane = threadIdx.x % 32;
+    for (int g = threadIdx.x / 32; g < Cb / cpg; g += kWarps) {
+      const int c0 = g * cpg;
+      const float kref = kp[c0];
+      float s = 0.f;
+      for (int i = lane; i < cpg; i += 32) s += t1[c0 + i] + hw * (kp[c0 + i] - kref);
+      const float dm = warp_sum(s) / n;  // mean - kref
 
-    float v2 = 0.f, v1 = 0.f, v0 = 0.f;
-    for (int i = lane; i < cpg; i += 32) {
-      const float e = (kp[c0 + i] - kref) - dm;  // K_c - mean
-      v2 += t2[c0 + i];
-      v1 += e * t1[c0 + i];
-      v0 += e * e;
+      float v2 = 0.f, v1 = 0.f, v0 = 0.f;
+      for (int i = lane; i < cpg; i += 32) {
+        const float e = (kp[c0 + i] - kref) - dm;  // K_c - mean
+        v2 += t2[c0 + i];
+        v1 += e * t1[c0 + i];
+        v0 += e * e;
+      }
+      const float var = fmaxf((warp_sum(v2) + 2.f * warp_sum(v1) + hw * warp_sum(v0)) / n, 0.f);
+      if (lane == 0) {
+        g_mean[g] = kref + dm;
+        g_inv[g] = 1.f / sqrtf(var + eps);
+      }
     }
-    const float var = fmaxf((warp_sum(v2) + 2.f * warp_sum(v1) + hw * warp_sum(v0)) / n, 0.f);
-    if (lane == 0) {
-      g_mean[g] = kref + dm;
-      g_inv[g] = 1.f / sqrtf(var + eps);
+  } else {
+    // the wide group, folded by the whole block
+    const float kref = kg[0];
+    float s[1] = {0.f};
+    for (int c = threadIdx.x; c < cpg; c += kThreads) s[0] += t1[c] + hw * (kg[c] - kref);
+    block_sum<1>(s, ws);
+    const float dm = s[0] / n;  // mean - kref
+
+    float v[3] = {0.f, 0.f, 0.f};
+    for (int c = threadIdx.x; c < cpg; c += kThreads) {
+      const float e = (kg[c] - kref) - dm;  // K_c - mean
+      v[0] += t2[c];
+      v[1] += e * t1[c];
+      v[2] += e * e;
+    }
+    block_sum<3>(v, ws);
+    if (threadIdx.x == 0) {
+      g_mean[0] = kref + dm;
+      g_inv[0] = 1.f / sqrtf(fmaxf((v[0] + 2.f * v[1] + hw * v[2]) / n, 0.f) + eps);
     }
   }
   __syncthreads();
 
   const size_t pq = static_cast<size_t>(u.b) * C + u.c0;
   for (int c = threadIdx.x; c < Cb; c += kThreads) {
-    A[c] = g_inv[c / cpg] * P[pq + c];
-    M[c] = g_mean[c / cpg];
+    const int g = u.span > 1 ? 0 : c / cpg;
+    A[c] = g_inv[g] * P[pq + c];
+    M[c] = g_mean[g];
     Qc[c] = Q[pq + c];
   }
   __syncthreads();
@@ -222,17 +268,19 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ P, const fl
 template <typename T, int VEC>
 cudaError_t launch(const void* x, const void* P, const void* Q, void* y, int B, int HW, int C, int G, int Cb, int N,
                    int rows, int resident, float eps, bool silu, cudaStream_t s) {
-  const int smem = shared_bytes<T>(Cb, resident, VEC);
+  const int span = span_of(C / G, Cb);
+  const int smem = shared_bytes<T>(Cb, span, resident, VEC);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const float* Pf = static_cast<const float*>(P);
   const float* Qf = static_cast<const float*>(Q);
   T* yt = static_cast<T*>(y);
+  const int units = C / Cb / span;
   if (silu) {
-    return launch_clusters(group_norm_kernel<T, VEC, true>, C / Cb, N, B, smem, s, xt, Pf, Qf, yt, HW, C, G, Cb, N,
+    return launch_clusters(group_norm_kernel<T, VEC, true>, units, N, B, smem, s, xt, Pf, Qf, yt, HW, C, G, Cb, N,
                            rows, resident, eps);
   }
-  return launch_clusters(group_norm_kernel<T, VEC, false>, C / Cb, N, B, smem, s, xt, Pf, Qf, yt, HW, C, G, Cb, N,
+  return launch_clusters(group_norm_kernel<T, VEC, false>, units, N, B, smem, s, xt, Pf, Qf, yt, HW, C, G, Cb, N,
                          rows, resident, eps);
 }
 
@@ -255,9 +303,10 @@ cudaError_t dispatch(const void* x, const void* P, const void* Q, void* y, int B
 
 // x, y: (B, HW, C) contiguous, dtype 0 = float32, 1 = bfloat16, 16-byte
 // aligned. P, Q: (B, C) float32. The plan: bands of `band` channels (whole
-// groups), clusters of `cluster` blocks of `rows` rows each, the first
-// `resident` rows of a block kept in shared memory. C % G == 0 and
-// C / G <= 256. Returns the launch's CUDA error.
+// groups, or 1 / span of a group of C / G = span * band channels), clusters
+// of `cluster` blocks of `rows` rows each (span bands of cluster / span
+// blocks where a group spans bands), the first `resident` rows of a block
+// kept in shared memory. C % G == 0. Returns the launch's CUDA error.
 extern "C" int azula_group_norm(const void* x, const void* P, const void* Q, void* y, int B, int HW, int C, int G,
                                 int band, int cluster, int rows, int resident, float eps, int silu, int dtype,
                                 void* stream) {
@@ -276,14 +325,17 @@ extern "C" int azula_group_norm(const void* x, const void* P, const void* Q, voi
 }
 
 // The dynamic shared memory of a block of azula_group_norm with a band of
-// `band` channels and `resident` rows, as the planner computes it.
-extern "C" int azula_group_norm_shared_bytes(int band, int resident, int dtype) {
-  if (dtype == azula::kBFloat16) return shared_bytes<__nv_bfloat16>(band, resident, vector_of<__nv_bfloat16>(band));
-  return shared_bytes<float>(band, resident, vector_of<float>(band));
+// `band` channels, groups of `span` bands (1 where a band holds whole
+// groups) and `resident` rows, as the planner computes it.
+extern "C" int azula_group_norm_shared_bytes(int band, int span, int resident, int dtype) {
+  if (dtype == azula::kBFloat16) {
+    return shared_bytes<__nv_bfloat16>(band, span, resident, vector_of<__nv_bfloat16>(band));
+  }
+  return shared_bytes<float>(band, span, resident, vector_of<float>(band));
 }
 
-// How many clusters of a plan the card holds at once
-// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+// How many clusters of a plan of bands of whole groups the card holds at
+// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
 extern "C" int azula_group_norm_active_clusters(int band, int cluster, int resident, int silu, int dtype) {
   auto query = [&](auto kernel, int smem) -> int {
     cudaError_t e = ensure_attributes(reinterpret_cast<const void*>(kernel), smem, cluster > 8);
@@ -306,7 +358,7 @@ extern "C" int azula_group_norm_active_clusters(int band, int cluster, int resid
   if (dtype == azula::kBFloat16) {
     using T = __nv_bfloat16;
     const int vec = vector_of<T>(band);
-    const int smem = shared_bytes<T>(band, resident, vec);
+    const int smem = shared_bytes<T>(band, 1, resident, vec);
     // the bf16 form with the band's vector; registers differ little between forms
     if (vec == 8) {
       return silu ? query(group_norm_kernel<T, 8, true>, smem) : query(group_norm_kernel<T, 8, false>, smem);
@@ -314,6 +366,6 @@ extern "C" int azula_group_norm_active_clusters(int band, int cluster, int resid
     return silu ? query(group_norm_kernel<T, 1, true>, smem) : query(group_norm_kernel<T, 1, false>, smem);
   }
   using T = float;
-  const int smem = shared_bytes<T>(band, resident, vector_of<T>(band));
+  const int smem = shared_bytes<T>(band, 1, resident, vector_of<T>(band));
   return silu ? query(group_norm_kernel<T, 4, true>, smem) : query(group_norm_kernel<T, 4, false>, smem);
 }

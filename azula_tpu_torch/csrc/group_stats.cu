@@ -28,6 +28,9 @@
 // writes (mean, var) to (2, B, G). The TPU grid ran (B, tiles) and left the
 // fold to XLA; the first port took two launches with the tiles' partials in
 // device memory; here there is one launch and no partial leaves the chip.
+// A group wider than a band takes one cluster of its span bands' blocks, as
+// in group_norm.cu; the first block folds every channel of the group over
+// its band's blocks, then the whole block folds the channels.
 #include "group_stats.cuh"
 
 namespace {
@@ -57,11 +60,18 @@ struct Moments {
   }
 };
 
+// the float32 values of the fold: each channel's mean about the group's
+// first pilot and its M2 (the group's channels where it spans bands, with
+// the scratch of the block's sums)
+__host__ __device__ constexpr int fold_floats(int Cb, int span) {
+  return span > 1 ? 2 * span * Cb + 3 * kWarps : 2 * Cb;
+}
+
 // dynamic shared memory: the stage, the scratch, the published moments, the
 // pilot row
 template <typename T>
-int shared_bytes(int Cb, int stage, int vec) {
-  return align16(stage * Cb * static_cast<int>(sizeof(T))) + scratch_bytes<Moments>(Cb, vec, 2) +
+int shared_bytes(int Cb, int span, int stage, int vec) {
+  return align16(stage * Cb * static_cast<int>(sizeof(T))) + scratch_bytes<Moments>(Cb, vec, fold_floats(Cb, span)) +
          align16(Cb * static_cast<int>(sizeof(Moments))) + align16(Cb * 4);
 }
 
@@ -71,12 +81,14 @@ group_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int 
                    int rows, int stage) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Unit u(Cb, N, rows, HW, static_cast<int>(cluster.block_rank()));
+  const int cpg = C / G;
+  const Unit u(cpg, Cb, N, rows, HW, static_cast<int>(cluster.block_rank()));
   const Lanes<VEC> L(Cb);
 
   T* sv = reinterpret_cast<T*>(smem) + L.cv * VEC;
   Moments* red = reinterpret_cast<Moments*>(smem + align16(stage * Cb * static_cast<int>(sizeof(T))));
-  Moments* pub = reinterpret_cast<Moments*>(reinterpret_cast<unsigned char*>(red) + scratch_bytes<Moments>(Cb, VEC, 2));
+  Moments* pub = reinterpret_cast<Moments*>(reinterpret_cast<unsigned char*>(red) +
+                                            scratch_bytes<Moments>(Cb, VEC, fold_floats(Cb, u.span)));
   float* kp =  // the pilot row of the band
       reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(pub) + align16(Cb * static_cast<int>(sizeof(Moments))));
 
@@ -126,21 +138,48 @@ group_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int 
   block_combine<Moments, VEC>(L, acc, red, pub, Cb);
   cluster.sync();
 
-  // 2. the first block: the cluster's moments per channel in rank order,
-  // each channel's mean of x - K_c moved to the group's first pilot
-  const int cpg = C / G;
+  // 2. the first block: the cluster's moments per channel in rank order (of
+  // its band's blocks), each channel's mean of x - K_c moved to the group's
+  // first pilot
+  const int F = u.span > 1 ? cpg : Cb;  // the channels folded: the band's, or the wide group's
   float* e_c = reinterpret_cast<float*>(red);
-  float* q_c = e_c + Cb;
+  float* q_c = e_c + F;
+  float* ws = q_c + F;  // a wide group's block sums
+  const size_t pilot = static_cast<size_t>(u.b) * HW * C + u.g0;
   if (u.rank == 0) {
-    for (int c = threadIdx.x; c < Cb; c += kThreads) {
-      const Moments t = cluster_fold(cluster, pub, c, N);
-      e_c[c] = (kp[c] - kp[c / cpg * cpg]) + t.m;
+    for (int c = threadIdx.x; c < F; c += kThreads) {
+      const int j = c / Cb;  // the band of channel c in the unit
+      const Moments t = cluster_fold(cluster, pub, c - j * Cb, j * u.nr, u.nr);
+      const float dk = u.span > 1 ? azula::to_float(x[pilot + c]) - azula::to_float(x[pilot])
+                                  : kp[c] - kp[c / cpg * cpg];
+      e_c[c] = dk + t.m;
       q_c[c] = t.M2;
     }
   }
   cluster_arrive();
 
-  if (u.rank == 0) {
+  if (u.rank == 0 && u.span > 1) {
+    // the wide group, folded by the whole block
+    __syncthreads();
+    const float hw = static_cast<float>(HW);
+    float s[1] = {0.f};
+    for (int c = threadIdx.x; c < cpg; c += kThreads) s[0] += e_c[c];
+    block_sum<1>(s, ws);
+    const float dm = s[0] / static_cast<float>(cpg);  // group mean - kref
+
+    float v[2] = {0.f, 0.f};
+    for (int c = threadIdx.x; c < cpg; c += kThreads) {
+      const float e = e_c[c] - dm;
+      v[0] += q_c[c];
+      v[1] += e * e;
+    }
+    block_sum<2>(v, ws);
+    if (threadIdx.x == 0) {
+      const size_t bg = static_cast<size_t>(u.b) * G + u.g0 / cpg;
+      out[bg] = azula::to_float(x[pilot]) + dm;
+      out[static_cast<size_t>(B) * G + bg] = fmaxf((v[0] + hw * v[1]) / (hw * static_cast<float>(cpg)), 0.f);
+    }
+  } else if (u.rank == 0) {
     __syncthreads();
     const float hw = static_cast<float>(HW);
     const int lane = threadIdx.x % 32;
@@ -171,12 +210,13 @@ group_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int 
 template <typename T, int VEC>
 cudaError_t launch(const void* x, void* out, int B, int HW, int C, int G, int Cb, int N, int rows, int stage,
                    cudaStream_t s) {
-  const int smem = shared_bytes<T>(Cb, stage, VEC);
+  const int span = span_of(C / G, Cb);
+  const int smem = shared_bytes<T>(Cb, span, stage, VEC);
   const int ty_rows = 2 * kThreads / lanes_of(Cb, VEC);  // rows of two passes of a block's threads
   if (smem > kMaxSharedBytes || stage < (rows < ty_rows ? rows : ty_rows)) {
     return cudaErrorInvalidValue;
   }
-  return launch_clusters(group_stats_kernel<T, VEC>, C / Cb, N, B, smem, s, static_cast<const T*>(x),
+  return launch_clusters(group_stats_kernel<T, VEC>, C / Cb / span, N, B, smem, s, static_cast<const T*>(x),
                          static_cast<float*>(out), B, HW, C, G, Cb, N, rows, stage);
 }
 
@@ -200,8 +240,8 @@ cudaError_t dispatch(const void* x, void* out, int B, int HW, int C, int G, int 
 // x: (B, HW, C) contiguous, dtype 0 = float32, 1 = bfloat16, 16-byte
 // aligned. out: (2, B, G) float32, the means then the variances. The plan
 // (band, cluster, rows) as azula_group_norm's; `stage` rows of a block's
-// shared memory take the copies. C % G == 0 and C / G <= 256. Returns the
-// launch's CUDA error.
+// shared memory take the copies. C % G == 0. Returns the launch's CUDA
+// error.
 extern "C" int azula_group_stats(const void* x, void* out, int B, int HW, int C, int G, int band, int cluster,
                                  int rows, int stage, int dtype, void* stream) {
   if (!valid_plan(B, HW, C, G, band, cluster, rows)) return cudaErrorInvalidValue;

@@ -6,8 +6,12 @@
 // and a band of Cb channels made of whole groups. The launch's grid is
 // (bands * N, B) in clusters of (N, 1, 1): the N blocks of a cluster share
 // one unit, block `rank` taking its rows [rank * rows, min((rank + 1) * rows,
-// HW)). The Python planner (`ops/norm.py`, `_gn_plan`) chooses Cb, N and
-// rows, and how many of a block's rows group_norm.cu keeps in shared memory.
+// HW)). A group wider than a band (C / G > Cb, at most kMaxCluster bands of
+// Cb channels) is one unit of its `span` = C / G / Cb bands: the cluster's
+// N = span * nr blocks take band j's rows [r * rows, ...) at rank j * nr + r,
+// and every channel of the group is folded over its band's nr blocks. The
+// Python planner (`ops/norm.py`, `_gn_plan`) chooses Cb, N and rows, and how
+// many of a block's rows group_norm.cu keeps in shared memory.
 //
 // In a block, threads run along the band in vectors of at most 16 bytes (nvx
 // threads, the band's vectors rounded up to a power of two) and along the
@@ -41,6 +45,7 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 // channels of a band: at most one per thread where the fold runs per channel
+// (a wider group spans up to kMaxCluster bands)
 constexpr int kMaxBand = 512;
 // at most 16 blocks a cluster (above 8, the non-portable sizes)
 constexpr int kMaxCluster = 16;
@@ -67,26 +72,33 @@ __host__ __device__ constexpr int lanes_of(int Cb, int vec) {
 
 // The scratch of the block's combination (a state per channel for each warp,
 // or each row thread where a row spans warps), reused by the fold's
-// `floats` per-channel arrays.
+// `floats` float32 values.
 template <typename S>
 __host__ __device__ constexpr int scratch_bytes(int Cb, int vec, int floats) {
   const int nvx = lanes_of(Cb, vec);
   const int rows = nvx < 32 ? kWarps : kThreads / nvx;
   const int red = rows * Cb * static_cast<int>(sizeof(S));
-  return align16(red > floats * Cb * 4 ? red : floats * Cb * 4);
+  return align16(red > floats * 4 ? red : floats * 4);
 }
+
+// The bands of one group: 1 where a band holds whole groups.
+__host__ __device__ constexpr int span_of(int cpg, int Cb) { return cpg > Cb ? cpg / Cb : 1; }
 
 // The block's share of its cluster's unit.
 struct Unit {
   int b;      // batch row
   int rank;   // block in the cluster
+  int span;   // bands of the unit's group (1: the unit is one band of whole groups)
+  int nr;     // blocks of a band in the cluster
   int r0;     // first row of the block
   int nrows;  // rows of the block
-  int c0;     // first channel of the band
+  int g0;     // first channel of the unit
+  int c0;     // first channel of the block's band
 
-  __device__ Unit(int Cb, int N, int rows, int HW, int rank_)
-      : b(blockIdx.y), rank(rank_), r0(rank_ * rows), nrows(max(0, min(rows, HW - rank_ * rows))),
-        c0(static_cast<int>(blockIdx.x) / N * Cb) {}
+  __device__ Unit(int cpg, int Cb, int N, int rows, int HW, int rank_)
+      : b(blockIdx.y), rank(rank_), span(span_of(cpg, Cb)), nr(N / span), r0(rank_ % nr * rows),
+        nrows(max(0, min(rows, HW - rank_ % nr * rows))), g0(static_cast<int>(blockIdx.x) / N * span * Cb),
+        c0(g0 + rank_ / nr * Cb) {}
 };
 
 // A thread's place in the block: vector cv of the band, row thread ty.
@@ -265,11 +277,12 @@ __device__ __forceinline__ void block_combine(const Lanes<VEC>& L, S (&acc)[VEC]
   }
 }
 
-// Channel c's state folded over the cluster's N blocks in rank order.
+// Channel c's state of the blocks of ranks first, ..., first + n - 1 (the
+// blocks of one band), folded in rank order.
 template <typename S>
-__device__ __forceinline__ S cluster_fold(cg::cluster_group& cluster, S* pub, int c, int N) {
-  S t = *cluster.map_shared_rank(pub + c, 0);
-  for (int q = 1; q < N; ++q) t.add(*cluster.map_shared_rank(pub + c, q));
+__device__ __forceinline__ S cluster_fold(cg::cluster_group& cluster, S* pub, int c, int first, int n) {
+  S t = *cluster.map_shared_rank(pub + c, first);
+  for (int q = first + 1; q < first + n; ++q) t.add(*cluster.map_shared_rank(pub + c, q));
   return t;
 }
 
@@ -290,6 +303,29 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// K sums over the block's threads, in a fixed order (the warps' sums through
+// `ws`, K * kWarps floats, added in warp order), the same bits in every
+// thread and in every block that sums the same values. Every thread of the
+// block calls it.
+template <int K>
+__device__ __forceinline__ void block_sum(float (&v)[K], float* ws) {
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) ws[k * kWarps + warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float t = ws[k * kWarps];
+    for (int w = 1; w < kWarps; ++w) t += ws[k * kWarps + w];
+    v[k] = t;
+  }
+  __syncthreads();
 }
 
 // Sets a kernel's dynamic shared memory limit (and, for clusters above 8
@@ -335,10 +371,10 @@ inline cudaError_t ensure_attributes(const void* kernel, int smem, bool nonporta
   return cudaSuccess;
 }
 
-// Launches `kernel` on a grid (bands * N, B) of kThreads-thread blocks in
+// Launches `kernel` on a grid (units * N, B) of kThreads-thread blocks in
 // clusters of (N, 1, 1) with `smem` bytes of dynamic shared memory.
 template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), int bands, int N, int B, int smem, cudaStream_t s,
+cudaError_t launch_clusters(void (*kernel)(Params...), int units, int N, int B, int smem, cudaStream_t s,
                             Args... args) {
   cudaError_t e = ensure_attributes(reinterpret_cast<const void*>(kernel), smem, N > 8);
   if (e != cudaSuccess) return e;
@@ -350,7 +386,7 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int bands, int N, int B, 
   attr[0].val.clusterDim.z = 1;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(bands * N), static_cast<unsigned>(B), 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(units * N), static_cast<unsigned>(B), 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = s;
@@ -362,14 +398,19 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int bands, int N, int B, 
   return cudaGetLastError();
 }
 
-// Whether a plan is one the kernels take: Cb whole groups dividing C, at
-// most kMaxBand channels, N in [1, kMaxCluster], every block of a cluster
-// holding at least one row.
+// Whether a plan is one the kernels take: bands of Cb channels dividing C,
+// at most kMaxBand, made of whole groups or, for a wider group, dividing it
+// into span bands whose blocks (span of them a row block) fill the cluster;
+// N in [1, kMaxCluster]; every block of a band holding at least one row.
 inline bool valid_plan(int B, int HW, int C, int G, int Cb, int N, int rows) {
   if (B < 1 || B > 65535 || HW < 1 || G < 1 || C % G != 0 || Cb < 1 || Cb > kMaxBand) return false;
-  if (C % Cb != 0 || Cb % (C / G) != 0 || N < 1 || N > kMaxCluster || rows < 1) return false;
-  if (static_cast<long long>(rows) * N < HW || static_cast<long long>(rows) * (N - 1) >= HW) return false;
-  return static_cast<long long>(C / Cb) * N <= INT_MAX;
+  const int cpg = C / G;
+  if (C % Cb != 0 || (Cb % cpg != 0 && cpg % Cb != 0) || N < 1 || N > kMaxCluster || rows < 1) return false;
+  const int span = span_of(cpg, Cb);
+  if (N % span != 0) return false;
+  const int nr = N / span;
+  if (static_cast<long long>(rows) * nr < HW || static_cast<long long>(rows) * (nr - 1) >= HW) return false;
+  return static_cast<long long>(C / Cb / span) * N <= INT_MAX;
 }
 
 }  // namespace gstats

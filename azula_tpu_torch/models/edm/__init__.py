@@ -19,6 +19,7 @@ __all__ = [
     "DhariwalUNet",
     "EDMPrecond",
     "ElucidatedDenoiser",
+    "ElucidatedSchedule",
     "SongUNet",
     "VEPrecond",
     "VPPrecond",

@@ -72,8 +72,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, P, Q, y, B, HW, C, G, band, cluster, rows, resident, eps, silu, dtype, stream
     "azula_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # band, resident, dtype: a GroupNorm block's dynamic shared memory
-    "azula_group_norm_shared_bytes": [_I, _I, _I],
+    # band, span, resident, dtype: a GroupNorm block's dynamic shared memory
+    "azula_group_norm_shared_bytes": [_I, _I, _I, _I],
     # band, cluster, resident, silu, dtype: clusters the card holds at once
     "azula_group_norm_active_clusters": [_I, _I, _I, _I, _I],
     # x, out, B, HW, C, G, band, cluster, rows, stage, dtype, stream

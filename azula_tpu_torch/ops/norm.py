@@ -17,8 +17,9 @@ Two versions compute it: the hand-written CUDA kernel
 (`csrc/group_norm.cu`) for tensors on the card, and a plain PyTorch version
 for tensors on the CPU, at the kernel's rounding points. The kernel and the
 statistics kernel are one launch each of thread-block clusters, cut by the
-pure Python planner `_gn_plan` (bands of whole groups, clusters, the rows a
-block keeps in shared memory), which the CPU tests hold. The backward is
+pure Python planner `_gn_plan` (bands of whole groups, or of a group wider
+than 512 channels a cluster of its bands; clusters; the rows a block keeps
+in shared memory), which the CPU tests hold. The backward is
 JAX's `_gn_fused_bwd` in plain PyTorch, with the statistics that the
 forward saves from :func:`group_stats`.
 
@@ -101,7 +102,11 @@ def _group_norm_plain(
     pilot-shifted sums of `_stats_pilot`, taken per block of `rows` rows
     (the planner's, by default) and added in block order, as a cluster folds
     them; then the fold about each group's first pilot and the elementwise
-    pass of `_gn_fused_xla` (azula_tpu/ops/norm.py), in float32 throughout."""
+    pass of `_gn_fused_xla` (azula_tpu/ops/norm.py), in float32 throughout.
+    Where a group spans bands, each channel's sums still fold over its
+    band's blocks in block order: the split by bands adds no rounding point
+    (the group's channels are summed in another order than the kernel's
+    block-wide fold, as at any width)."""
 
     B, HW, C = x.shape
     n = HW * (C // groups)
@@ -167,7 +172,10 @@ class _GNPlan(NamedTuple):
     `band` channels (whole groups), each (batch row, band) a cluster of
     `cluster` blocks of `rows` rows; a GroupNorm block keeps `resident` of
     its rows in shared memory (`smem` bytes in all), and a statistics block
-    streams its rows through a stage of `stage` rows."""
+    streams its rows through a stage of `stage` rows. A group wider than
+    `band` (C / G = span * band) is one unit of its span bands: its cluster
+    of `cluster` blocks holds cluster / span blocks of `rows` rows for each
+    band (`_span`)."""
 
     band: int
     cluster: int
@@ -190,33 +198,42 @@ def _row_threads(band: int, itemsize: int) -> int:
     return _THREADS // (1 << (math.ceil(band / _vector(band, itemsize)) - 1).bit_length())
 
 
-def _shared_bytes(band: int, resident: int, itemsize: int) -> int:
+def _span(band: int, cpg: int) -> int:
+    r"""The bands of one group of `cpg` channels: 1 where a band holds whole
+    groups."""
+
+    return cpg // band if cpg > band else 1
+
+
+def _shared_bytes(band: int, resident: int, itemsize: int, span: int = 1) -> int:
     r"""A GroupNorm block's dynamic shared memory, as `csrc/group_norm.cu`
-    computes it: the resident rows, the scratch, the published sums, the
-    pilot row."""
+    computes it: the resident rows, the scratch (the fold's float32 values
+    where they outgrow it, more of them where a group spans `span` bands),
+    the published sums, the pilot row."""
 
     def align16(n):
         return -(-n // 16) * 16
 
     ty = _row_threads(band, itemsize)
     rows = _WARPS if _THREADS // ty < 32 else ty
-    scratch = align16(max(rows * band * 8, 7 * band * 4))
+    floats = 3 * span * band + 5 * band + 3 * _WARPS if span > 1 else 7 * band
+    scratch = align16(max(rows * band * 8, floats * 4))
     return align16(resident * band * itemsize) + scratch + align16(band * 8) + align16(band * 4)
 
 
-def _plan(HW: int, band: int, cluster: int, itemsize: int) -> _GNPlan:
+def _plan(HW: int, band: int, cluster: int, itemsize: int, span: int = 1) -> _GNPlan:
     r"""The plan of bands of `band` channels on clusters of up to `cluster`
-    blocks, each block keeping as many of its rows as its shared memory
-    holds."""
+    blocks a band (`span` bands a cluster where a group spans them), each
+    block keeping as many of its rows as its shared memory holds."""
 
     row_bytes = band * itemsize
     rows = math.ceil(HW / cluster)
     cluster = math.ceil(HW / rows)
     ty = _row_threads(band, itemsize)
-    room = (_MAX_SHARED - _shared_bytes(band, 0, itemsize)) // 16 * 16
+    room = (_MAX_SHARED - _shared_bytes(band, 0, itemsize, span)) // 16 * 16
     resident = min(rows, max(2 * ty, room // row_bytes))
     stage = min(rows, max(2 * ty, _STAGE_BYTES // row_bytes))
-    return _GNPlan(band, cluster, rows, resident, stage, _shared_bytes(band, resident, itemsize))
+    return _GNPlan(band, span * cluster, rows, resident, stage, _shared_bytes(band, resident, itemsize, span))
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,7 +252,14 @@ def _gn_plan(B: int, HW: int, C: int, G: int, itemsize: int, stats: bool = False
     fill less than a wave, rounded up to a power of two, at most 16, and
     no block under `_MIN_ROWS` rows. A GroupNorm block keeps as many of its
     rows as its shared memory holds; the rest are read again after the
-    fold, from L2 where they stayed."""
+    fold, from L2 where they stayed.
+
+    A group wider than 512 channels takes bands of the widest divisor of
+    its channels up to 512, `span` of them a group, and its unit (HW rows
+    of the group) a cluster of span times the blocks a band would take, at
+    most 16 in all. The kernels refuse a plan whose cluster holds more than
+    16 blocks: a group of more than 16 bands (at most 8192 channels, fewer
+    where no divisor lies near 512), which no model of the zoo has."""
 
     def cluster_of(band):
         unit, units = HW * band * itemsize, B * (C // band)
@@ -246,7 +270,12 @@ def _gn_plan(B: int, HW: int, C: int, G: int, itemsize: int, stats: bool = False
         return B * (C // band) * cluster_of(band)
 
     cpg = C // G
-    bands = [g * cpg for g in range(1, G + 1) if G % g == 0 and g * cpg <= _MAX_BAND] or [cpg]
+    if cpg > _MAX_BAND:
+        band = max(d for d in range(1, _MAX_BAND + 1) if cpg % d == 0)
+        span = cpg // band
+        return _plan(HW, band, max(1, min(cluster_of(band), _MAX_CLUSTER // span)), itemsize, span)
+
+    bands = [g * cpg for g in range(1, G + 1) if G % g == 0 and g * cpg <= _MAX_BAND]
     if B >= _WAVE:
         band = max((b for b in bands if b * itemsize <= _WIDE_BAND_BYTES), default=bands[0])
     else:
@@ -255,6 +284,20 @@ def _gn_plan(B: int, HW: int, C: int, G: int, itemsize: int, stats: bool = False
             band = min((b for b in bands if b * itemsize >= _NARROW_BAND_BYTES and blocks(b) >= _WAVE), default=band)
 
     return _plan(HW, band, cluster_of(band), itemsize)
+
+
+def _check_groups(B: int, HW: int, C: int, groups: int, itemsize: int) -> None:
+    r"""Raises unless the kernels take `groups` groups of x (B, HW, C):
+    a group wider than 512 channels must fit a cluster (`_gn_plan`)."""
+
+    if C % groups:
+        raise ValueError(f"channels ({C}) must be divisible by groups ({groups})")
+    plan = _gn_plan(B, HW, C, groups, itemsize)
+    if plan.cluster > _MAX_CLUSTER:
+        raise ValueError(
+            f"unsupported channels per group: C={C}, groups={groups} takes {plan.cluster} blocks a cluster "
+            f"(bands of {plan.band}); the kernels take groups of at most {_MAX_CLUSTER} bands"
+        )
 
 
 @_build.forward_only("group_norm", "under grad, call group_norm or group_norm_silu: their backward is the analytic one")
@@ -275,8 +318,7 @@ def _group_norm_kernel(
 
     B, HW, C = x.shape
 
-    if C % groups or C // groups > 256:
-        raise ValueError(f"unsupported channels per group: C={C}, groups={groups}")
+    _check_groups(B, HW, C, groups, x.element_size())
     for name, t in (("P", P), ("Q", Q)):
         if t.shape != (B, C) or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 (B, C) tensor on {x.device}")
@@ -437,7 +479,8 @@ def stats_kernel_eligible(shape: tuple[int, ...]) -> bool:
     `(B, HW, C)` shape: JAX takes its two-pass XLA fold elsewhere.
 
     The card's kernel has neither the TPU's lane rule (`C % 128 == 0`) nor
-    its tiling rule: it covers every shape with :math:`C / G \leq 256`.
+    its tiling rule: it covers every shape whose groups fit a cluster
+    (`_check_groups`).
     """
 
     _, HW, C = shape
@@ -452,7 +495,8 @@ def _stats_kernel_plain(x: Tensor, groups: int, rows: int) -> tuple[Tensor, Tens
     per channel, the mean and the centered sum of squares of x - K; the
     blocks combined by Chan's formula in block order, as a cluster folds
     them (the last block may be short), then the channels about the group's
-    first pilot."""
+    first pilot (where a group spans bands, its channels fold over their
+    own band's blocks just so)."""
 
     B, HW, C = x.shape
     cpg = C // groups
@@ -497,8 +541,7 @@ def _stats_kernel(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
 
     B, HW, C = x.shape
 
-    if C % groups or C // groups > 256:
-        raise ValueError(f"unsupported channels per group: C={C}, groups={groups}")
+    _check_groups(B, HW, C, groups, x.element_size())
     if x.data_ptr() % 16:
         raise ValueError("the group-statistics kernel needs a 16-byte aligned input")
 

@@ -31,6 +31,11 @@ Phases, each of which raises on failure:
    at every recorded GroupNorm shape and unet32's three, each held against
    the plain version and timed on the device; and the host's time per call
    of ADM's smallest GroupNorm, direct and through the autograd node.
+   Then the wide groups of the v-diffusion paths (`WIDE_GN_SHAPES`: one
+   group of up to 2048 channels, spanning up to four bands, or of a whole
+   256 x 256 image): each against its plain version in bf16 and float32,
+   timed beside its bound and `F.group_norm`, and at |mean| / std = 1e4
+   against the float64 GroupNorm.
 4. slice: the tiny ADM of the CPU tests, same random weights, on the CPU
    (plain versions) and on the card (kernels), float32: the denoiser's output
    and a 4-step DDIM trajectory.
@@ -156,9 +161,10 @@ Phases, each of which raises on failure:
 23. group statistics: the statistics kernel (`csrc/group_stats.cu`) against
    its plain version on 100 + 3 N inputs in bf16 and float32, at unet32's
    three GroupNorm shapes (batch 256, 16 groups) and the JAX package's
-   production shapes, (8, 66049, 256) and (2, 4096, 192) included, and
-   against the exact statistics in float64; timed by events and on the
-   device beside the plain version, `torch.var_mean` and the bound. Then
+   production shapes, (8, 66049, 256) and (2, 4096, 192) included, and the
+   wide groups of phase 3, and against the exact statistics in float64;
+   timed by events and on the device beside the plain version,
+   `torch.var_mean` and the bound (the wide groups apart). Then
    `group_stats`' gradient on the card against the plain route's, and
    `group_norm` / `group_norm_silu` forward and backward on the card
    against autograd through the plain version, at unet32's and ADM's
@@ -297,8 +303,41 @@ Phases, each of which raises on failure:
    finite (8, 512, 512, 3) with exactly 30 GroupNorm launches; images/s, ms
    per network call, the decode's ms, peak memory, profiles, each decode
    GroupNorm against its plain version beside `F.group_norm`.
-43. the kernels line `{"kernels": [...]}` (the launches of phases 36 and
-   39-42 added to their kernels' entries, by path), then the result line.
+43. the v-diffusion, CC12M-1 and JiT slices: the small modules of the CPU
+   tests on the CPU (plain versions) and on the card (kernels), same random
+   weights, float32: a `VDMUNet` (heads of 32 and 64, affine pre-norms,
+   bilinear upsampling) under `VelocityDenoiser` and DDIM-4; the attention
+   block with its pre-norm at one group of 1024 and of 2048 channels;
+   CC12M-1's FiLM convolution blocks at 512 and 1024 channels and its skip
+   block; JiT (heads of 32) under `JITDenoiser`, with and without labels,
+   and Heun-4 under batched CFG. Exact launches, each recorded call against
+   its plain version.
+44. cc12m_cfg256: CC12M-1 (603M, bf16) under `VelocityDenoiser`, batched CFG
+   at guidance 2, eight seeded unit-norm CLIP image embeddings against the
+   zero embedding, DDIM-50 on (8, 256, 256, 3): exactly 135 GroupNorm and
+   24 attention launches a call (8 each at L = 256, 64, 16); images/s, ms a
+   step, peak memory, a profile of one step, each GroupNorm call of a call
+   beside its bound and `F.group_norm`, every recorded call against its
+   plain version.
+45. vdm_yfcc512L and vdm_in128: the yfcc_512x512_large network (968M) at
+   batch 4 on 512 x 512 (12 GroupNorm launches on groups of 1024 and 2048
+   channels, 12 attention) and the imagenet_128x128 network (290M) at batch
+   16 (24 attention at heads of 128), bf16, each against its manifest, one
+   `VelocityDenoiser` call each: ms, peak memory, profile, the GroupNorm
+   calls beside their bound and `F.group_norm`, every recorded call
+   against its plain version.
+46. jit_l16_cfg: the jit_0.5b_16 card's JiT-L/16 (459M, bf16, against its
+   manifest, its zero-initialized layers drawn) under `JITDenoiser`,
+   batched CFG at 2, labels arange(8) % 1000 against the null label,
+   Heun-50 on (8, 256, 256, 3): exactly 24 attention launches a network
+   call (8 at L = 256, 16 at 288); images/s, ms a step, peak memory,
+   profile, every recorded call against its plain version.
+47. jit_h16: the jit_1.0b_16 card's JiT-H/16 (953M), one batched CFG call at
+   batch 8: finite, no launch of ours (heads of 80: the plain route).
+48. the kernels line `{"kernels": [...]}` (the launches of phases 36,
+   39-42 and 44-47 added to their kernels' entries, by path; the wide
+   groups' and the new paths' GroupNorm timings beside the GroupNorm and
+   statistics entries), then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -329,7 +368,7 @@ from azula_tpu_torch import guidance, sample, train
 from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.guidance import CFGDenoiser, MMPSDenoiser
 from azula_tpu_torch.linalg import IsotropicCovariance
-from azula_tpu_torch.models import adm, edm, eldm, flux, sana, sd
+from azula_tpu_torch.models import adm, edm, eldm, flux, jit, sana, sd, vdm
 from azula_tpu_torch.models.autoencoder import AutoencoderKL, canonicalize_vae_keys
 from azula_tpu_torch.models.clip import CLIPTextEncoder, canonicalize_clip_keys
 from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
@@ -553,6 +592,67 @@ TINY_EDM2 = dict(  # noqa: C408
 # the largest float32 weights (B H L L) the plain attention's check may take:
 # calls above it are checked at batch 1
 ATTENTION_CHECK_BYTES = 4 * 2**30
+
+# v-diffusion and JiT (phases 43-47), every weight random from the phase's
+# seeded generator, bf16. cc12m_cfg256: CC12M-1 (603M) under
+# VelocityDenoiser in batched CFG at guidance 2 (the cc12m_1_cfg card's
+# unconditional branch: the zero CLIP embedding), 8 seeded unit-norm 512-d
+# CLIP ViT-B/16 image embeddings (CLIP is the caller's), DDIM-50 (eta = 0)
+# on (8, 256, 256, 3). Per call (batch 16): 111 single-group GroupNorms
+# without affine after the convolutions (87 of them on groups of 512 or
+# 1024 channels) and 24 affine attention pre-norms; 24 attention calls,
+# heads of 64, 8 each at L = 256, 64 and 16
+CC12M_BATCH = 8
+CC12M_STEPS = 50
+CC12M_GUIDANCE = 2.0
+CC12M_CALLS_PER_FORWARD = {"group_norm": 135, "attention_fwd": 24}
+CC12M_ATTENTION_BY_L = {256: 8, 64: 8, 16: 8}
+# vdm_yfcc512L: the yfcc_512x512_large card (SPECS["yfcc_2"], 968M), one
+# call at batch 4 on (4, 512, 512, 3): 12 single-group affine pre-norms
+# (groups of 1024 and 2048 channels) and 12 attention calls, heads of 64
+YFCC_CARD = "yfcc_512x512_large"
+YFCC_BATCH = 4
+YFCC_CALLS_PER_FORWARD = {"group_norm": 12, "attention_fwd": 12}
+# vdm_in128: the imagenet_128x128 card (290M), one call at batch 16: 24
+# attention calls, heads of 128, no GroupNorm
+IN128_CARD = "imagenet_128x128"
+IN128_BATCH = 16
+IN128_CALLS_PER_FORWARD = {"attention_fwd": 24}
+# jit_l16_cfg: jit_0.5b_16 (JiT-L/16, 459M) under JITDenoiser in batched
+# CFG at guidance 2, labels arange(8) % 1000 against the null label 1000,
+# Heun-50 on (8, 256, 256, 3): 24 attention calls a network call (batch
+# 16), heads of 64, 8 at L = 256 and 16 at 288 (the in-context tokens)
+JIT_L_CARD = "jit_0.5b_16"
+JIT_BATCH = 8
+JIT_STEPS = 50
+JIT_GUIDANCE = 2.0
+JIT_L_CALLS_PER_FORWARD = {"attention_fwd": 24}
+JIT_L_ATTENTION_BY_L = {256: 8, 288: 16}
+# jit_h16: jit_1.0b_16 (JiT-H/16, 953M), one batched CFG call at batch 8:
+# heads of 80, the plain route, as the JAX package takes XLA: no launch
+JIT_H_CARD = "jit_1.0b_16"
+# the wide groups of these paths (one group of more than 256 channels, or a
+# whole 256 x 256 image a group) that phases 3 and 23 also check and time:
+# yfcc_2's pre-norms, CC12M-1's widest and its first level's
+WIDE_GN_SHAPES = (
+    (4, 16, 2048), (4, 64, 2048), (4, 256, 1024),
+    (16, 16, 1024), (16, 64, 1024), (16, 1024, 512), (16, 65536, 128),
+)
+# wide groups off these paths that phase 3 also checks, as (shape, groups):
+# three bands of 512, five of 206 (1030 channels, bf16 vectors of 2), two
+# groups of four bands, the widest group a cluster takes (16 bands)
+WIDE_GN_OFF_PATH = (((3, 100, 1536), 1), ((2, 256, 1030), 1), ((2, 4096, 4096), 2), ((1, 64, 8192), 1))
+# the small modules of phase 43 (those of the CPU tests): a VDMUNet with
+# heads of 32 and 64 at L = 64 and 16, attention pre-norms and bilinear
+# upsampling; JiT with heads of 32
+TINY_VDM = dict(  # noqa: C408
+    cs=(32, 64, 64), blocks=1, inner=2, attn=(1, 2), head_dim=32, final_act=False, t_input="t", up="bilinear",
+    std=1.0, attn_norm=True,
+)
+TINY_JIT = dict(  # noqa: C408
+    input_size=64, patch_size=16, hidden_size=64, depth=3, num_heads=2, num_classes=10, bottleneck_dim=16,
+    in_context_len=4, in_context_start=1,
+)
 
 # unet32 (bench.py's `_unet32`): `Modulated(UNet(3, 3, mod_features=64,
 # hid_channels=(64, 128, 256), hid_blocks=(3, 3, 3)), 64)` under
@@ -1115,9 +1215,10 @@ def sweep_plans(shapes, generator) -> None:
     r"""The GroupNorm kernel with SiLU in bf16 under the planner's plan and
     its neighbours (`plan_neighbours`), each held against the plain version
     and timed on the device: one line per shape, and how often the
-    planner's was the fastest."""
+    planner's was the fastest among the shapes whose times were all
+    measured (a time the profiler missed prints "not measured")."""
 
-    best = near = 0
+    best = near = counted = 0
     for (B, HW, C), groups in shapes:
         x = torch.randn((B, HW, C), generator=generator, device="cuda").to(torch.bfloat16)
         P = 1 + 0.3 * torch.randn(B, C, generator=generator, device="cuda")
@@ -1131,15 +1232,24 @@ def sweep_plans(shapes, generator) -> None:
                 raise AssertionError(f"group norm {(B, HW, C)} under {each}: {rel_err}")
             times.append((device_ms(lambda: norm._group_norm_kernel(x, P, Q, groups, 1e-5, True, each), reps=10), each))
         ours = times[0][0]
-        fastest = min(t for t, _ in times)
-        best += ours == fastest
-        near += ours <= 1.03 * fastest
-        others = "; ".join(f"{p.band}/{p.cluster}/{p.resident} kept {t:.4f}" for t, p in times[1:])
+        # a time the profiler did not measure (NaN) leaves the shape out of the tally
+        measured = not any(math.isnan(t) for t, _ in times)
+        if measured:
+            fastest = min(t for t, _ in times)
+            best += ours == fastest
+            near += ours <= 1.03 * fastest
+            counted += 1
+
+        def ms(t):
+            return "not measured" if math.isnan(t) else f"{t:.4f}"
+
+        others = "; ".join(f"{p.band}/{p.cluster}/{p.resident} kept {ms(t)}" for t, p in times[1:])
         log(f"  plan sweep {(B, HW, C)} G={groups} bf16 SiLU, device ms: planner {plan.band}/{plan.cluster}/"
-            f"{plan.resident} kept {ours:.4f} (band/cluster/rows kept); {others}")
+            f"{plan.resident} kept {ms(ours)} (band/cluster/rows kept); {others}"
+            + ("" if measured else "; not measured, left out of the tally"))
         del x, want
-    log(f"  plan sweep: the planner's plan the fastest at {best} of {len(shapes)} shapes, "
-        f"within 3% of the fastest at {near}")
+    log(f"  plan sweep: the planner's plan the fastest at {best} of {counted} measured shapes "
+        f"({len(shapes)} in all), within 3% of the fastest at {near}")
 
 
 def check_gn_calls(calls, affine, generator, per_kernel=None, quiet=False) -> dict:
@@ -1163,7 +1273,8 @@ def check_gn_calls(calls, affine, generator, per_kernel=None, quiet=False) -> di
         for check_dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=generator, device="cuda") * 2 + 0.5).to(check_dtype)
             plan = norm._gn_plan(*shape, groups, x.element_size())
-            if lib.azula_group_norm_shared_bytes(plan.band, plan.resident, norm._DTYPES[check_dtype]) != plan.smem:
+            span = norm._span(plan.band, shape[-1] // groups)
+            if lib.azula_group_norm_shared_bytes(plan.band, span, plan.resident, norm._DTYPES[check_dtype]) != plan.smem:
                 raise AssertionError(f"group norm {shape} {check_dtype}: the planner's shared memory is not the kernel's")
             got = norm._group_norm_kernel(x, P, Q, groups, eps, silu)
             want = norm._group_norm_plain(x, P, Q, groups, eps, silu)
@@ -1210,6 +1321,65 @@ def check_gn_calls(calls, affine, generator, per_kernel=None, quiet=False) -> di
                 log(line)
 
     return worst
+
+
+def check_wide_groups() -> dict:
+    r"""The GroupNorm kernel at the wide groups of the v-diffusion paths
+    (`WIDE_GN_SHAPES`: one group a batch row, of up to 2048 channels, which
+    spans up to four bands): against its plain version in bf16 and float32
+    (`check_gn_calls`; yfcc_2's with an affine, CC12M-1's without), timed in
+    bf16 by events and on the device beside its bound and `F.group_norm`;
+    then at |mean| / std = 1e4 in float32 against the float64 GroupNorm of
+    the same inputs, at CC12M-1's 8.4M-element groups and yfcc_2's widest.
+    The groups of `WIDE_GN_OFF_PATH` are held to the plain version too,
+    untimed. Its inputs come from a generator of its own. Returns the timed
+    entry."""
+
+    generator = torch.Generator(device="cuda").manual_seed(13)
+    calls, affine = collections.Counter(), {}
+    for shape in WIDE_GN_SHAPES:
+        B, _, C = shape
+        key = ("gn", shape, torch.bfloat16, 1, False, False)
+        calls[key] = 1
+        if B == YFCC_BATCH:  # yfcc's affine pre-norm
+            P = (1 + 0.2 * torch.randn(1, C, generator=generator, device="cuda")).expand(B, C).contiguous()
+            Q = (0.2 * torch.randn(1, C, generator=generator, device="cuda")).expand(B, C).contiguous()
+        else:
+            P, Q = torch.ones(B, C, device="cuda"), torch.zeros(B, C, device="cuda")
+        affine[key] = (P, Q, 1e-5)
+    per_kernel = {name: new_entry() for name in ("group_norm_silu", "group_norm")}
+    check_gn_calls(calls, affine, generator, per_kernel)
+    entry = per_kernel["group_norm"]
+    log(f"  the {len(WIDE_GN_SHAPES)} wide-group calls: {entry['ms']:.4f} ms by events, device "
+        f"{entry['device_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+        f"F.group_norm {entry['library_ms']:.4f} ms")
+
+    off_path, off_affine = collections.Counter(), {}
+    for shape, groups in WIDE_GN_OFF_PATH:
+        B, _, C = shape
+        key = ("gn", shape, torch.bfloat16, groups, False, False)
+        off_path[key] = 1
+        off_affine[key] = (1 + 0.2 * torch.randn(B, C, generator=generator, device="cuda"),
+                           0.2 * torch.randn(B, C, generator=generator, device="cuda"), 1e-5)
+    worst = check_gn_calls(off_path, off_affine, generator)
+    log(f"  wide groups off the paths {[shape for shape, _ in WIDE_GN_OFF_PATH]}: worst rel err "
+        + ", ".join(f"{str(dtype)[6:]} {err:.3e}" for dtype, err in worst.items()))
+
+    for shape in ((16, 65536, 128), (4, 16, 2048)):
+        B, HW, C = shape
+        x = torch.randn(shape, generator=generator, device="cuda") + 1e4
+        P, Q = torch.ones(B, C, device="cuda"), torch.zeros(B, C, device="cuda")
+        got = norm._group_norm_kernel(x, P, Q, 1, 1e-5, False)
+        var, mean = torch.var_mean(x.double(), dim=(1, 2), keepdim=True, correction=0)
+        abs_err, _ = errors(got, (x.double() - mean) / torch.sqrt(var + 1e-5))
+        if abs_err > TOL_GN_LARGE_MEAN:
+            raise AssertionError(f"group norm {shape} G=1 at |mean|/std = 1e4: abs err {abs_err} against float64")
+        log(f"  group_norm {shape} G=1 float32 |mean|/std=1e4 ({HW * C:,} elements a group): max abs err "
+            f"{abs_err:.3e} against float64 (tol {TOL_GN_LARGE_MEAN})")
+        del x, got
+    torch.cuda.empty_cache()
+
+    return entry
 
 
 def check_group_norm(calls, affine, generator) -> dict:
@@ -2676,25 +2846,34 @@ def check_group_stats(generator) -> dict:
     r"""The statistics kernel against its plain version on 100 + 3 N inputs
     (|mean| / std ~ 33), in bf16 and float32, at unet32's three GroupNorm
     shapes (timed in bf16 beside the plain version, `torch.var_mean` and the
-    bound; the entry sums the 18 calls of one train step) and at the JAX
-    package's production shapes (tests/test_ops_tpu.py), and both against
-    the exact statistics in float64."""
+    bound; the entry sums the 18 calls of one train step), at the JAX
+    package's production shapes (tests/test_ops_tpu.py) and at the wide
+    groups of the v-diffusion paths (timed too, one call each, under the
+    entry's `wide`), and both against the exact statistics in float64."""
 
     entry = new_entry()
     count = UNET_TRAIN_CALLS_PER_STEP["group_stats"] // len(UNET_GN_SHAPES)
 
-    cases = [(shape, UNET_GROUPS, True) for shape in UNET_GN_SHAPES] + [
-        ((8, 65536, 256), 32, False),
-        ((8, 16384, 512), 32, False),
-        ((2, 4096, 1024), 32, False),
-        ((4, 9216, 384), 32, False),
-        ((8, 66049, 256), 32, False),
-        ((2, 4096, 192), 24, False),
+    cases = [(shape, UNET_GROUPS, "step") for shape in UNET_GN_SHAPES] + [
+        ((8, 65536, 256), 32, None),
+        ((8, 16384, 512), 32, None),
+        ((2, 4096, 1024), 32, None),
+        ((4, 9216, 384), 32, None),
+        ((8, 66049, 256), 32, None),
+        ((2, 4096, 192), 24, None),
     ]
+    # the wide groups of the v-diffusion paths, timed apart (`wide`); their
+    # inputs from a generator of their own, so that the cases above draw
+    # what they drew before
+    wide = new_entry()
+    own = torch.Generator(device="cuda").manual_seed(23)
+    cases += [(shape, 1, "wide") for shape in WIDE_GN_SHAPES]
     for shape, groups, timed in cases:
         B, HW, C = shape
         for dtype in (torch.bfloat16, torch.float32):
-            x, plan, mean_abs, mean_rel, var_rel, line = check_stats_case(shape, groups, dtype, generator)
+            x, plan, mean_abs, mean_rel, var_rel, line = check_stats_case(
+                shape, groups, dtype, own if timed == "wide" else generator
+            )
 
             if timed and dtype == torch.bfloat16:
                 xv = x.view(B, HW, groups, C // groups)
@@ -2706,14 +2885,18 @@ def check_group_stats(generator) -> dict:
                 # x read once and (mean, var) written once; a subtraction, a
                 # square and two sums per element, float32 on the CUDA cores
                 bound, by = bound_ms(x.numel() * x.element_size() + 2 * B * groups * 4, 4 * x.numel(), torch.float32)
-                add_timing(entry, count, ms, plain, library, bound, by, mean_abs, max(mean_rel, var_rel))
-                entry["device_ms"] += count * dev
+                timed_entry, n = (entry, count) if timed == "step" else (wide, 1)
+                add_timing(timed_entry, n, ms, plain, library, bound, by, mean_abs, max(mean_rel, var_rel))
+                timed_entry["device_ms"] += n * dev
                 line += (f"; {ms:.4f} ms, device {dev:.4f} ms ({x.numel() * x.element_size() / dev / 1e6:.1f} GB/s), "
                          f"plain {plain:.4f} ms, torch.var_mean {library:.4f} ms (device {library_dev:.4f}), "
                          f"bound {bound:.4f} ms ({by})")
             log(line)
             del x
         torch.cuda.empty_cache()
+    log(f"  the {len(WIDE_GN_SHAPES)} wide-group calls: {wide['ms']:.4f} ms by events, device {wide['device_ms']:.4f} ms, "
+        f"bound {wide['bound_ms']:.4f} ms, plain {wide['plain_ms']:.4f} ms, torch.var_mean {wide['library_ms']:.4f} ms")
+    entry["wide"] = wide
 
     return entry
 
@@ -3987,15 +4170,23 @@ def draw_gains(module: torch.nn.Module, generator: torch.Generator) -> None:
 
 def per_forward(module: torch.nn.Module) -> collections.Counter:
     r"""The launches of one forward of `module` on the card: one GroupNorm
-    per `GroupNorm` layer, and one attention forward per SD self-attention
-    whose heads are a kernel's head dim (`attention._HEAD_DIMS`)."""
+    per `GroupNorm` layer and per CC12M-1 single-group stage (`'gn1'`), and
+    one attention forward per SD self-attention, v-diffusion attention and
+    JiT attention whose heads are a kernel's head dim
+    (`attention._HEAD_DIMS`)."""
 
     counts = collections.Counter()
     for name, m in module.named_modules():
-        if isinstance(m, GroupNorm):
+        if isinstance(m, GroupNorm) or (isinstance(m, vdm.backbone.VDMStage) and m.kind == "gn1"):
             counts["group_norm"] += 1
         elif isinstance(m, sd.backbone.CrossAttention) and name.endswith("attn1"):
             if m.to_q.weight.shape[0] // m.heads in attention._HEAD_DIMS:
+                counts["attention_fwd"] += 1
+        elif isinstance(m, vdm.backbone.VDMSelfAttention2d):
+            if m.out_proj.weight.shape[0] // m.heads in attention._HEAD_DIMS:
+                counts["attention_fwd"] += 1
+        elif isinstance(m, jit.backbone.JiTAttention):
+            if m.proj.weight.shape[0] // m.num_heads in attention._HEAD_DIMS:
                 counts["attention_fwd"] += 1
     return counts
 
@@ -4279,26 +4470,13 @@ def sd2_text_to_image(generator) -> dict:
     return {"launches": launches, "seconds": seconds, "images_s": B / seconds["trajectory"], "attention": attn}
 
 
-def sd1_call(generator) -> dict:
-    r"""sd1_512 (phase 40): the sd_1.5 card's UNet in bf16, held against its
-    manifest, under `StableDenoiser` (epsilon) and batched CFG: one call at
-    batch 2 on (2, 64, 64, 4) latents with random prompt embeddings, finite,
-    with exactly 61 GroupNorm launches and no attention launch (heads of 40,
-    80 and 160: the plain route), timed, profiled, every recorded call
-    against its plain version."""
+def one_call(label: str, denoiser, x, t, cond: dict, per_call: dict) -> dict:
+    r"""One denoiser call at `x` and `t` with the conditions `cond`: a
+    recorded warm-up call, then a timed one, finite, with exactly
+    `per_call` launches; its ms, peak memory and a profile. Returns its
+    launches, ms and the recorded call."""
 
-    unet = sd.make_backbone("sd_1.5", device="cuda", dtype=torch.bfloat16, generator=generator)
-    check_manifest(unet.state_dict(), "sd", "sd_1.5", "unet")
-    log(f"sd_1.5 UNet: {sum(p.numel() for p in unet.parameters()):,} bf16 parameters, matching the manifest")
-    denoiser = CFGDenoiser(sd.StableDenoiser(unet), batched=True)
-    x = torch.randn((SD1_BATCH, 64, 64, 4), generator=generator, device="cuda")
-    cond = {
-        "positive": {"prompt_embeds": torch.randn((SD1_BATCH, 77, 768), generator=generator, device="cuda")},
-        "negative": {"prompt_embeds": torch.randn((1, 77, 768), generator=generator, device="cuda")},
-        "guidance": SD2_GUIDANCE,
-    }
-    t = torch.tensor(0.5, device="cuda")
-
+    rows = x.shape[0] * (2 if isinstance(denoiser, CFGDenoiser) and denoiser.batched else 1)
     with torch.inference_mode():
         with recording() as (calls, affine):
             denoiser(x, t, **cond)  # warm-up, recorded
@@ -4312,80 +4490,111 @@ def sd1_call(generator) -> dict:
         launches = dict(_build.LAUNCHES)
 
     if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
-        raise AssertionError("sd1_512's batched CFG call is not finite")
-    log(f"launches {launches}, expected {SD1_CALLS_PER_FORWARD}; recorded {launch_counts(calls)}")
-    if launches != SD1_CALLS_PER_FORWARD or launch_counts(calls) != SD1_CALLS_PER_FORWARD:
-        raise AssertionError("sd1_512's launch counts are not exact")
-    log(f"sd1_512: one batched CFG call at batch {2 * SD1_BATCH} (64 x 64 latents) {ms:.2f} ms, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean {out.mean().item():.4f}")
+        raise AssertionError(f"{label}'s call is not finite")
+    log(f"launches {launches}, expected {per_call}; recorded {launch_counts(calls)}, attention by L "
+        f"{dict(by_length(calls))}")
+    if launches != per_call or launch_counts(calls) != per_call:
+        raise AssertionError(f"{label}'s launch counts are not exact")
+    log(f"{label}: one call on {rows} rows of {tuple(x.shape[1:])} {ms:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean {out.float().mean().item():.4f}, "
+        f"std {out.float().std().item():.4f}")
     with torch.inference_mode():
-        profile_step(lambda: denoiser(x, t, **cond), "one batched CFG call (batch 4)")
+        profile_step(lambda: denoiser(x, t, **cond), f"one call ({rows} rows)")
+    return {"launches": launches, "ms": ms, "calls": (calls, affine)}
 
-    del unet, denoiser, x, cond, out
+
+def sd1_call(generator) -> dict:
+    r"""sd1_512 (phase 40): the sd_1.5 card's UNet in bf16, held against its
+    manifest, under `StableDenoiser` (epsilon) and batched CFG: one call at
+    batch 2 on (2, 64, 64, 4) latents with random prompt embeddings
+    (`one_call`: finite, exactly 61 GroupNorm launches and no attention
+    launch, heads of 40, 80 and 160 taking the plain route), every recorded
+    call against its plain version."""
+
+    unet = sd.make_backbone("sd_1.5", device="cuda", dtype=torch.bfloat16, generator=generator)
+    check_manifest(unet.state_dict(), "sd", "sd_1.5", "unet")
+    log(f"sd_1.5 UNet: {sum(p.numel() for p in unet.parameters()):,} bf16 parameters, matching the manifest")
+    denoiser = CFGDenoiser(sd.StableDenoiser(unet), batched=True)
+    x = torch.randn((SD1_BATCH, 64, 64, 4), generator=generator, device="cuda")
+    cond = {
+        "positive": {"prompt_embeds": torch.randn((SD1_BATCH, 77, 768), generator=generator, device="cuda")},
+        "negative": {"prompt_embeds": torch.randn((1, 77, 768), generator=generator, device="cuda")},
+        "guidance": SD2_GUIDANCE,
+    }
+    run = one_call("sd1_512", denoiser, x, torch.tensor(0.5, device="cuda"), cond, SD1_CALLS_PER_FORWARD)
+    calls, affine = run.pop("calls")
+
+    del unet, denoiser, x, cond
     torch.cuda.empty_cache()
     check_recorded("sd1_512", calls, affine, seed=400)
-    return {"launches": launches, "ms": ms}
+    return run
 
 
-def heun_full_width(label: str, denoiser, shape, steps: int, labels, per_call: dict, generator) -> tuple:
-    r"""`steps` Heun steps from `sampler.init` noise at `shape` with
-    `labels`: one recorded network call (exactly `per_call` launches), a
-    warm-up step, then the timed trajectory with exactly `per_call` launches
-    per network call (two a step); prints images/s, ms per network call,
+def full_width_trajectory(label: str, sampler, backbone, x, cond: dict, per_call: dict, by_l: dict | None = None):
+    r"""The trajectory of `sampler` from `x` with the conditions `cond`: one
+    recorded network call (exactly `per_call` launches, the attention calls
+    by L as `by_l` where given), a warm-up step, then the timed trajectory
+    with exactly `per_call` launches per call of `backbone` (two a Heun
+    step, one a DDIM step); prints images/s, ms a step and a network call,
     peak memory and a profile of one step. Returns the trajectory, its
     launches, its seconds and the recorded call."""
 
-    sampler = sample.HeunSampler(denoiser, steps=steps)
-    x = sampler.init(shape, generator=generator)
+    denoiser = sampler.denoiser
+    steps = sampler.steps
+    calls_per_step = 2 if isinstance(sampler, sample.HeunSampler) else 1
+    rows = x.shape[0] * (2 if isinstance(denoiser, CFGDenoiser) and denoiser.batched else 1)
     network_calls = [0]
-    hook = denoiser.backbone.register_forward_pre_hook(lambda *_: network_calls.__setitem__(0, network_calls[0] + 1))
+    hook = backbone.register_forward_pre_hook(lambda *_: network_calls.__setitem__(0, network_calls[0] + 1))
 
     with torch.inference_mode():
         grid = sampler.timesteps.cuda()
         with recording() as (calls, affine):
-            denoiser(x, grid[1], label=labels)
-        sampler.step(x, grid[0], grid[1], label=labels)  # warm-up
+            denoiser(x, grid[1], **cond)
+        sampler.step(x, grid[0], grid[1], **cond)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
         network_calls[0] = 0
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
-        y = sampler(x, label=labels)
+        y = sampler(x, **cond)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
     hook.remove()
 
     peak = torch.cuda.max_memory_allocated()
-    if tuple(y.shape) != tuple(shape) or not bool(torch.isfinite(y).all()):
+    if tuple(y.shape) != tuple(x.shape) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"{label}'s trajectory is not finite")
     expected = {name: n * network_calls[0] for name, n in per_call.items()}
-    log(f"launches {launches}, expected {expected} ({network_calls[0]} network calls); recorded in one call "
-        f"{launch_counts(calls)}")
-    if network_calls[0] != 2 * steps or launches != expected or launch_counts(calls) != per_call:
+    log(f"launches {launches}, expected {expected} ({network_calls[0]} network calls on {rows} rows); recorded in "
+        f"one call {launch_counts(calls)}, attention by L {dict(by_length(calls))}")
+    if (network_calls[0] != calls_per_step * steps or launches != expected or launch_counts(calls) != per_call
+            or (by_l is not None and dict(by_length(calls)) != by_l)):
         raise AssertionError(f"{label}'s launch counts are not exact")
-    log(f"{label}: Heun-{steps}, batch {shape[0]}: {seconds:.3f} s, {shape[0] / seconds:.4f} images/s, "
+    log(f"{label}: {steps} steps at batch {x.shape[0]} ({rows} rows a network call): {seconds:.3f} s, "
+        f"{x.shape[0] / seconds:.4f} images/s, {seconds / steps * 1e3:.2f} ms a step, "
         f"{seconds / network_calls[0] * 1e3:.2f} ms per network call, peak memory {peak / 2**30:.2f} GiB; "
         f"sample mean {y.float().mean().item():.4f}, std {y.float().std().item():.4f}")
     with torch.inference_mode():
-        profile_step(lambda: sampler.step(x, grid[0], grid[1], label=labels), "one Heun step (two network calls)")
+        profile_step(lambda: sampler.step(x, grid[0], grid[1], **cond), f"one step ({calls_per_step} network calls)")
     return y, launches, seconds, (calls, affine)
 
 
 def edm64_full_width(generator) -> dict:
     r"""edm64 (phase 41): the imagenet_64x64_cond network in bf16 under
     EDMPrecond and `ElucidatedDenoiser`, Heun-18 at batch 64 with one-hot
-    labels arange(64) % 1000 (`heun_full_width`: exactly 95 GroupNorm
+    labels arange(64) % 1000 (`full_width_trajectory`: exactly 95 GroupNorm
     launches a network call), every recorded call against its plain
     version."""
 
     net = edm.EDMPrecond(edm.DhariwalUNet(**EDM64, device="cuda", dtype=torch.bfloat16, generator=generator))
     log(f"edm64 (imagenet_64x64_cond): {sum(p.numel() for p in net.parameters()):,} bf16 parameters")
     labels = F.one_hot(torch.arange(EDM64_BATCH, device="cuda") % 1000, 1000).float()
-    _, launches, seconds, (calls, affine) = heun_full_width(
-        "edm64", edm.ElucidatedDenoiser(net), (EDM64_BATCH, 64, 64, 3), EDM64_STEPS, labels, EDM64_CALLS_PER_FORWARD,
-        generator,
+    sampler = sample.HeunSampler(edm.ElucidatedDenoiser(net), steps=EDM64_STEPS)
+    x = sampler.init((EDM64_BATCH, 64, 64, 3), generator=generator)
+    _, launches, seconds, (calls, affine) = full_width_trajectory(
+        "edm64", sampler, net, x, {"label": labels}, EDM64_CALLS_PER_FORWARD
     )
     del net
     torch.cuda.empty_cache()
@@ -4396,7 +4605,7 @@ def edm64_full_width(generator) -> dict:
 def edm2_full_width(generator) -> dict:
     r"""edm2_xxl (phase 42): the imagenet_512x512_xxl network in bf16 (its
     gains drawn) under EDM2Precond and `ElucidatedLatentDenoiser`, Heun-32 at
-    batch 8 with labels arange(8) % 1000 (`heun_full_width`: no launch of
+    batch 8 with labels arange(8) % 1000 (`full_width_trajectory`: no launch of
     ours), then the decode through the sd-vae-ft-mse VAE (bf16, the SD VAE
     manifest's architecture) with StabilityVAEEncoder's statistics to a
     finite (8, 512, 512, 3): exactly 30 GroupNorm launches, timed, profiled,
@@ -4414,9 +4623,9 @@ def edm2_full_width(generator) -> dict:
     scale = EDM2_FINAL_STD / torch.tensor(EDM2_RAW_STD)
     autoencoder = eldm.AutoEncoder(vae, shift=-torch.tensor(EDM2_RAW_MEAN) * scale, scale=scale).to(torch.bfloat16)
     labels = F.one_hot(torch.arange(EDM2_BATCH, device="cuda") % 1000, 1000).float()
-    y, launches, seconds, _ = heun_full_width(
-        "edm2_xxl", eldm.ElucidatedLatentDenoiser(net), (EDM2_BATCH, 64, 64, 4), EDM2_STEPS, labels, {}, generator
-    )
+    sampler = sample.HeunSampler(eldm.ElucidatedLatentDenoiser(net), steps=EDM2_STEPS)
+    x = sampler.init((EDM2_BATCH, 64, 64, 4), generator=generator)
+    y, launches, seconds, _ = full_width_trajectory("edm2_xxl", sampler, net, x, {"label": labels}, {})
 
     with torch.inference_mode():
         with recording() as (calls, affine):
@@ -4453,6 +4662,286 @@ def edm2_full_width(generator) -> dict:
     return {"launches": launches, "images_s": EDM2_BATCH / seconds, "ms_per_call": seconds / (2 * EDM2_STEPS) * 1e3}
 
 
+def draw_zeroed(module: torch.nn.Module, generator: torch.Generator) -> None:
+    r"""Draws the layers that JiT zero-initializes (each block's AdaLN
+    modulation, the final layer's linear and modulation), which would zero
+    every block's update and the output, uniformly within 1 / sqrt(fan in),
+    as the layers that ADM zero-initializes are drawn for its full-width
+    runs."""
+
+    with torch.no_grad():
+        for name, m in module.named_modules():
+            if name.endswith(("adaLN_modulation.1", "final_layer.linear")):
+                bound = 1 / math.sqrt(m.weight.shape[1])
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+
+
+def by_length(calls) -> collections.Counter:
+    r"""The recorded attention calls by sequence length."""
+
+    counts = collections.Counter()
+    for key, n in calls.items():
+        if key[0] == "attn":
+            counts[key[1][2]] += n
+    return counts
+
+
+def check_vdm_jit_slices() -> None:
+    r"""The small v-diffusion, CC12M-1 and JiT modules of the CPU tests on
+    the CPU (plain versions) and on the card (kernels), same random weights,
+    float32: a `VDMUNet` (heads of 32 and 64, affine pre-norms, bilinear
+    upsampling) under `VelocityDenoiser` and a DDIM-4 trajectory; the
+    attention block with its pre-norm at 1024 and 2048 channels (one group
+    of two and four bands); CC12M-1's FiLM convolution blocks at 512 and
+    1024 channels and its skip block; JiT (heads of 32, its zero-initialized
+    layers drawn) under `JITDenoiser` with and without labels, and a Heun-4
+    trajectory under batched CFG. Launches exact, each recorded call against
+    its plain version."""
+
+    def pair(build, seed):
+        cpu = build(device="cpu", generator=torch.Generator().manual_seed(seed))
+        draw_zeroed(cpu, torch.Generator().manual_seed(seed))
+        return cpu, copy.deepcopy(cpu).cuda()
+
+    rng = np.random.default_rng(43)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    expected = collections.Counter()
+    recorded = []
+
+    def on_card(label, fn, launches):
+        with recording() as (calls, affine):
+            out = fn()
+        recorded.append((label, calls, affine))
+        expected.update(launches)
+        return out
+
+    _build.LAUNCHES.clear()
+    with torch.inference_mode():
+        # v-diffusion
+        spec = vdm.VDMSpec(**TINY_VDM)
+        cpu, gpu = pair(lambda **f: vdm.VDMUNet(spec, **f), 430)
+        x, t = normal(2, 16, 16, 3), torch.tensor([0.3, 0.8])
+        got = on_card("VDMUNet", lambda: gpu(x.cuda(), t.cuda()), per_forward(gpu))
+        slice_check("VDMUNet", got, cpu(x, t))
+        den_cpu, den_gpu = vdm.VelocityDenoiser(cpu), vdm.VelocityDenoiser(gpu)
+        for time_ in (torch.tensor(0.4), torch.tensor([0.15, 0.8])):
+            got = on_card("VelocityDenoiser", lambda: den_gpu(x.cuda(), time_.cuda()).mean, per_forward(gpu))
+            alpha, sigma = den_cpu.schedule(time_)
+            slice_check(f"VelocityDenoiser t={time_.tolist()}", got, den_cpu(x, time_).mean,
+                        TOL_SLICE * max(1.0, float((sigma / alpha).max())))
+        got = on_card("VDM DDIM-4", lambda: DDIMSampler(den_gpu, steps=4)(x.cuda()),
+                      {k: 4 * n for k, n in per_forward(gpu).items()})
+        slice_check("VelocityDenoiser DDIM-4 trajectory", got, DDIMSampler(den_cpu, steps=4)(x), TOL_TRAJECTORY)
+
+        # the wide pre-norms: one group of 1024 and 2048 channels
+        for C, side in ((1024, 8), (2048, 4)):
+            cpu, gpu = pair(lambda C=C, **f: vdm.backbone.VDMSelfAttention2d(C, C // 64, pre_norm=True, **f), 431)
+            x = normal(2, side, side, C) * 2 + 0.5
+            got = on_card(f"VDMSelfAttention2d C={C}", lambda: gpu(x.cuda()), per_forward(gpu))
+            slice_check(f"VDMSelfAttention2d, pre-norm of one group of {C} channels", got, cpu(x))
+
+        # CC12M-1's blocks: the FiLM convolution blocks, the skip block
+        cond = normal(2, 64)
+        for C, side in ((512, 8), (1024, 4)):
+            cpu, gpu = pair(lambda C=C, **f: vdm.cc12m.CC12MModConvBlock(64, C, C, C, **f), 432)
+            x = normal(2, side, side, C)
+            got = on_card(f"CC12MModConvBlock C={C}", lambda: gpu(x.cuda(), cond.cuda()), per_forward(gpu))
+            slice_check(f"CC12MModConvBlock, single groups of {C} channels", got, cpu(x, cond))
+        cpu, gpu = pair(lambda **f: vdm.cc12m.CC12MSkipBlock([
+            vdm.backbone.VDMStage("down"), vdm.cc12m.CC12MModConvBlock(64, 64, 128, 64, **f),
+            vdm.backbone.VDMSelfAttention2d(64, 1, pre_norm=True, **f), vdm.backbone.VDMStage("up", "bilinear"),
+        ]), 433)
+        x = normal(2, 16, 16, 64)
+        got = on_card("CC12MSkipBlock", lambda: gpu(x.cuda(), cond.cuda()), per_forward(gpu))
+        slice_check("CC12MSkipBlock", got, cpu(x, cond))
+
+        # JiT
+        cpu, gpu = pair(lambda **f: jit.JiT(**TINY_JIT, **f), 434)
+        den_cpu, den_gpu = jit.JITDenoiser(cpu, num_classes=10), jit.JITDenoiser(gpu, num_classes=10)
+        x, labels = normal(2, 64, 64, 3), torch.tensor([3, 10])
+        for label in (labels, None):
+            for time_ in (torch.tensor(0.4), torch.tensor([0.15, 0.8])):
+                got = on_card("JITDenoiser", lambda: den_gpu(x.cuda(), time_.cuda(), label=None if label is None else label.cuda()).mean,
+                              per_forward(gpu))
+                slice_check(f"JITDenoiser t={time_.tolist()} labels={label is not None}", got,
+                            den_cpu(x, time_, label=label).mean)
+        cond = {"positive": {"label": labels}, "negative": {"label": torch.tensor([10])}, "guidance": JIT_GUIDANCE}
+        cond_gpu = {**cond, "positive": {"label": labels.cuda()}, "negative": {"label": torch.tensor([10]).cuda()}}
+        got = on_card("JiT CFG Heun-4", lambda: sample.HeunSampler(CFGDenoiser(den_gpu, batched=True), steps=4)(
+            x.cuda(), **cond_gpu), {k: 8 * n for k, n in per_forward(gpu).items()})
+        slice_check("JITDenoiser under batched CFG, Heun-4 trajectory", got,
+                    sample.HeunSampler(CFGDenoiser(den_cpu, batched=True), steps=4)(x, **cond), TOL_TRAJECTORY)
+
+    launched = dict(_build.LAUNCHES)
+    counted = collections.Counter()
+    for _, calls, _ in recorded:
+        counted.update(launch_counts(calls))
+    log(f"  kernel launches on the card: {launched}, recorded {dict(counted)}, expected {dict(expected)}")
+    if launched != dict(expected) or dict(counted) != dict(expected):
+        raise AssertionError("the v-diffusion and JiT slices' launch counts are not exact")
+    for label, calls, affine in recorded:
+        if calls:
+            check_recorded(label, calls, affine, seed=43)
+
+
+def timings(calls: int, timed: dict) -> dict:
+    r"""The kernels line's record of `calls` timed calls (`new_entry`'s sums);
+    a device time the profiler did not measure (NaN) is null."""
+
+    return {
+        "calls": calls, "ms": timed["ms"],
+        "device_ms": None if math.isnan(timed["device_ms"]) else timed["device_ms"],
+        "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"], "library_ms": timed["library_ms"],
+        "max_err": timed["max_err"],
+    }
+
+
+def bf16_model(build, generator, zeroed: bool = False) -> torch.nn.Module:
+    r"""A model built by `build(**factory)` in bf16 on the card from
+    `generator`, JiT's zero-initialized layers drawn where `zeroed`."""
+
+    t0 = time.perf_counter()
+    model = build(device="cuda", dtype=torch.bfloat16, generator=generator)
+    if zeroed:
+        draw_zeroed(model, generator)
+    torch.cuda.synchronize()
+    log(f"  {sum(p.numel() for p in model.parameters()):,} bf16 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def timed_gn(calls, affine, generator, what: str) -> dict:
+    r"""Each recorded GroupNorm call of a path timed beside its bound and
+    `F.group_norm` (`check_gn_calls`), summed over the call's launches."""
+
+    per_kernel = {name: new_entry() for name in ("group_norm", "group_norm_silu")}
+    with torch.inference_mode():
+        check_gn_calls(calls, affine, generator, per_kernel)
+    gn = per_kernel["group_norm"]
+    log(f"{what}'s GroupNorm calls: {gn['ms']:.4f} ms by events, device {gn['device_ms']:.4f} ms, bound "
+        f"{gn['bound_ms']:.4f} ms, plain {gn['plain_ms']:.4f} ms, F.group_norm {gn['library_ms']:.4f} ms")
+    return gn
+
+
+def cc12m_full_width(generator) -> dict:
+    r"""cc12m_cfg256 (phase 44): CC12M-1 in bf16 under `VelocityDenoiser`
+    and batched CFG at `CC12M_GUIDANCE`, eight seeded unit-norm CLIP image
+    embeddings against the zero embedding, DDIM-`CC12M_STEPS` on (8, 256,
+    256, 3) (`full_width_trajectory`: 135 GroupNorm and 24 attention launches a
+    call, 8 at each L); each GroupNorm call of a call timed beside its bound
+    and `F.group_norm`; every recorded call against its plain version."""
+
+    model = bf16_model(lambda **f: vdm.CC12M1Model(**f), generator)
+    denoiser = vdm.VelocityDenoiser(model)
+    clip = torch.randn((CC12M_BATCH, 512), generator=generator, device="cuda")
+    cond = {
+        "positive": {"clip_embed": clip / torch.linalg.vector_norm(clip, dim=-1, keepdim=True)},
+        "negative": {"clip_embed": torch.zeros((1, 512), device="cuda")},
+        "guidance": CC12M_GUIDANCE,
+    }
+    sampler = DDIMSampler(CFGDenoiser(denoiser, batched=True), eta=0.0, steps=CC12M_STEPS)
+    x = sampler.init((CC12M_BATCH, 256, 256, 3), generator=generator)
+    if per_forward(model) != collections.Counter(CC12M_CALLS_PER_FORWARD):
+        raise AssertionError(f"CC12M-1's modules give {per_forward(model)} launches a call")
+
+    _, launches, seconds, (calls, affine) = full_width_trajectory(
+        "cc12m_cfg256", sampler, model, x, cond, CC12M_CALLS_PER_FORWARD, CC12M_ATTENTION_BY_L
+    )
+    gn = timed_gn(calls, affine, generator, "cc12m_cfg256's network call (batch 16)")
+    del model, denoiser, sampler, x, cond
+    torch.cuda.empty_cache()
+    check_recorded("cc12m_cfg256, one network call under batched CFG (batch 16)", calls, affine, seed=440)
+    return {"launches": launches, "images_s": CC12M_BATCH / seconds, "ms_step": seconds / CC12M_STEPS * 1e3,
+            "group_norm": gn}
+
+
+def vdm_cards_full_width(generator) -> dict:
+    r"""vdm_yfcc512L and vdm_in128 (phase 45): the yfcc_512x512_large card's
+    network (bf16, against its manifest) under `VelocityDenoiser`, one call
+    at batch 4 on (4, 512, 512, 3) (12 GroupNorm launches on groups of 1024
+    and 2048 channels, 12 attention), its GroupNorm calls timed beside their
+    bound and `F.group_norm`; the imagenet_128x128 card's, one call at batch
+    16 (24 attention launches at heads of 128); every recorded call against
+    its plain version."""
+
+    runs = {}
+    for card_name, batch, side, per_call in (
+        (YFCC_CARD, YFCC_BATCH, 512, YFCC_CALLS_PER_FORWARD),
+        (IN128_CARD, IN128_BATCH, 128, IN128_CALLS_PER_FORWARD),
+    ):
+        spec = load_cards(vdm)[card_name].config["model"]
+        model = bf16_model(lambda spec=spec, **f: vdm.VDMUNet(vdm.SPECS[spec], **f), generator)
+        check_manifest(model.state_dict(), "vdm", card_name, "model")
+        log(f"  {card_name} ({spec}) matches its manifest")
+        x = torch.randn((batch, side, side, 3), generator=generator, device="cuda")
+        run = one_call(card_name, vdm.VelocityDenoiser(model), x, torch.tensor(0.5, device="cuda"), {}, per_call)
+        calls, affine = run.pop("calls")
+        if any(k[0] == "gn" for k in calls):
+            run["group_norm"] = timed_gn(calls, affine, generator, f"{card_name}'s call")
+        del model, x
+        torch.cuda.empty_cache()
+        check_recorded(f"{card_name}, one call (batch {batch})", calls, affine, seed=450)
+        runs[card_name] = run
+    return runs
+
+
+def jit_full_width(generator) -> dict:
+    r"""jit_l16_cfg (phase 46): the jit_0.5b_16 card's JiT-L/16 (bf16, its
+    zero-initialized layers drawn, against its manifest) under `JITDenoiser`
+    and batched CFG at `JIT_GUIDANCE`, labels arange(8) % 1000 against the
+    null label, Heun-`JIT_STEPS` on (8, 256, 256, 3) (`full_width_trajectory`: 24
+    attention launches a network call, 8 at L = 256 and 16 at 288); every
+    recorded call against its plain version."""
+
+    config = load_cards(jit)[JIT_L_CARD].config["model"]
+    model = bf16_model(lambda **f: jit.JiT(**jit.JIT_CONFIGS[config], **f), generator, zeroed=True)
+    check_manifest(model.state_dict(), "jit", JIT_L_CARD, "model")
+    log(f"  {JIT_L_CARD} ({config}) matches its manifest")
+    denoiser = jit.JITDenoiser(model)
+    cond = {
+        "positive": {"label": torch.arange(JIT_BATCH, device="cuda") % 1000},
+        "negative": {"label": torch.tensor([1000], device="cuda")},
+        "guidance": JIT_GUIDANCE,
+    }
+    sampler = sample.HeunSampler(CFGDenoiser(denoiser, batched=True), steps=JIT_STEPS)
+    x = sampler.init((JIT_BATCH, 256, 256, 3), generator=generator)
+
+    _, launches, seconds, (calls, affine) = full_width_trajectory(
+        "jit_l16_cfg", sampler, model, x, cond, JIT_L_CALLS_PER_FORWARD, JIT_L_ATTENTION_BY_L
+    )
+    del model, denoiser, sampler, x, cond
+    torch.cuda.empty_cache()
+    check_recorded("jit_l16_cfg, one network call under batched CFG (batch 16)", calls, affine, seed=460)
+    return {"launches": launches, "images_s": JIT_BATCH / seconds, "ms_step": seconds / JIT_STEPS * 1e3}
+
+
+def jit_h_call(generator) -> dict:
+    r"""jit_h16 (phase 47): the jit_1.0b_16 card's JiT-H/16 (bf16, zeroed
+    layers drawn, against its manifest), one batched CFG call at batch 8:
+    finite, no launch of ours (heads of 80 take the plain route)."""
+
+    config = load_cards(jit)[JIT_H_CARD].config["model"]
+    model = bf16_model(lambda **f: jit.JiT(**jit.JIT_CONFIGS[config], **f), generator, zeroed=True)
+    check_manifest(model.state_dict(), "jit", JIT_H_CARD, "model")
+    log(f"  {JIT_H_CARD} ({config}) matches its manifest")
+    denoiser = CFGDenoiser(jit.JITDenoiser(model), batched=True)
+    x = torch.randn((JIT_BATCH, 256, 256, 3), generator=generator, device="cuda")
+    cond = {
+        "positive": {"label": torch.arange(JIT_BATCH, device="cuda") % 1000},
+        "negative": {"label": torch.tensor([1000], device="cuda")},
+        "guidance": JIT_GUIDANCE,
+    }
+    run = one_call(JIT_H_CARD, denoiser, x, torch.tensor(0.5, device="cuda"), cond, {})
+    run.pop("calls")
+    del model, denoiser, x
+    torch.cuda.empty_cache()
+    return run
+
+
 def masked_source(name: str) -> tuple[str, str]:
     r"""The source and the TPU kernel of a masked or dropout form."""
 
@@ -4470,6 +4959,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -4516,6 +5006,7 @@ def main() -> None:
 
     with torch.inference_mode():
         gn = check_group_norm(calls, affine, generator)
+        wide_gn = check_wide_groups()
         at = new_entry()
         check_attention(calls, generator, at, ATTENTION_EXTRA)
 
@@ -4796,7 +5287,30 @@ def main() -> None:
         f"{edm64['images_s']:.4f} images/s, {edm64['ms_per_call']:.2f} ms per network call; edm2_xxl "
         f"{edm2['images_s']:.4f} images/s, {edm2['ms_per_call']:.2f} ms per network call")
 
-    log("== 43. result")
+    log("== 43. the v-diffusion, CC12M-1 and JiT slices: CPU plain versions against the card's kernels, float32")
+    t43 = time.perf_counter()
+    check_vdm_jit_slices()
+
+    log(f"== 44. cc12m_cfg256: CC12M-1, bf16, {CC12M_BATCH} CLIP embeddings against the zero one, batched CFG "
+        f"{CC12M_GUIDANCE}, DDIM-{CC12M_STEPS}, 256 px")
+    cc12m = cc12m_full_width(generator)
+
+    log(f"== 45. vdm_yfcc512L and vdm_in128: {YFCC_CARD} at batch {YFCC_BATCH} (512 px), {IN128_CARD} at batch "
+        f"{IN128_BATCH} (128 px), bf16, one call each")
+    vdm_cards = vdm_cards_full_width(generator)
+
+    log(f"== 46. jit_l16_cfg: {JIT_L_CARD} (JiT-L/16), bf16, labels arange({JIT_BATCH}) against the null label, "
+        f"batched CFG {JIT_GUIDANCE}, Heun-{JIT_STEPS}, 256 px")
+    jit_l = jit_full_width(generator)
+
+    log(f"== 47. jit_h16: {JIT_H_CARD} (JiT-H/16), bf16, one batched CFG call at batch {JIT_BATCH}")
+    jit_h = jit_h_call(generator)
+    log(f"new paths: cc12m_cfg256 {cc12m['images_s']:.4f} images/s, {cc12m['ms_step']:.2f} ms a step; "
+        f"vdm_yfcc512L {vdm_cards[YFCC_CARD]['ms']:.2f} ms a call; vdm_in128 {vdm_cards[IN128_CARD]['ms']:.2f} ms a "
+        f"call; jit_l16_cfg {jit_l['images_s']:.4f} images/s, {jit_l['ms_step']:.2f} ms a step; jit_h16 "
+        f"{jit_h['ms']:.2f} ms a call; phases 43-47 took {time.perf_counter() - t43:.1f} s")
+
+    log("== 48. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -4895,27 +5409,38 @@ def main() -> None:
             "calls_per_forward": per_forward[name],
         })
 
-    # the launches of the text-to-image path (phase 36) and of the SD, EDM
-    # and EDM2 paths (phases 39-42) beside each kernel's own main path's; the
-    # FLUX.1-dev VAE decode's GroupNorm calls timed as phase 3 times ADM's
-    paths = {"flux_text_to_image": t2i, "sd2_768": sd2, "sd1_512": sd1, "edm64": edm64, "edm2_xxl": edm2}
+    # the launches of the text-to-image path (phase 36), of the SD, EDM and
+    # EDM2 paths (phases 39-42) and of the v-diffusion and JiT paths
+    # (phases 44-47) beside each kernel's own main path's; the FLUX.1-dev VAE
+    # decode's GroupNorm calls timed as phase 3 times ADM's; the wide groups
+    # of phases 3 and 23 (one call each) and the GroupNorm calls of one
+    # cc12m_cfg256 and one vdm_yfcc512L call (each at its count)
+    paths = {
+        "flux_text_to_image": t2i, "sd2_768": sd2, "sd1_512": sd1, "edm64": edm64, "edm2_xxl": edm2,
+        "cc12m_cfg256": cc12m, "vdm_yfcc512L": vdm_cards[YFCC_CARD], "vdm_in128": vdm_cards[IN128_CARD],
+        "jit_l16_cfg": jit_l, "jit_h16": jit_h,
+    }
     for entry in kernels:
         extra = {path: run["launches"][entry["name"]] for path, run in paths.items() if run["launches"].get(entry["name"])}
         if extra:
             entry["launches_by_path"] = {"main": entry["launches"], **extra}
             entry["launches"] += sum(extra.values())
         if entry["name"] == "group_norm":
-            vae = t2i["group_norm"]
-            entry["flux_vae_decode"] = {
-                "calls": FLUX_VAE_CALLS["group_norm"], "ms": vae["ms"], "device_ms": vae["device_ms"],
-                "plain_ms": vae["plain_ms"], "bound_ms": vae["bound_ms"], "library_ms": vae["library_ms"],
-                "max_err": vae["max_err"],
-            }
+            for key, calls, timed in (
+                ("flux_vae_decode", FLUX_VAE_CALLS["group_norm"], t2i["group_norm"]),
+                ("wide_groups", len(WIDE_GN_SHAPES), wide_gn),
+                ("cc12m_cfg256_call", CC12M_CALLS_PER_FORWARD["group_norm"], cc12m["group_norm"]),
+                ("vdm_yfcc512L_call", YFCC_CALLS_PER_FORWARD["group_norm"], vdm_cards[YFCC_CARD]["group_norm"]),
+            ):
+                entry[key] = timings(calls, timed)
+        if entry["name"] == "group_stats":
+            entry["wide_groups"] = timings(len(WIDE_GN_SHAPES), stats["wide"])
 
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels launched no time on their main path: {idle}")
 
+    log(f"all phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -424,3 +424,11 @@ def test_cards_equal_jax():
         jax_cards = yaml.safe_load(f)
     assert {name: vars(card) for name, card in cards.items()} == jax_cards
     assert "imagenet_64x64_cond" in cards
+
+
+def test_exports_cover_jax():
+    # the JAX package's public names, but `load_model`, which waits for
+    # checkpoint files in the repository
+    assert set(jedm.__all__) - {"load_model"} <= set(tedm.__all__)
+    assert tedm.ElucidatedSchedule is tedm.ElucidatedDenoiser(tedm.EDMPrecond(tedm.SongUNet(
+        **SONG_SMALL, device="meta"))).schedule.__class__

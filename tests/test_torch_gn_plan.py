@@ -21,6 +21,7 @@ absolute and var within 1e-5 relative; |mean| / std = 1e4 within 5e-3
 absolute (the rounding of x itself).
 """
 
+import hashlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +79,21 @@ EDM2_VAE_512 = [
     (8, HW, C) for HW, C in ((4096, 512), (16384, 512), (65536, 256), (65536, 512), (262144, 128), (262144, 256))
 ]
 NEW_PATHS = {"sd2_768": SD2_768, "sd1_512": SD1_512, "sd_vae_768": SD_VAE_768, "edm64": EDM64, "edm2_vae_512": EDM2_VAE_512}
+# (B, HW, C) of the single-group GroupNorms of `chip_smoke.py`'s phases 44
+# and 45: CC12M-1's at 256 x 256 under batched CFG (batch 16; after every
+# convolution, and the attention pre-norms) and yfcc_2's attention pre-norms
+# at 512 x 512 (batch 4), as `test_wide_paths_shapes_are_recorded` records
+# them; the groups of 512, 1024 and 2048 channels span one, two and four
+# bands of 512
+CC12M_256 = [
+    (16, HW, C) for HW, C in (
+        (16, 1024), (64, 512), (64, 1024), (256, 512), (1024, 256), (1024, 512), (4096, 256), (16384, 128),
+        (16384, 256), (65536, 128),
+    )
+]
+YFCC2_512 = [(4, HW, C) for HW, C in ((16, 2048), (64, 1024), (64, 2048), (256, 1024))]
+WIDE_PATHS = {"cc12m_256": CC12M_256, "yfcc2_512": YFCC2_512}
+WIDE = [(shape, 1) for shape in CC12M_256 + YFCC2_512] + [((2, 1000, 1536), 1), ((2, 256, 4096), 2), ((1, 64, 8192), 1)]
 
 CASES = [((8, HW, C), 32) for HW, C in ADM] + [(shape, 16) for shape in UNET32] + PRODUCTION
 CASES += [(shape, 32) for shape in dict.fromkeys(sum(NEW_PATHS.values(), [])) if (shape, 32) not in CASES]
@@ -174,9 +190,10 @@ def test_plan_clusters_and_residency():
     assert tnorm._gn_plan(256, 1024, 64, 16, 2, stats=True).cluster == 1
     assert tnorm._gn_plan(8, 1024, 1024, 32, 2, stats=True).cluster == 1
 
-    # a group wider than any band still plans (the plain version's)
+    # a group wider than a band spans bands: 1024 channels as two bands of
+    # 512 on one cluster, a block of all 64 rows for each band
     plan = tnorm._gn_plan(1, 64, 1024, 1, 4)
-    assert plan.band == 1024 and plan.rows == 64
+    assert (plan.band, plan.cluster, plan.rows) == (512, 2, 64)
 
 
 @pytest.mark.parametrize("silu", [False, True])
@@ -318,3 +335,192 @@ def test_group_norm_plain_at_new_shapes_matches_jax(shape, dtype):
 
     assert got.dtype == tdtype and plan.band % (C // 32) == 0
     assert _rel_err(got.float(), want) <= (5e-6 if dtype == "float32" else 1e-2)
+
+
+# --- groups wider than 256 channels ------------------------------------------
+
+
+def test_plans_at_the_listed_shapes_are_unchanged():
+    # the plans of every shape above, each dtype and kernel, as they were
+    # before groups could span bands (a digest of their tuples)
+    plans = [
+        tuple(tnorm._gn_plan(*shape, groups, itemsize, stats))
+        for shape, groups in CASES for itemsize in (2, 4) for stats in (False, True)
+    ]
+    assert len(plans) == 324
+    assert hashlib.sha256(repr(plans).encode()).hexdigest() == (
+        "7eb204c9a1d3f227869ee7a9ea7f942ce20c4485a32ff8463ecaf0dc8662f9f3"
+    )
+
+
+def _wide_blocks(plan, C, cpg):
+    r"""The (band, row block, rank) of each block along x of the launch's
+    grid where a group spans `span` bands: cluster k is group k, rank
+    j * nr + r takes band j of the group's rows r."""
+
+    span = tnorm._span(plan.band, cpg)
+    nr = plan.cluster // span
+    blocks = []
+    for bx in range(C // (plan.band * span) * plan.cluster):
+        k, rank = divmod(bx, plan.cluster)
+        j, r = divmod(rank, nr)
+        blocks.append((k * span + j, r, rank))
+    return blocks
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["group_norm", "group_stats"])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("shape, groups", WIDE, ids=[f"{s}-G{g}" for s, g in WIDE])
+def test_wide_plan_covers_the_tensor_once(shape, groups, itemsize, stats):
+    B, HW, C = shape
+    cpg = C // groups
+    plan = tnorm._gn_plan(B, HW, C, groups, itemsize, stats)
+    span = tnorm._span(plan.band, cpg)
+
+    # bands of at most 512 channels that divide C: whole groups, or a
+    # group's span bands; whole clusters of at most 16 blocks, span of them
+    # a row block
+    assert plan.band <= 512 and C % plan.band == 0
+    assert plan.band % cpg == 0 if cpg <= 512 else (span * plan.band == cpg and span > 1)
+    assert 1 <= plan.cluster <= 16 and plan.cluster % span == 0
+    assert 0 < plan.resident <= plan.rows and 0 < plan.stage <= plan.rows
+    twice = 2 * tnorm._row_threads(plan.band, itemsize)
+    assert plan.resident >= min(plan.rows, twice) and plan.stage >= min(plan.rows, twice)
+
+    # every row and channel of a batch row once, every block holding rows;
+    # the blocks of a cluster share one group (or one band of whole groups)
+    count = np.zeros((HW, C), np.int8)
+    blocks = _wide_blocks(plan, C, cpg)
+    for first in range(0, len(blocks), plan.cluster):
+        cluster = blocks[first:first + plan.cluster]
+        assert len({band * plan.band // max(cpg, plan.band) for band, _, _ in cluster}) == 1
+        assert [rank for _, _, rank in cluster] == list(range(plan.cluster))
+    for band, r, _ in blocks:
+        assert r * plan.rows < HW
+        count[r * plan.rows:(r + 1) * plan.rows, band * plan.band:(band + 1) * plan.band] += 1
+    assert (count == 1).all()
+
+    # the block's shared memory, as the kernel computes it, on the H100
+    assert plan.smem == tnorm._shared_bytes(plan.band, plan.resident, itemsize, span) <= 232448
+
+
+def test_wide_plans():
+    # yfcc_2's widest pre-norm: four bands of 512, a block each (16 rows);
+    # CC12M-1's 1024-channel groups at 8 x 8: two bands, a block each;
+    # yfcc_2's 16 x 16 level: two bands of two blocks; a group of 8192
+    # channels: 16 bands, the most a cluster holds
+    assert tnorm._gn_plan(4, 16, 2048, 1, 2)[:3] == (512, 4, 16)
+    assert tnorm._gn_plan(16, 64, 1024, 1, 2)[:3] == (512, 2, 64)
+    assert tnorm._gn_plan(4, 256, 1024, 1, 2)[:3] == (512, 4, 128)
+    assert tnorm._gn_plan(1, 64, 8192, 1, 2)[:2] == (512, 16)
+    # 1536 channels: three bands of four blocks; 1030 (no divisor near
+    # 512): five of 206
+    assert tnorm._gn_plan(2, 1000, 1536, 1, 2)[:2] == (512, 3 * 4)
+    assert tnorm._gn_plan(2, 256, 1030, 1, 2)[:2] == (206, 10)
+    # groups of at most 512 channels keep a band of whole groups
+    assert tnorm._gn_plan(16, 1024, 512, 1, 2).band == 512
+    assert tnorm._gn_plan(16, 65536, 128, 1, 2)[:3] == (128, 16, 4096)
+
+
+def test_kernels_refuse_groups_past_a_cluster():
+    # 17 bands of 512 (or 1031 channels, whose widest divisor up to 512 is
+    # 1) do not fit a cluster of 16: the wrappers raise before any launch
+    with pytest.raises(ValueError, match="at most 16 bands"):
+        tnorm._check_groups(1, 64, 17 * 512, 1, 2)
+    with pytest.raises(ValueError, match="at most 16 bands"):
+        tnorm._check_groups(1, 64, 1031, 1, 4)
+    tnorm._check_groups(1, 64, 16 * 512, 1, 2)  # the widest taken
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 1024, 1024), (4, 16, 2048), (3, 100, 1536)], ids=str)
+def test_group_norm_plain_at_wide_plans_matches_jax(shape, dtype):
+    # the plain version at the wide plan's block split (its rows) against
+    # JAX's XLA GroupNorm, one group a batch row, with an affine
+    B, HW, C = shape
+    rng = np.random.default_rng(30)
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    if dtype == "bfloat16":  # rounded as JAX's bf16 input would be
+        x = np.array(jnp.asarray(x, dtype=jnp.bfloat16).astype(jnp.float32))
+    P = np.broadcast_to(1 + 0.2 * rng.standard_normal((1, C)), (B, C)).astype(np.float32)
+    Q = np.broadcast_to(0.2 * rng.standard_normal((1, C)), (B, C)).astype(np.float32)
+    jdtype, tdtype = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+
+    plan = tnorm._gn_plan(B, HW, C, 1, 4 if dtype == "float32" else 2)
+    want = jnorm._gn_fused_xla(jnp.asarray(x, dtype=jdtype), jnp.asarray(P)[:, None], jnp.asarray(Q)[:, None], 1, 1e-5, False)
+    got = tnorm._group_norm_plain(torch.from_numpy(x).to(tdtype), torch.from_numpy(P), torch.from_numpy(Q), 1, 1e-5, False)
+
+    assert tnorm._span(plan.band, C) > 1 and got.dtype == tdtype
+    assert _rel_err(got.float(), want) <= (5e-6 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 1024), (2, 512, 2048)], ids=str)
+def test_stats_plain_at_wide_plans_matches_pallas_kernel(shape):
+    # JAX's TPU statistics kernel in interpret mode (one group of C
+    # channels, its own tiles) against the plain version's Chan fold over
+    # the wide plan's blocks, 100 + 3 N inputs
+    B, HW, C = shape
+    rng = np.random.default_rng(31)
+    x = (100.0 + 3.0 * rng.standard_normal(shape)).astype(np.float32)
+    assert jnorm.stats_kernel_eligible(shape)
+
+    with pltpu.force_tpu_interpret_mode():
+        want_mean, want_var = jax.block_until_ready(jnorm._stats_pallas(jnp.asarray(x), 1))
+
+    plan = tnorm._gn_plan(B, HW, C, 1, 4, stats=True)
+    mean, var = tnorm._stats_kernel_plain(torch.from_numpy(x), 1, plan.rows)
+    assert tnorm._span(plan.band, C) > 1
+    assert np.abs(mean.double().numpy() - np.asarray(want_mean, np.float64)).max() < 1e-3
+    assert (np.abs(var.double().numpy() - np.asarray(want_var, np.float64)) / np.asarray(want_var)).max() < 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["group_norm", "group_stats"])
+def test_plain_at_a_whole_image_group_exact_at_large_mean(kernel):
+    # CC12M-1's first level: one group of 65536 rows x 128 channels (8.4M
+    # elements), |mean| / std = 1e4, against float64 of the same float32
+    # values, at the plan's 16 blocks of 4096 rows
+    rng = np.random.default_rng(32)
+    x = (1e4 + rng.standard_normal((2, 65536, 128))).astype(np.float32)
+    xt = torch.from_numpy(x)
+    var64, mean64 = torch.var_mean(xt.double(), dim=(1, 2), keepdim=True, correction=0)
+    plan = tnorm._gn_plan(2, 65536, 128, 1, 4, stats=kernel == "group_stats")
+    assert plan.cluster == 16 and plan.rows == 4096
+
+    if kernel == "group_norm":
+        P, Q = torch.ones(2, 128), torch.zeros(2, 128)
+        got = tnorm._group_norm_plain(xt, P, Q, 1, 1e-5, False, plan.rows)
+        assert (got.double() - (xt.double() - mean64) / torch.sqrt(var64 + 1e-5)).abs().max() <= 5e-3
+    else:
+        mean, var = tnorm._stats_kernel_plain(xt, 1, plan.rows)
+        assert (mean.double().flatten() - mean64.flatten()).abs().max() < 1e-3
+        assert ((var.double().flatten() - var64.flatten()).abs() / var64.flatten()).max() < 1e-5
+
+
+def test_wide_paths_shapes_are_recorded(monkeypatch):
+    # the shapes above are those that CC12M-1 (135 calls a call, 111
+    # without affine) and yfcc_2 (12, affine) hand to the GroupNorm on the
+    # meta device (no arithmetic runs)
+    from azula_tpu_torch.models import vdm
+
+    calls = []
+
+    def spy(x, P, Q, groups, eps, silu, implementation):
+        calls.append((tuple(x.shape), groups))
+        return x
+
+    monkeypatch.setattr(tnorm, "_gn_forward", spy)
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    paths = {
+        "cc12m_256": (lambda: vdm.make_model("cc12m_1", device="meta").backbone(meta(16, 256, 256, 3), meta(16), meta(16, 512)), 135),
+        "yfcc2_512": (lambda: vdm.make_model("yfcc_2", device="meta").backbone(meta(4, 512, 512, 3), meta(4)), 12),
+    }
+    with torch.no_grad():
+        for name, (run, n) in paths.items():
+            calls.clear()
+            run()
+            assert len(calls) == n, name
+            assert sorted({shape for shape, _ in calls}) == sorted(WIDE_PATHS[name]), name
+            assert all(groups == 1 for _, groups in calls), name
