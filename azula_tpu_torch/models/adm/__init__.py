@@ -2,8 +2,8 @@ r"""Ablated diffusion model (ADM / guided-diffusion) family.
 
 Port of :mod:`azula_tpu.models.adm`: the `AblatedDenoiser` wrapper that maps
 the continuous-time denoiser API onto the checkpoints' discrete
-epsilon-prediction parametrization, and `make_model` over the card configs of
-`cards.yaml`. Loading a guided-diffusion checkpoint is not ported yet.
+epsilon-prediction parametrization, `make_model` over the card configs of
+`cards.yaml`, and `load_model`, which reads a guided-diffusion checkpoint.
 
 References:
     | Diffusion Models Beat GANs on Image Synthesis (Dhariwal et al., 2021)
@@ -16,6 +16,7 @@ __all__ = [
     "ADMUNet",
     "AblatedDenoiser",
     "discrete_sigmas",
+    "load_model",
     "make_model",
 ]
 
@@ -26,9 +27,13 @@ from collections.abc import Sequence
 from torch import Tensor
 
 from ...denoise import Denoiser, GaussianPosterior, time_scales
-from ...nn.utils import default_device, get_module_dtype
+from ...hub import download
+from ...nn.utils import default_device, get_module_dtype, skip_init, table_device
 from ...noise import Schedule, VPSchedule
+from ..ptread import load_pt
+from ..utils import check_manifest, load_cards, load_device, load_weights
 from .backbone import ADMUNet
+from .convert import canonicalize_adm_keys
 
 
 def discrete_sigmas(schedule: str = "linear", steps: int = 1000) -> np.ndarray:
@@ -88,7 +93,7 @@ class AblatedDenoiser(Denoiser):
         self.clip_mean = clip_mean
         self.learn_var = learn_var
 
-        device = next(backbone.parameters()).device
+        device = table_device(next(backbone.parameters()).device)
         sigmas = discrete_sigmas(discrete_schedule, discrete_steps)
         self.register_buffer(
             "sigmas",
@@ -196,7 +201,7 @@ def make_model(
 
     device = default_device(device)
 
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
 
     # Cards list attention *image sizes*; the backbone wants downsample rates
@@ -223,3 +228,32 @@ def make_model(
         discrete_schedule=discrete_schedule,
         discrete_steps=discrete_steps,
     )
+
+
+def load_model(name: str, dtype: torch.dtype | None = None, *, device=None) -> AblatedDenoiser:
+    r"""Loads a pretrained ADM denoiser from its guided-diffusion checkpoint.
+
+    Port of :func:`azula_tpu.models.adm.load_model`: the card's file is
+    downloaded (and its hash checked), read by
+    :func:`~azula_tpu_torch.models.ptread.load_pt`, held to the card's
+    manifest, and loaded, its keys renamed by
+    :func:`~azula_tpu_torch.models.adm.convert.canonicalize_adm_keys`, into
+    a model built by :func:`~azula_tpu_torch.nn.utils.skip_init`.
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        dtype: The dtype of the backbone (e.g. `torch.bfloat16`). Defaults to
+            the checkpoint's.
+        device: The device of the model. Defaults to the card (`'cuda'`).
+    """
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+
+    state = load_pt(download(card.url, hash_prefix=card.hash))
+    check_manifest(state, "adm", name, "model")
+
+    denoiser = skip_init(make_model, **card.config)
+    load_weights(denoiser.backbone, state, canonicalize_adm_keys, device=device, dtype=dtype)
+
+    return denoiser.to(device)

@@ -4,9 +4,9 @@ Port of :mod:`azula_tpu.models.edm`: the `ElucidatedDenoiser`
 (:math:`x`-prediction with :math:`c_\mathrm{in} = 1/\alpha` and
 :math:`c_\mathrm{time} = \sigma/\alpha`, rounded to the backbone's dtype)
 over the NVlabs preconditioned backbones of :mod:`.backbone`, under the
-:class:`~azula_tpu_torch.noise.ElucidatedSchedule` by default. The NVlabs
-pickles of `cards.yaml` are read by `load_model`, which waits for checkpoint
-files in the repository.
+:class:`~azula_tpu_torch.noise.ElucidatedSchedule` by default, and
+`load_model`, which reads the NVlabs pickles of `cards.yaml`
+(:mod:`.convert`).
 
 References:
     | Elucidating the Design Space of Diffusion-Based Generative Models (Karras et al., 2022)
@@ -23,13 +23,18 @@ __all__ = [
     "SongUNet",
     "VEPrecond",
     "VPPrecond",
+    "load_model",
 ]
+
+import torch
 
 from torch import Tensor, nn
 
 from ...denoise import Denoiser, DiracPosterior, time_scales
+from ...hub import download
 from ...nn.utils import get_module_dtype
 from ...noise import ElucidatedSchedule, Schedule
+from ..utils import load_cards, load_device
 from .backbone import DhariwalUNet, EDMPrecond, SongUNet, VEPrecond, VPPrecond
 
 
@@ -76,3 +81,27 @@ class ElucidatedDenoiser(Denoiser):
         ).to(x_t.dtype)
 
         return DiracPosterior(mean=mean)
+
+
+def load_model(name: str, dtype: torch.dtype | None = None, *, device=None) -> ElucidatedDenoiser:
+    r"""Loads a pretrained EDM denoiser from its NVlabs pickle.
+
+    Port of :func:`azula_tpu.models.edm.load_model`: the pickle is read
+    without the NVlabs source tree and the architecture's hyperparameters
+    come from the pickle itself
+    (:func:`~azula_tpu_torch.models.edm.convert.build_from_pickle`).
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        dtype: The dtype of the backbone. Defaults to the checkpoint's.
+        device: The device of the model. Defaults to the card (`'cuda'`).
+    """
+
+    from .convert import build_from_pickle
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+
+    backbone = build_from_pickle(download(card.url, hash_prefix=card.hash), device=device, dtype=dtype)
+
+    return ElucidatedDenoiser(backbone=backbone)

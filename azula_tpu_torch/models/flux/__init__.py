@@ -6,8 +6,8 @@ preconditioning :math:`c_\mathrm{in} = c_\mathrm{skip} = 1/(\alpha+\sigma)`,
 ids and the distilled-guidance input, over the :class:`FluxTransformer`
 backbone; the 2x2 pixel-shuffle latent `AutoEncoder` around an
 :class:`~azula_tpu_torch.models.autoencoder.AutoencoderKL`, and the dual
-CLIP + T5 `TextEncoder`. `load_model` waits for checkpoint and tokenizer
-files in the repository.
+CLIP + T5 `TextEncoder`; and `load_model`, which reads the transformer, VAE,
+CLIP and T5 safetensors and the tokenizer files of a card's repository.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ __all__ = [
     "FluxDenoiser",
     "FluxTransformer",
     "TextEncoder",
+    "load_model",
 ]
 
 import functools
@@ -26,8 +27,9 @@ import torch
 from torch import Tensor, nn
 
 from ...denoise import Denoiser, DiracPosterior, time_scales
-from ...nn.utils import get_module_dtype
+from ...nn.utils import get_module_dtype, skip_init
 from ...noise import DecaySchedule, Schedule
+from ..utils import check_manifest, load_cards, load_device, load_weights
 from .backbone import FluxTransformer
 
 
@@ -214,3 +216,68 @@ class FluxDenoiser(Denoiser):
         output = output.reshape(z_t.shape).to(z_t.dtype)
 
         return DiracPosterior(mean=c_skip * z_t + c_out * output)
+
+
+def load_model(
+    name: str = "flux_1_dev", dtype: torch.dtype | None = torch.bfloat16, *, device=None
+) -> tuple[FluxDenoiser, AutoEncoder, TextEncoder]:
+    r"""Loads a pretrained Flux model from a card's repository.
+
+    Port of :func:`azula_tpu.models.flux.load_model`: the (sharded)
+    transformer, the VAE and the CLIP and T5 encoders are read from their
+    safetensors (:func:`~azula_tpu_torch.models.utils.load_hub_safetensors`),
+    held to the card's manifests and loaded into modules built by
+    :func:`~azula_tpu_torch.nn.utils.skip_init`; the tokenizers are built by
+    `transformers` from the repository's files.
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        dtype: The dtype of the modules (the checkpoints ship bfloat16).
+        device: The device of the modules. Defaults to the card (`'cuda'`).
+
+    Returns:
+        A `(denoiser, autoencoder, textencoder)` triple.
+    """
+
+    from transformers import CLIPTokenizer, T5TokenizerFast
+
+    from ...hub import download
+    from ..utils import load_hub_safetensors
+    from ..autoencoder import AutoencoderKL, canonicalize_vae_keys
+    from ..clip import CLIPTextEncoder, canonicalize_clip_keys
+    from ..t5 import T5Encoder, canonicalize_t5_keys
+    from .backbone import FluxTransformer
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+    variant = getattr(card, "variant", None)
+    base = f"https://huggingface.co/{card.repo}/resolve/main"
+
+    def load(module, path, component, canonicalize=None):
+        state = load_hub_safetensors(card.repo, path, variant)
+        check_manifest(state, "flux", name, component, canonicalize=canonicalize)
+        return load_weights(module, state, canonicalize, device=device, dtype=dtype)
+
+    # dev is guidance-distilled, schnell is not
+    transformer = skip_init(FluxTransformer, guidance_embeds="schnell" not in name)
+    load(transformer, "transformer/diffusion_pytorch_model", "transformer")
+
+    # 16 latent channels, no quant convs; the published shift and scale
+    vae = skip_init(AutoencoderKL, latent_channels=16, use_quant_conv=False)
+    load(vae, "vae/diffusion_pytorch_model", "vae", canonicalize_vae_keys)
+
+    clip = load(skip_init(CLIPTextEncoder), "text_encoder/model", "text_encoder", canonicalize_clip_keys)
+    t5 = load(skip_init(T5Encoder), "text_encoder_2/model", "text_encoder_2", canonicalize_t5_keys)
+
+    clip_tokenizer = CLIPTokenizer(
+        vocab_file=str(download(f"{base}/tokenizer/vocab.json")),
+        merges_file=str(download(f"{base}/tokenizer/merges.txt")),
+        model_max_length=clip.position_embedding.weight.shape[0],
+    )
+    t5_tokenizer = T5TokenizerFast(tokenizer_file=str(download(f"{base}/tokenizer_2/tokenizer.json")))
+
+    return (
+        FluxDenoiser(backbone=transformer),
+        AutoEncoder(vae=vae, shift=0.1159, scale=0.3611),
+        TextEncoder(clip=clip, clip_tokenizer=clip_tokenizer, t5=t5, t5_tokenizer=t5_tokenizer),
+    )

@@ -3,9 +3,8 @@ r"""Just image Transformer (JiT) family.
 Port of :mod:`azula_tpu.models.jit`: the `JITDenoiser` (x-prediction on
 pixels under the rectified flow, :math:`c_\mathrm{in} = 1 / (\alpha +
 \sigma)`, :math:`c_\mathrm{time} = \alpha / (\alpha + \sigma)`, the null
-label `num_classes`) over the `JiT` of :mod:`.backbone`, and `make_model`.
-The checkpoint archives of `cards.yaml` are read by `load_model`, which
-waits for checkpoint files in the repository.
+label `num_classes`) over the `JiT` of :mod:`.backbone`, `make_model`, and
+`load_model`, which reads the checkpoint archives of `cards.yaml`.
 
 References:
     | Back to Basics: Let Denoising Generative Models Denoise (Li et al., 2025)
@@ -18,16 +17,21 @@ __all__ = [
     "JIT_CONFIGS",
     "JITDenoiser",
     "JiT",
+    "load_model",
     "make_model",
 ]
 
+import os
 import torch
 
 from torch import Tensor
 
 from ...denoise import Denoiser, DiracPosterior, time_scales
-from ...nn.utils import default_device, get_module_dtype
+from ...hub import download
+from ...nn.utils import default_device, get_module_dtype, skip_init
 from ...noise import RectifiedSchedule, Schedule
+from ..ptread import load_pt
+from ..utils import check_manifest, load_cards, load_device, load_weights
 from .backbone import JIT_CONFIGS, JiT
 
 
@@ -106,3 +110,37 @@ def make_model(
     backbone = JiT(**{**JIT_CONFIGS[model], **kwargs}, device=device, dtype=dtype, generator=generator)
 
     return JITDenoiser(backbone, num_classes=backbone.num_classes)
+
+
+def load_model(name: str, ema: bool = True, dtype: torch.dtype | None = None, *, device=None) -> JITDenoiser:
+    r"""Loads a pretrained JiT denoiser from its checkpoint archive.
+
+    Port of :func:`azula_tpu.models.jit.load_model`: the card's archive is
+    downloaded and extracted; its `checkpoint-last.pth` is read by
+    :func:`~azula_tpu_torch.models.ptread.load_pt`, the EMA (`model_ema1`)
+    or trained (`model`) weights taken with their `net.` prefix stripped,
+    held to the card's manifest, and loaded into a model built by
+    :func:`~azula_tpu_torch.nn.utils.skip_init` (whose RoPE tables are
+    computed, not read).
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        ema: Whether to load the EMA weights.
+        dtype: The dtype of the backbone. Defaults to the checkpoint's.
+        device: The device of the model. Defaults to the card (`'cuda'`).
+    """
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+
+    archive = download(card.url, hash_prefix=card.hash, extract=True)
+
+    state = load_pt(os.path.join(archive, "checkpoint-last.pth"))
+    state = state["model_ema1" if ema else "model"]
+    state = {k.removeprefix("net."): v for k, v in state.items()}
+    check_manifest(state, "jit", name, "model")
+
+    denoiser = skip_init(make_model, **card.config)
+    load_weights(denoiser.backbone, state, device=device, dtype=dtype)
+
+    return denoiser.to(device)

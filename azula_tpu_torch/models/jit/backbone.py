@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ...nn.layers import Conv, Embedding, Linear
+from ...nn.utils import table_device
 from ...ops.attention import dot_product_attention
 
 
@@ -296,8 +297,8 @@ class JiT(nn.Module):
         head_dim = hidden_size // num_heads // 2 * 2
         for name, cls in (("rope", 0), ("rope_incontext", in_context_len)):
             cos, sin = _axial_rope_tables(head_dim, grid, cls)
-            self.register_buffer(f"{name}_cos", torch.from_numpy(cos).to(device), persistent=False)
-            self.register_buffer(f"{name}_sin", torch.from_numpy(sin).to(device), persistent=False)
+            self.register_buffer(f"{name}_cos", torch.from_numpy(cos).to(table_device(device)), persistent=False)
+            self.register_buffer(f"{name}_sin", torch.from_numpy(sin).to(table_device(device)), persistent=False)
 
         self.blocks = nn.ModuleList([
             JiTBlock(hidden_size, num_heads, mlp_ratio=mlp_ratio, **factory) for _ in range(depth)

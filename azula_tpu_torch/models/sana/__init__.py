@@ -5,8 +5,9 @@ preconditioning with :math:`c_\mathrm{time} \times 1000`) over the
 :class:`SanaTransformer` backbone, the DC-AE (32x downsampling)
 `AutoEncoder` wrapper, and the Gemma `TextEncoder` with the instruction
 prefix and the selection of the last `max_length` tokens. `ARCHS` and
-`CARD_ARCHS` give each card's transformer; `load_model` waits for
-checkpoint and tokenizer files in the repository.
+`CARD_ARCHS` give each card's transformer; `load_model` reads the
+transformer, Gemma and DC-AE safetensors and the tokenizer file of a card's
+repository.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ __all__ = [
     "SanaDenoiser",
     "SanaTransformer",
     "TextEncoder",
+    "load_model",
 ]
 
 import numpy as np
@@ -27,8 +29,9 @@ from collections.abc import Sequence
 from torch import Tensor, nn
 
 from ...denoise import Denoiser, DiracPosterior, time_scales
-from ...nn.utils import get_module_dtype
+from ...nn.utils import get_module_dtype, skip_init
 from ...noise import DecaySchedule, Schedule
+from ..utils import check_manifest, load_cards, load_device, load_weights
 from .backbone import SanaTransformer
 
 # The prompt-enhancement instruction prefix of the Sana checkpoints, as
@@ -228,3 +231,76 @@ CARD_ARCHS = {
     "sana_1.5_1.6b_1024": "1.5-1.6b",
     "sana_1.5_4.8b_1024": "1.5-4.8b",
 }
+
+
+def _arch(name: str) -> dict:
+    r"""The transformer of a card name; names outside `CARD_ARCHS` go by
+    their size tokens."""
+
+    if name in CARD_ARCHS:
+        return ARCHS[CARD_ARCHS[name]]
+    if "4.8b" in name:
+        return ARCHS["1.5-4.8b"]
+    if "1.5_" in name or name.startswith("sana_1.5"):
+        return ARCHS["1.5-1.6b"]
+    if "0.6b" in name:
+        return ARCHS["0.6b"]
+    return ARCHS["1.6b"]
+
+
+def load_model(
+    name: str, dtype: torch.dtype | None = torch.bfloat16, *, device=None
+) -> tuple[SanaDenoiser, AutoEncoder, TextEncoder]:
+    r"""Loads a pretrained Sana model from a card's repository.
+
+    Port of :func:`azula_tpu.models.sana.load_model`: the transformer, the
+    Gemma text encoder and the DC-AE are read from their safetensors
+    (:func:`~azula_tpu_torch.models.utils.load_hub_safetensors`), held to
+    the card's manifests and loaded into modules built by
+    :func:`~azula_tpu_torch.nn.utils.skip_init`; the tokenizer is built by
+    `transformers` from the repository's file. The text encoder and the
+    DC-AE take the card's `dtype_map` (bfloat16 and float32 by default).
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        dtype: The dtype of the transformer.
+        device: The device of the modules. Defaults to the card (`'cuda'`).
+
+    Returns:
+        A `(denoiser, autoencoder, textencoder)` triple.
+    """
+
+    from transformers import GemmaTokenizerFast
+
+    from ...hub import download
+    from ..utils import load_hub_safetensors
+    from ..gemma import Gemma2TextModel, canonicalize_gemma_keys
+    from .autoencoder import AutoencoderDC
+    from .backbone import SanaTransformer
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+    dtype_map = getattr(card, "dtype_map", None) or {}
+    base = f"https://huggingface.co/{card.repo}/resolve/main"
+
+    def load(module, path, variant, component, dtype, canonicalize=None):
+        state = load_hub_safetensors(card.repo, path, variant)
+        check_manifest(state, "sana", name, component, canonicalize=canonicalize)
+        return load_weights(module, state, canonicalize, device=device, dtype=dtype)
+
+    transformer = skip_init(SanaTransformer, **_arch(name))
+    load(transformer, "transformer/diffusion_pytorch_model", getattr(card, "variant", None), "transformer", dtype)
+
+    gemma = skip_init(Gemma2TextModel)
+    gemma_dtype = dtype_map.get("text_encoder", torch.bfloat16)
+    load(gemma, "text_encoder/model", None, "text_encoder", gemma_dtype, canonicalize_gemma_keys)
+    tokenizer = GemmaTokenizerFast(tokenizer_file=str(download(f"{base}/tokenizer/tokenizer.json")))
+
+    dcae = skip_init(AutoencoderDC)
+    load(dcae, "vae/diffusion_pytorch_model", None, "vae", dtype_map.get("vae", torch.float32))
+
+    return (
+        SanaDenoiser(backbone=transformer),
+        AutoEncoder(ae=dcae, scale=0.41407),
+        TextEncoder(gemma=gemma, tokenizer=tokenizer),
+    )

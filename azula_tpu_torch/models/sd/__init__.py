@@ -5,9 +5,9 @@ velocity-prediction, the checkpoint's discrete timestep found by a
 `searchsorted` of the noise ratio in the float32 `sigmas` table), the latent
 `AutoEncoder` around an
 :class:`~azula_tpu_torch.models.autoencoder.AutoencoderKL`, the CLIP
-`TextEncoder`, and `ARCHS` / `make_backbone` over the two checkpoint
-generations of `cards.yaml`. `load_model` waits for checkpoint and tokenizer
-files in the repository.
+`TextEncoder`, `ARCHS` / `make_backbone` over the two checkpoint
+generations of `cards.yaml`, and `load_model`, which reads the UNet, VAE and
+CLIP safetensors and the tokenizer files of a card's repository.
 
 References:
     | High-Resolution Image Synthesis with Latent Diffusion Models (Rombach et al., 2021)
@@ -22,18 +22,24 @@ __all__ = [
     "SDUNet",
     "StableDenoiser",
     "TextEncoder",
+    "load_model",
+    "load_unet",
     "make_backbone",
     "sd_sigmas",
 ]
 
 import numpy as np
+import os
+import pathlib
 import torch
 
 from torch import Tensor, nn
 
 from ...denoise import Denoiser, DiracPosterior, time_scales
-from ...nn.utils import default_device, get_module_dtype
+from ...hub import download
+from ...nn.utils import default_device, get_module_dtype, skip_init, table_device
 from ...noise import Schedule, VPSchedule
+from ..utils import check_manifest, load_cards, load_device, load_safetensors, load_weights
 from .backbone import SDUNet
 
 
@@ -151,7 +157,7 @@ class StableDenoiser(Denoiser):
 
         # the table is float32, as in the JAX package: the search of a
         # float32 ratio in it gives JAX's indices
-        device = next(backbone.parameters()).device
+        device = table_device(next(backbone.parameters()).device)
         self.register_buffer("sigmas", torch.as_tensor(sigmas, dtype=torch.float32, device=device), persistent=False)
 
     def forward(self, z_t: Tensor, t: Tensor, prompt_embeds: Tensor, **kwargs) -> DiracPosterior:
@@ -249,3 +255,84 @@ def make_backbone(
         generator = torch.Generator(device=device).manual_seed(0)
 
     return SDUNet(**_arch(name)["unet"], device=device, dtype=dtype, generator=generator)
+
+
+def _hub_file(repo: str, sub: str) -> pathlib.Path:
+    return download(f"https://huggingface.co/{repo}/resolve/main/{sub}")
+
+
+def load_unet(path: str | os.PathLike, name: str = "sd_2", device=None, dtype: torch.dtype | None = torch.bfloat16) -> SDUNet:
+    r"""Loads the UNet of a card's generation from a diffusers
+    `unet/diffusion_pytorch_model*.safetensors` file: read by
+    :func:`~azula_tpu_torch.models.utils.load_safetensors`, held to the
+    card's manifest, and loaded into a UNet built by
+    :func:`~azula_tpu_torch.nn.utils.skip_init`.
+
+    Arguments:
+        path: The safetensors file.
+        name: The card name (`'sd_1.5'`, `'sd_2'`, ...).
+        device: The device of the UNet. Defaults to the card (`'cuda'`).
+        dtype: Its dtype. None keeps the file's.
+    """
+
+    from .backbone import SDUNet
+
+    device = load_device(device)
+    state = load_safetensors(path)
+    check_manifest(state, "sd", name, "unet")
+
+    return load_weights(skip_init(SDUNet, **_arch(name)["unet"]), state, device=device, dtype=dtype)
+
+
+def load_model(
+    name: str, dtype: torch.dtype | None = torch.bfloat16, *, device=None
+) -> tuple[StableDenoiser, AutoEncoder, TextEncoder]:
+    r"""Loads a pretrained Stable Diffusion model from a card's repository.
+
+    Port of :func:`azula_tpu.models.sd.load_model`: the UNet, VAE and CLIP
+    safetensors are downloaded, read by the port's reader, held to the
+    card's manifests, and loaded into modules built by
+    :func:`~azula_tpu_torch.nn.utils.skip_init`; the CLIP tokenizer is built
+    by `transformers` from the repository's vocabulary files.
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        dtype: The dtype of the modules (the checkpoints ship float16).
+        device: The device of the modules. Defaults to the card (`'cuda'`).
+
+    Returns:
+        A `(denoiser, autoencoder, textencoder)` triple.
+    """
+
+    from transformers import CLIPTokenizer
+
+    from ..autoencoder import AutoencoderKL, canonicalize_vae_keys
+    from ..clip import CLIPTextEncoder, canonicalize_clip_keys
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+    arch = _arch(name)
+    variant = f".{card.variant}" if getattr(card, "variant", None) else ""
+
+    unet = load_unet(_hub_file(card.repo, f"unet/diffusion_pytorch_model{variant}.safetensors"), name, device, dtype)
+    denoiser = StableDenoiser(backbone=unet, **card.config)
+
+    vae_sd = load_safetensors(_hub_file(card.repo, f"vae/diffusion_pytorch_model{variant}.safetensors"))
+    check_manifest(vae_sd, "sd", name, "vae", canonicalize=canonicalize_vae_keys)
+    vae = load_weights(skip_init(AutoencoderKL), vae_sd, canonicalize_vae_keys, device=device, dtype=dtype)
+    autoencoder = AutoEncoder(vae=vae, scale=arch["scale"])
+
+    clip_sd = load_safetensors(_hub_file(card.repo, f"text_encoder/model{variant}.safetensors"))
+    check_manifest(clip_sd, "sd", name, "text_encoder", canonicalize=canonicalize_clip_keys)
+    clip = skip_init(CLIPTextEncoder, **arch["clip"])
+    load_weights(clip, clip_sd, canonicalize_clip_keys, device=device, dtype=dtype)
+
+    # padded to the encoder's positions (77), which the vocabulary files
+    # alone do not give
+    tokenizer = CLIPTokenizer(
+        vocab_file=str(_hub_file(card.repo, "tokenizer/vocab.json")),
+        merges_file=str(_hub_file(card.repo, "tokenizer/merges.txt")),
+        model_max_length=clip.position_embedding.weight.shape[0],
+    )
+
+    return denoiser, autoencoder, TextEncoder(clip=clip, tokenizer=tokenizer)

@@ -1,20 +1,34 @@
 r"""Model-zoo helpers: the `cards.yaml` registry of each model family, the
 checkpoint manifests (`manifests/<family>/<card>.<component>.json`, the
-expected key -> shape map of each checkpoint component), the conversion of
-JAX parameter arrays by name, and a seeded stand-in for a tokenizer."""
+expected key -> shape map of each checkpoint component) and their
+generation, the reading of safetensors checkpoints, the digests that pin a
+loaded model's numerics, the conversion of JAX parameter arrays by name, and
+a seeded stand-in for a tokenizer."""
 
 from __future__ import annotations
 
 __all__ = [
     "SeededTokenizer",
+    "activation_digest",
     "check_manifest",
+    "compare_digests",
     "from_jax_arrays",
+    "generate_manifests",
     "load_cards",
+    "load_device",
+    "load_hub_safetensors",
+    "load_safetensors",
+    "load_weights",
+    "weight_digest",
 ]
 
+import importlib
+import itertools
 import json
+import math
 import numpy as np
 import os
+import struct
 import sys
 import torch
 import yaml
@@ -24,6 +38,7 @@ from collections.abc import Callable, Mapping, Sequence
 from types import ModuleType, SimpleNamespace
 
 from ..nn.convert import check_state_dict, convert_leaf
+from ..nn.utils import default_device
 
 
 def _as_torch_dtype(name: str | None) -> torch.dtype | None:
@@ -62,6 +77,111 @@ def load_cards(plugin: ModuleType | str) -> dict[str, SimpleNamespace]:
             card["dtype_map"] = {k: _as_torch_dtype(v) for k, v in card["dtype_map"].items()}
 
     return {name: SimpleNamespace(**card) for name, card in cards.items()}
+
+
+# safetensors dtype names -> torch dtypes
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64,
+    "F32": torch.float32,
+    "F16": torch.float16,
+    "BF16": torch.bfloat16,
+    "I64": torch.int64,
+    "I32": torch.int32,
+    "I16": torch.int16,
+    "I8": torch.int8,
+    "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def load_safetensors(path: str | os.PathLike) -> dict[str, torch.Tensor]:
+    r"""Reads a safetensors file into CPU tensors, memory-mapped.
+
+    The format is an 8-byte little-endian header length, a JSON header
+    mapping each name to its `dtype`, `shape` and `data_offsets` (from the end
+    of the header), and the raw little-endian bytes. The file is mapped
+    privately (copy on write): a tensor reads its pages when first used. A
+    tensor whose offset is not a multiple of its item size is copied.
+
+    Arguments:
+        path: The file.
+
+    Returns:
+        A flat name-to-tensor mapping, in the file's order.
+    """
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+
+    header.pop("__metadata__", None)
+
+    size = os.path.getsize(path)
+    data = torch.empty(0, dtype=torch.uint8)
+    if size > 0:
+        data.set_(torch.UntypedStorage.from_file(os.fspath(path), shared=False, nbytes=size))
+
+    out = {}
+    for name, info in header.items():
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor '{name}' has the unsupported dtype {info['dtype']}")
+
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        raw = data[8 + n + begin : 8 + n + end]
+
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if (8 + n + begin) % itemsize:
+            raw = raw.clone()
+
+        out[name] = raw.view(dtype).reshape(info["shape"])
+
+    return out
+
+
+def load_hub_safetensors(repo: str, name: str, variant: str | None = None) -> dict[str, torch.Tensor]:
+    r"""Downloads and reads a (possibly sharded) safetensors checkpoint of a
+    HuggingFace repository.
+
+    A single-file checkpoint lives at `{name}{.variant}.safetensors`; a
+    sharded one publishes `{name}{.variant}.safetensors.index.json`, whose
+    `weight_map` names the shard files, next to it (tried when the single
+    file answers 404).
+
+    Arguments:
+        repo: The repository (e.g. `'black-forest-labs/FLUX.1-dev'`).
+        name: The checkpoint path inside the repository, without extension
+            (e.g. `'transformer/diffusion_pytorch_model'`).
+        variant: An optional variant infix (e.g. `'fp16'`).
+
+    Returns:
+        A flat name-to-tensor mapping (CPU tensors, memory-mapped).
+    """
+
+    import urllib.error
+
+    from ..hub import download
+
+    suffix = f".{variant}.safetensors" if variant else ".safetensors"
+    base = f"https://huggingface.co/{repo}/resolve/main"
+
+    try:
+        return load_safetensors(download(f"{base}/{name}{suffix}"))
+    except urllib.error.HTTPError as e:
+        if e.code != 404:
+            raise
+
+    with open(download(f"{base}/{name}{suffix}.index.json")) as f:
+        index = json.load(f)
+
+    # the shards lie next to the index (at the root when `name` has no folder)
+    folder, sep, _ = name.rpartition("/")
+
+    out = {}
+    for shard in sorted(set(index["weight_map"].values())):
+        out.update(load_safetensors(download(f"{base}/{folder}{sep}{shard}")))
+
+    return out
 
 
 def _manifest_dir() -> str:
@@ -130,6 +250,333 @@ def check_manifest(
         raise ValueError(
             f"state dict does not match the '{family}/{card}' {component} manifest:\n  " + "\n  ".join(parts)
         )
+
+
+def load_device(device=None) -> torch.device:
+    r"""The device a `load_model` places its modules on: the card unless the
+    caller names another device. Without a CUDA device and without `device`,
+    it raises rather than load onto the CPU."""
+
+    device = default_device(device)
+
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: load_model places the model on the card unless `device` names another")
+
+    return device
+
+
+def _trailing(shape) -> tuple[int, ...]:
+    shape = tuple(shape)
+    while shape and shape[-1] == 1:
+        shape = shape[:-1]
+    return shape
+
+
+def load_weights(
+    module: torch.nn.Module,
+    state_dict: Mapping[str, torch.Tensor],
+    canonicalize: Callable[[dict], dict] | None = None,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> torch.nn.Module:
+    r"""Fills a module built by :func:`~azula_tpu_torch.nn.utils.skip_init`
+    with a checkpoint's tensors, in place.
+
+    The checkpoint's names go through `canonicalize` (the family's key
+    canonicalization) and are matched to the module's names, which the same
+    canonicalization maps to the same space. A tensor whose shape differs
+    from its parameter's by trailing singleton dimensions (a 1 x 1
+    convolution stored for a Linear, a gain stored as (1,)) is reshaped. Each
+    tensor is then moved to `device` and its floating values cast to `dtype`,
+    one at a time, and the whole is assigned by
+    `load_state_dict(strict=True, assign=True)`: no other copy of the
+    parameters is made. Last, the module's other tensors (the tables built on
+    the CPU) are moved to `device`.
+
+    Arguments:
+        module: The module, on the meta device.
+        state_dict: The checkpoint's names -> tensors.
+        canonicalize: The family's key canonicalization, or None.
+        device: The target device. Defaults to where the tensors are.
+        dtype: The target dtype of floating tensors. Defaults to the file's.
+
+    Returns:
+        The module.
+
+    Raises:
+        RuntimeError: On missing or unexpected keys, or on a tensor left
+        without storage.
+    """
+
+    targets = module.state_dict()
+
+    names = {name: name for name in targets}
+    if canonicalize is not None:
+        names = canonicalize(names)
+        state_dict = canonicalize(state_dict)
+
+    loaded = {}
+    for key, tensor in state_dict.items():
+        name = names.get(key, key)
+        target = targets.get(name)
+        if target is not None and tensor.shape != target.shape and _trailing(tensor.shape) == _trailing(target.shape):
+            tensor = tensor.reshape(target.shape)
+        cast = dtype if tensor.is_floating_point() else None
+        loaded[name] = tensor.to(device=device, dtype=cast).contiguous()
+
+    module.load_state_dict(loaded, strict=True, assign=True)
+
+    if device is not None:
+        module.to(device)
+
+    empty = [name for name, t in itertools.chain(module.named_parameters(), module.named_buffers()) if t.is_meta]
+    if empty:
+        raise RuntimeError(f"tensors left without storage after loading: {empty[:8]}")
+
+    return module
+
+
+def generate_manifests(family: str, out_dir: str | None = None) -> list[str]:
+    r"""Writes the key -> shape manifests of one model family, from the state
+    dicts of the port's modules built on the meta device (the port's keys are
+    the checkpoints'; the text encoders' and the VAE's go through their key
+    canonicalization).
+
+    Arguments:
+        family: `'adm'`, `'vdm'`, `'jit'`, `'sd'`, `'flux'` or `'sana'`.
+        out_dir: The manifest root. Defaults to the packaged `manifests/`.
+
+    Returns:
+        The paths written.
+    """
+
+    out_dir = out_dir or _manifest_dir()
+    written = []
+    meta = torch.device("meta")
+
+    def write(card: str, component: str, module: torch.nn.Module, canonicalize=None) -> None:
+        shapes = {k: list(v.shape) for k, v in module.state_dict().items()}
+        if canonicalize is not None:
+            shapes = canonicalize(shapes)
+
+        path = os.path.join(out_dir, family, f"{card}.{component}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(dict(sorted(shapes.items())), f, indent=0)
+            f.write("\n")
+        written.append(path)
+
+    if family in ("adm", "vdm", "jit"):
+        plugin = importlib.import_module(f"{__package__}.{family}")
+        canonicalize = plugin.canonicalize_adm_keys if family == "adm" else None
+        for card, entry in load_cards(plugin).items():
+            write(card, "model", plugin.make_model(**entry.config, device=meta).backbone, canonicalize)
+
+    elif family == "sd":
+        from . import autoencoder, clip, sd
+        from .sd import backbone
+
+        for card in load_cards(sd):
+            arch = sd._arch(card)
+            write(card, "unet", backbone.SDUNet(**arch["unet"], device=meta))
+            write(card, "vae", autoencoder.AutoencoderKL(device=meta), autoencoder.canonicalize_vae_keys)
+            write(card, "text_encoder", clip.CLIPTextEncoder(**arch["clip"], device=meta), clip.canonicalize_clip_keys)
+
+    elif family == "flux":
+        from . import autoencoder, clip, flux, t5
+        from .flux import backbone
+
+        for card in load_cards(flux):
+            transformer = backbone.FluxTransformer(guidance_embeds="schnell" not in card, device=meta)
+            write(card, "transformer", transformer)
+            vae = autoencoder.AutoencoderKL(latent_channels=16, use_quant_conv=False, device=meta)
+            write(card, "vae", vae, autoencoder.canonicalize_vae_keys)
+            write(card, "text_encoder", clip.CLIPTextEncoder(device=meta), clip.canonicalize_clip_keys)
+            write(card, "text_encoder_2", t5.T5Encoder(device=meta), t5.canonicalize_t5_keys)
+
+    elif family == "sana":
+        from . import gemma, sana
+        from .sana import autoencoder as dcae
+
+        for card in load_cards(sana):
+            write(card, "transformer", sana.SanaTransformer(**sana._arch(card), device=meta))
+            write(card, "vae", dcae.AutoencoderDC(device=meta))
+            write(card, "text_encoder", gemma.Gemma2TextModel(device=meta), gemma.canonicalize_gemma_keys)
+
+    else:
+        raise ValueError(f"no manifest generator for family '{family}'")
+
+    return written
+
+
+def _jax_normal(key: tuple[int, int], shape: tuple[int, ...]) -> np.ndarray:
+    r"""`jax.random.normal(key, shape, float32)` of JAX's default threefry
+    generator (`jax_threefry_partitionable`), in numpy: the threefry-2x32
+    hash of each flat index, a float32 uniform on :math:`(-1, 1)` from its 23
+    high bits, then :math:`\sqrt 2 \,\mathrm{erf}^{-1}(u)` by the float32
+    polynomial that XLA evaluates (Giles, 2010). The bits are JAX's; the
+    values agree to an ulp or two (`log1p` differs)."""
+
+    n = math.prod(shape)
+    bits1, bits2 = _threefry2x32(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    bits = bits1 ^ bits2
+
+    one = np.array(1.0, np.float32).view(np.uint32)
+    floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = np.maximum(lo, floats * (np.float32(1.0) - lo) + lo)
+
+    return (np.float32(math.sqrt(2)) * _erfinv32(u)).reshape(shape)
+
+
+# Giles' single-precision erfinv: the polynomials in w = -log(1 - u^2) - 2.5
+# (w < 5) and in sqrt(w) - 3 (w >= 5), highest degree first
+_ERFINV_CENTRAL = (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+)
+_ERFINV_TAIL = (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+)
+
+
+def _erfinv32(u: np.ndarray) -> np.ndarray:
+    w = -np.log1p(-u * u)
+    central, tail = w - np.float32(2.5), np.sqrt(w) - np.float32(3.0)
+
+    p, q = np.float32(_ERFINV_CENTRAL[0]), np.float32(_ERFINV_TAIL[0])
+    for a, b in zip(_ERFINV_CENTRAL[1:], _ERFINV_TAIL[1:]):
+        p = np.float32(a) + p * central
+        q = np.float32(b) + q * tail
+
+    return np.where(w < 5, p, q) * u
+
+
+def _threefry2x32(key: tuple[int, int], x0: np.ndarray, x1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    r"""The threefry-2x32 block cipher of JAX's generator (20 rounds)."""
+
+    def rotl(v, d):
+        return (v << np.uint32(d)) | (v >> np.uint32(32 - d))
+
+    ks = [np.uint32(key[0]), np.uint32(key[1])]
+    ks.append(ks[0] ^ ks[1] ^ np.uint32(0x1BD11BDA))
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+
+    return x0, x1
+
+
+def weight_digest(sd: Mapping, decimals: int = 5) -> dict:
+    r"""Per-tensor statistics of a state dict (tensors or arrays): shape, and
+    mean and standard deviation in float64, rounded.
+
+    Complements :func:`check_manifest`: shapes catch missing or mis-mapped
+    keys, the statistics transpositions, truncations and scalings.
+    """
+
+    out = {}
+    for k in sorted(sd):
+        v = sd[k]
+        a = (v.detach().to("cpu", torch.float64).numpy() if isinstance(v, torch.Tensor) else np.asarray(v, dtype=np.float64))
+        out[k] = {
+            "shape": list(a.shape),
+            "mean": round(float(a.mean()), decimals),
+            "std": round(float(a.std()), decimals),
+        }
+    return out
+
+
+def activation_digest(
+    fn: Callable,
+    shapes: Mapping[str, Sequence[int]],
+    times: Sequence[float] = (0.1, 0.5, 0.9),
+    decimals: int = 4,
+) -> list[dict]:
+    r"""End-to-end activation statistics of a denoiser on fixed probes: the
+    port of :func:`azula_tpu.models.utils.activation_digest`, with the same
+    probes.
+
+    `fn(x_t, t)` is evaluated at a few times on one input drawn as the JAX
+    package draws it (`jax.random.normal` of the first half of the split of
+    key 0, float32, on the CPU); each record holds the output's mean,
+    standard deviation, largest magnitude and 8 projections on the second
+    half's normals, scaled by :math:`1 / \sqrt{n}`, rounded.
+
+    Arguments:
+        fn: The probed callable (typically `lambda x, t: denoiser(x, t).mean`).
+        shapes: `{"x": (...)}`, the probe's (batched) shape.
+        times: The times probed.
+        decimals: The rounding.
+    """
+
+    shape = tuple(int(d) for d in shapes["x"])
+    n = math.prod(shape)
+
+    k_x, k_p = _threefry2x32((0, 0), np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
+    x = _jax_normal((int(k_x[0]), int(k_p[0])), shape)
+    proj = _jax_normal((int(k_x[1]), int(k_p[1])), (8, n)) / np.float32(math.sqrt(n))
+
+    x = torch.from_numpy(x)
+    records = []
+    for t in times:
+        y = fn(x, torch.full(shape[:1], t, dtype=torch.float32))
+        y = y.detach().to("cpu", torch.float64).numpy()
+        p = proj.astype(np.float64) @ y.reshape(-1)
+        records.append(
+            {
+                "t": t,
+                "mean": round(float(y.mean()), decimals),
+                "std": round(float(y.std()), decimals),
+                "absmax": round(float(np.abs(y).max()), decimals),
+                "proj": [round(float(v), decimals) for v in p],
+            }
+        )
+    return records
+
+
+def compare_digests(got: Mapping, want: Mapping, rtol: float = 1e-3, atol: float = 1e-3) -> list[str]:
+    r"""The named differences between two digest documents (`weights` and
+    `activations` sections); an empty list is a match."""
+
+    diffs = []
+
+    def close(a, b) -> bool:
+        if isinstance(a, list) and isinstance(b, list):
+            return len(a) == len(b) and all(close(x, y) for x, y in zip(a, b))
+        if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+            return math.isclose(a, b, rel_tol=rtol, abs_tol=atol)
+        return a == b
+
+    for section in ("weights", "activations"):
+        g, w = got.get(section), want.get(section)
+        if (g is None) != (w is None):
+            diffs.append(f"{section}: present in one digest only")
+            continue
+        if g is None:
+            continue
+        if section == "weights":
+            for k in sorted(set(g) | set(w)):
+                if k not in g or k not in w:
+                    diffs.append(f"weights[{k}]: missing on one side")
+                elif not all(close(g[k].get(f), w[k].get(f)) for f in ("shape", "mean", "std")):
+                    diffs.append(f"weights[{k}]: {g[k]} != {w[k]}")
+        else:
+            for i, (a, b) in enumerate(zip(g, w)):
+                for field in ("mean", "std", "absmax", "proj"):
+                    if not close(a[field], b[field]):
+                        diffs.append(f"activations[{i}].{field} (t={a.get('t')}): {a[field]} != {b[field]}")
+            if len(g) != len(w):
+                diffs.append(f"activations: {len(g)} records != {len(w)}")
+
+    return diffs
 
 
 def from_jax_arrays(

@@ -3,9 +3,8 @@ r"""Velocity diffusion model (VDM, crowsonkb v-diffusion) family.
 Port of :mod:`azula_tpu.models.vdm`: the `VelocityDenoiser` (v-prediction,
 :math:`c_\mathrm{time} = \mathrm{atan2}(\sigma, \alpha) \cdot 2 / \pi`)
 over the declarative `VDMUNet` of :mod:`.backbone` or the CLIP-conditioned
-`CC12M1Model` of :mod:`.cc12m`, and `make_model`. The checkpoints of
-`cards.yaml` are read by `load_model`, which waits for checkpoint files in
-the repository.
+`CC12M1Model` of :mod:`.cc12m`, `make_model`, and `load_model`, which
+reads the checkpoints of `cards.yaml`.
 
 References:
     | https://github.com/crowsonkb/v-diffusion-pytorch
@@ -19,6 +18,7 @@ __all__ = [
     "VDMSpec",
     "VDMUNet",
     "VelocityDenoiser",
+    "load_model",
     "make_model",
 ]
 
@@ -28,8 +28,11 @@ import torch
 from torch import Tensor, nn
 
 from ...denoise import Denoiser, DiracPosterior, time_scales
-from ...nn.utils import default_device, get_module_dtype
+from ...hub import download
+from ...nn.utils import default_device, get_module_dtype, skip_init
 from ...noise import Schedule, VPSchedule
+from ..ptread import load_pt
+from ..utils import check_manifest, load_cards, load_device, load_weights
 from .backbone import SPECS, VDMSpec, VDMUNet
 from .cc12m import CC12M1Model
 
@@ -109,3 +112,30 @@ def make_model(
         backbone = VDMUNet(SPECS[model], **factory)
 
     return VelocityDenoiser(backbone)
+
+
+def load_model(name: str, dtype: torch.dtype | None = None, *, device=None) -> VelocityDenoiser:
+    r"""Loads a pretrained v-diffusion denoiser from its checkpoint.
+
+    Port of :func:`azula_tpu.models.vdm.load_model`: the card's file is
+    downloaded (and its hash checked), read by
+    :func:`~azula_tpu_torch.models.ptread.load_pt`, held to the card's
+    manifest, and loaded into a model built by
+    :func:`~azula_tpu_torch.nn.utils.skip_init`.
+
+    Arguments:
+        name: The pretrained model name (see `cards.yaml`).
+        dtype: The dtype of the backbone. Defaults to the checkpoint's.
+        device: The device of the model. Defaults to the card (`'cuda'`).
+    """
+
+    device = load_device(device)
+    card = load_cards(__name__)[name]
+
+    state = load_pt(download(card.url, hash_prefix=card.hash))
+    check_manifest(state, "vdm", name, "model")
+
+    denoiser = skip_init(make_model, **card.config)
+    load_weights(denoiser.backbone, state, device=device, dtype=dtype)
+
+    return denoiser.to(device)

@@ -5,11 +5,15 @@ from __future__ import annotations
 __all__ = [
     "checkpoint",
     "default_device",
+    "get_module_device",
     "get_module_dtype",
     "promote_dtype",
+    "skip_init",
+    "table_device",
 ]
 
 import functools
+import itertools
 import torch
 import torch.utils.checkpoint
 
@@ -22,6 +26,50 @@ def default_device(device=None) -> torch.device:
     caller names another."""
 
     return torch.device("cuda") if device is None else torch.device(device)
+
+
+def table_device(device):
+    r"""The device of a table that a module computes from its configuration
+    and that no checkpoint holds (a non-persistent buffer): `device`, or the
+    CPU when the module is built on the meta device (:func:`skip_init`),
+    where the loader moves it with the loaded parameters."""
+
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("cpu")
+
+    return device
+
+
+def skip_init(ctor: Callable, *args, **kwargs) -> nn.Module:
+    r"""Builds a module without parameter storage and without drawing its
+    initial values: `ctor(*args, device="meta", **kwargs)`.
+
+    Port of :func:`azula_tpu.nn.utils.skip_init`. The module's parameters
+    and persistent buffers are shapes only; fill them with
+    `module.load_state_dict(sd, strict=True, assign=True)`
+    (:func:`azula_tpu_torch.models.utils.load_weights` does, on the target
+    device and dtype). The tables a module computes from its configuration
+    are built on the CPU (:func:`table_device`). `ctor` takes the `device`
+    keyword, as the port's modules and `make_model`s do.
+
+    Example:
+        >>> layer = skip_init(Linear, 3, 5)
+    """
+
+    if "device" in kwargs:
+        raise TypeError("skip_init builds on the meta device; it takes no `device`")
+
+    return ctor(*args, device=torch.device("meta"), **kwargs)
+
+
+def get_module_device(module: nn.Module) -> torch.device | None:
+    r"""Returns the device of a module's first parameter or buffer, or
+    :py:`None` for a module without tensors."""
+
+    for tensor in itertools.chain(module.parameters(), module.buffers()):
+        return tensor.device
+
+    return None
 
 
 def _linspace(start: float, stop: float, num: int, dtype: torch.dtype, device=None) -> Tensor:

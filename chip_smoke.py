@@ -334,8 +334,29 @@ Phases, each of which raises on failure:
    profile, every recorded call against its plain version.
 47. jit_h16: the jit_1.0b_16 card's JiT-H/16 (953M), one batched CFG call at
    batch 8: finite, no launch of ours (heads of 80: the plain route).
-48. the kernels line `{"kernels": [...]}` (the launches of phases 36,
-   39-42 and 44-47 added to their kernels' entries, by path; the wide
+48. one line of phases 43-47's paths: images/s, ms a step or a call, and
+   the phases' time.
+49. checkpoint loading, in a temporary hub directory (`hub.set_hub_dir`,
+   deleted afterwards), with `urllib.request.urlopen` made to fail: (a)
+   ADM `imagenet_256x256` built in float32 on the CPU from a seeded
+   generator, saved with `torch.save` in the guided-diffusion layout under
+   the cache name of the card's URL, and loaded by
+   `adm.load_model(name, dtype=torch.bfloat16)` onto the card: every
+   parameter equal to the source's cast to bf16, the load's peak device
+   memory at most the bf16 parameters plus `LOAD_SLACK_BYTES`, then
+   DDIM-8 at batch 8 with exactly 84 + 17 GroupNorm and 16 attention
+   launches a forward, its trajectory equal to the source model's (moved
+   to the card in bf16) bit for bit; (b) the sd_2 UNet drawn in float16 on
+   the card, written as `unet/diffusion_pytorch_model.fp16.safetensors`
+   by the script's own writer, read by `sd.load_unet` (the helper of
+   `sd.load_model`: the port's safetensors reader, `check_manifest`,
+   `skip_init`) in bf16: every parameter equal, then one batched CFG call
+   at batch 8 on 96 x 96 latents with exactly 61 GroupNorm and 16
+   attention launches (5/5/5/1 at L = 9216/2304/576/144), every recorded
+   call against its plain version. Prints the files' sizes, each load's
+   seconds and GB/s, and the peak memory.
+50. the kernels line `{"kernels": [...]}` (the launches of phases 36,
+   39-42, 44-47 and 49 added to their kernels' entries, by path; the wide
    groups' and the new paths' GroupNorm timings beside the GroupNorm and
    statistics entries), then the result line.
 
@@ -356,19 +377,23 @@ import math
 import pathlib
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from azula_tpu_torch import guidance, sample, train
+from azula_tpu_torch import guidance, hub, sample, train
 from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.guidance import CFGDenoiser, MMPSDenoiser
 from azula_tpu_torch.linalg import IsotropicCovariance
 from azula_tpu_torch.models import adm, edm, eldm, flux, jit, sana, sd, vdm
+from azula_tpu_torch.models.adm.convert import canonicalize_adm_keys
 from azula_tpu_torch.models.autoencoder import AutoencoderKL, canonicalize_vae_keys
 from azula_tpu_torch.models.clip import CLIPTextEncoder, canonicalize_clip_keys
 from azula_tpu_torch.models.flux import FluxDenoiser, FluxTransformer
@@ -542,6 +567,13 @@ SD2_ATTENTION_BY_L = {9216: 5, 2304: 5, 576: 5, 144: 1}
 SD2_HEADS_BY_L = {9216: 5, 2304: 10, 576: 20, 144: 20}
 # the SD VAE's decode: the mid block's 5, two in each of 4 x 3 up resnets, conv_norm_out
 SD_VAE_CALLS = {"group_norm": 30}
+# checkpoint loading (phase 49): ADM-256 from a full-width guided-diffusion
+# .pt, sampled by DDIM-8 at batch 8; the sd_2 UNet from its float16
+# safetensors, one batched CFG call at batch 8 (4 rows of 96 x 96 latents)
+LOAD_ADM_STEPS = 8
+LOAD_SD2_ROWS = 4
+# the load may allocate on the card the bf16 parameters and this much more
+LOAD_SLACK_BYTES = 256 * 2**20
 # sd1_512, the sd_1.5 card's UNet (ARCHS["sd1"]: heads of 40, 80 and 160, the
 # plain route): one batched CFG denoiser call at batch 2 on (2, 64, 64, 4)
 SD1_BATCH = 2
@@ -1154,13 +1186,14 @@ def manifest_parameters(name: str) -> int:
     return sum(math.prod(shape) for shape in shapes.values())
 
 
-def full_width_model(generator: torch.Generator, name: str = "imagenet_256x256"):
+def full_width_model(generator: torch.Generator, name: str = "imagenet_256x256", dtype=torch.bfloat16):
     r"""The ADM denoiser of card `name` (the main path's imagenet_256x256 by
-    default) with random bf16 weights: every layer that the backbone
-    zero-initializes is drawn like the others."""
+    default) with random weights of `dtype` (bf16 by default) on the
+    generator's device: every layer that the backbone zero-initializes is
+    drawn like the others."""
 
     card = load_cards(adm)[name]
-    denoiser = adm.make_model(**card.config, device="cuda", generator=generator)
+    denoiser = adm.make_model(**card.config, device=generator.device, generator=generator)
 
     backbone = denoiser.backbone
     zeroed = [backbone.out_conv]
@@ -1176,7 +1209,7 @@ def full_width_model(generator: torch.Generator, name: str = "imagenet_256x256")
             layer.weight.uniform_(-bound, bound, generator=generator)
             layer.bias.uniform_(-bound, bound, generator=generator)
 
-    backbone.to(torch.bfloat16)
+    backbone.to(dtype)
 
     return denoiser
 
@@ -4955,6 +4988,204 @@ def masked_source(name: str) -> tuple[str, str]:
                                 f"azula_tpu/ops/attention.py:566 (_pallas_attention_batched, bias{lse})")
 
 
+SAFETENSORS_NAMES = {torch.float16: "F16", torch.bfloat16: "BF16", torch.float32: "F32", torch.int64: "I64"}
+
+
+def write_safetensors(path: pathlib.Path, tensors: dict) -> int:
+    r"""Writes `tensors` as a safetensors file (the card's machine has no
+    `safetensors` package): an 8-byte little-endian header length, the JSON
+    header padded with spaces to 8 bytes, the raw bytes in order. Returns the
+    file's size."""
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return 8 + len(raw) + offset
+
+
+def hold_loaded(label: str, module: torch.nn.Module, want: dict, canonicalize=None) -> int:
+    r"""Every parameter of a loaded `module` lies on the card and equals the
+    source's tensor (`want`, by the checkpoint's names) cast to bf16, bit for
+    bit. Returns the number of parameters."""
+
+    names = {k: k for k in module.state_dict()}
+    if canonicalize is not None:
+        names = canonicalize(names)
+    own = module.state_dict()
+    if set(names) != set(want):
+        raise AssertionError(f"{label}: the loaded module's names are not the checkpoint's")
+    for key, value in want.items():
+        got = own[names[key]]
+        if got.device.type != "cuda" or got.dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: {key} is {got.dtype} on {got.device}")
+        if not torch.equal(got, value.to("cuda", torch.bfloat16).reshape(got.shape)):
+            raise AssertionError(f"{label}: {key} differs from the source's")
+    return sum(p.numel() for p in module.parameters())
+
+
+def load_adm256(generator) -> dict:
+    r"""Phase 49 (a): ADM `imagenet_256x256` loaded by `adm.load_model` from a
+    full-width guided-diffusion `.pt` (float32, written from a seeded model
+    built on the CPU) in the hub, bf16 on the card: bitwise parameters, the
+    load's peak device memory, then DDIM-8 at batch 8 with the loaded model
+    and with the source moved to the card, exact launches, equal
+    trajectories."""
+
+    name = "imagenet_256x256"
+    card = load_cards(adm)[name]
+    t0 = time.perf_counter()
+    source = full_width_model(torch.Generator().manual_seed(49), name, dtype=torch.float32)
+    ckpt = canonicalize_adm_keys(source.backbone.state_dict())
+    # the attention's projections are conv1d kernels in the checkpoints
+    ckpt = {k: v[..., None] if k.endswith(("qkv.weight", "proj_out.weight")) else v for k, v in ckpt.items()}
+    path = hub.get_hub_dir() / hub.cache_name(card.url)
+    torch.save(ckpt, path)
+    size = path.stat().st_size
+    log(f"{name}: {sum(v.numel() for v in ckpt.values()):,} float32 parameters built on the CPU and saved, "
+        f"{size / 1e9:.3f} GB, in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    denoiser = adm.load_model(name, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+
+    n = hold_loaded(name, denoiser.backbone, ckpt, canonicalize_adm_keys)
+    limit = 2 * n + LOAD_SLACK_BYTES
+    log(f"{name} loaded in {seconds:.3f} s ({size / seconds / 1e9:.3f} GB/s of the file), {n:,} bf16 parameters "
+        f"on the card equal to the source's; peak device memory of the load {peak / 2**20:.1f} MiB, limit "
+        f"{limit / 2**20:.1f} MiB (the bf16 parameters {2 * n / 2**20:.1f} MiB + {LOAD_SLACK_BYTES / 2**20:.0f})")
+    if peak > limit:
+        raise AssertionError(f"{name}: the load took {peak} bytes on the card, above {limit}")
+    if not torch.equal(denoiser.sigmas.cpu(), source.sigmas):
+        raise AssertionError(f"{name}: the loaded discrete table differs from the source's")
+
+    source.backbone.to("cuda", torch.bfloat16)
+    source.to("cuda")
+    del ckpt
+
+    sampler = DDIMSampler(denoiser, eta=0.0, steps=LOAD_ADM_STEPS)
+    x = sampler.init((BATCH, 256, 256, 3), generator=generator)
+    with torch.inference_mode():
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        y = sampler(x)
+        torch.cuda.synchronize()
+        trajectory = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        want = DDIMSampler(source, eta=0.0, steps=LOAD_ADM_STEPS)(x)
+
+    expected = {k: v * LOAD_ADM_STEPS for k, v in CALLS_PER_FORWARD.items()}
+    log(f"launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{name}: the loaded model's launch counts are not exact")
+    if not bool(torch.isfinite(y).all()) or y.shape != x.shape:
+        raise AssertionError(f"{name}: the loaded model's trajectory is not finite")
+    if torch.equal(y, want):
+        log(f"DDIM-{LOAD_ADM_STEPS} at batch {BATCH}, {trajectory:.3f} s: the loaded model's trajectory equals the "
+            f"source's bit for bit; mean {y.float().mean().item():.4f}, std {y.float().std().item():.4f}")
+    else:
+        _, err = errors(y, want)
+        log(f"DDIM-{LOAD_ADM_STEPS}: the loaded model's trajectory is not the source's bit for bit: rel err "
+            f"{err:.3e} (tol {TOL_TRAJECTORY})")
+        if err > TOL_TRAJECTORY:
+            raise AssertionError(f"{name}: the loaded model's trajectory differs from the source's")
+
+    del denoiser, source, sampler, x, y, want
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": seconds, "gb_s": size / seconds / 1e9, "peak_mib": peak / 2**20}
+
+
+def load_sd2_unet(generator) -> dict:
+    r"""Phase 49 (b): the sd_2 UNet read from a full-width float16
+    `unet/diffusion_pytorch_model.fp16.safetensors` (written from the port's
+    UNet drawn on the card) by `sd.load_unet`, the helper of `sd.load_model`,
+    bf16 on the card: bitwise parameters, then one batched CFG call at batch
+    8 on 96 x 96 latents with exact launches, every recorded call against
+    its plain version."""
+
+    entry = load_cards(sd)["sd_2"]
+    url = f"https://huggingface.co/{entry.repo}/resolve/main/unet/diffusion_pytorch_model.{entry.variant}.safetensors"
+    path = hub.get_hub_dir() / hub.cache_name(url)
+
+    t0 = time.perf_counter()
+    source = sd.make_backbone("sd_2", device="cuda", dtype=torch.float16, generator=generator)
+    ckpt = source.state_dict()
+    size = write_safetensors(path, ckpt)
+    log(f"sd_2 UNet: {sum(v.numel() for v in ckpt.values()):,} float16 parameters drawn on the card and written as "
+        f"safetensors, {size / 1e9:.3f} GB, in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unet = sd.load_unet(hub.download(url), "sd_2", device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = hold_loaded("sd_2 UNet", unet, ckpt)
+    log(f"sd_2 UNet read in {seconds:.3f} s ({size / seconds / 1e9:.3f} GB/s of the file), {n:,} bf16 parameters on "
+        f"the card equal to the source's")
+    del source, ckpt
+    torch.cuda.empty_cache()
+
+    denoiser = CFGDenoiser(sd.StableDenoiser(unet, prediction=entry.config["prediction"]), batched=True)
+    hidden = sd.ARCHS["sd2"]["unet"]["cross_attention_dim"]
+    x = torch.randn((LOAD_SD2_ROWS, SD2_SIDE, SD2_SIDE, 4), generator=generator, device="cuda")
+    cond = {
+        "positive": {"prompt_embeds": torch.randn((LOAD_SD2_ROWS, 77, hidden), generator=generator, device="cuda")},
+        "negative": {"prompt_embeds": torch.randn((1, 77, hidden), generator=generator, device="cuda")},
+        "guidance": SD2_GUIDANCE,
+    }
+    run = one_call("the loaded sd_2 UNet", denoiser, x, torch.tensor(0.5, device="cuda"), cond, SD2_CALLS_PER_FORWARD)
+    calls, affine = run["calls"]
+    if dict(by_length(calls)) != SD2_ATTENTION_BY_L:
+        raise AssertionError(f"the loaded sd_2 UNet's attention calls by L are not {SD2_ATTENTION_BY_L}")
+
+    del unet, denoiser, x, cond
+    torch.cuda.empty_cache()
+    check_recorded("the loaded sd_2 UNet, one call under batched CFG (batch 8)", fit_attention(calls), affine, seed=490)
+    return {"launches": run["launches"], "seconds": seconds, "gb_s": size / seconds / 1e9, "ms": run["ms"]}
+
+
+def checkpoint_loading(generator) -> dict:
+    r"""Phase 49: both loads in a temporary hub directory, which is deleted
+    afterwards; no download may reach the network."""
+
+    reached = []
+
+    def offline(url, *args, **kwargs):
+        reached.append(url)
+        raise AssertionError(f"phase 49 reached the network: {url}")
+
+    previous, real_urlopen = hub._HUB_DIR, urllib.request.urlopen
+    urllib.request.urlopen = offline
+    try:
+        with tempfile.TemporaryDirectory(prefix="azula-hub-") as directory:
+            hub.set_hub_dir(directory)
+            adm256 = load_adm256(generator)
+            sd2 = load_sd2_unet(generator)
+    finally:
+        hub._HUB_DIR = previous
+        urllib.request.urlopen = real_urlopen
+
+    if reached:
+        raise AssertionError(f"phase 49 reached the network: {reached}")
+    log("no download reached the network")
+    return {"adm256": adm256, "sd2_unet": sd2}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
@@ -5305,12 +5536,21 @@ def main() -> None:
 
     log(f"== 47. jit_h16: {JIT_H_CARD} (JiT-H/16), bf16, one batched CFG call at batch {JIT_BATCH}")
     jit_h = jit_h_call(generator)
+    log("== 48. the v-diffusion and JiT paths")
     log(f"new paths: cc12m_cfg256 {cc12m['images_s']:.4f} images/s, {cc12m['ms_step']:.2f} ms a step; "
         f"vdm_yfcc512L {vdm_cards[YFCC_CARD]['ms']:.2f} ms a call; vdm_in128 {vdm_cards[IN128_CARD]['ms']:.2f} ms a "
         f"call; jit_l16_cfg {jit_l['images_s']:.4f} images/s, {jit_l['ms_step']:.2f} ms a step; jit_h16 "
         f"{jit_h['ms']:.2f} ms a call; phases 43-47 took {time.perf_counter() - t43:.1f} s")
 
-    log("== 48. result")
+    log("== 49. checkpoint loading: ADM-256 from a full-width .pt, the sd_2 UNet from its fp16 safetensors, "
+        "through the hub, bf16 on the card")
+    t49 = time.perf_counter()
+    loaded = checkpoint_loading(generator)
+    log(f"new paths: imagenet_256x256 loaded at {loaded['adm256']['gb_s']:.3f} GB/s (peak "
+        f"{loaded['adm256']['peak_mib']:.1f} MiB), the sd_2 UNet read at {loaded['sd2_unet']['gb_s']:.3f} GB/s; "
+        f"{smi.stdout.strip().splitlines()[0]}; phase 49 took {time.perf_counter() - t49:.1f} s")
+
+    log("== 50. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -5410,8 +5650,9 @@ def main() -> None:
         })
 
     # the launches of the text-to-image path (phase 36), of the SD, EDM and
-    # EDM2 paths (phases 39-42) and of the v-diffusion and JiT paths
-    # (phases 44-47) beside each kernel's own main path's; the FLUX.1-dev VAE
+    # EDM2 paths (phases 39-42), of the v-diffusion and JiT paths (phases
+    # 44-47) and of the loaded models (phase 49) beside each kernel's own
+    # main path's; the FLUX.1-dev VAE
     # decode's GroupNorm calls timed as phase 3 times ADM's; the wide groups
     # of phases 3 and 23 (one call each) and the GroupNorm calls of one
     # cc12m_cfg256 and one vdm_yfcc512L call (each at its count)
@@ -5419,6 +5660,7 @@ def main() -> None:
         "flux_text_to_image": t2i, "sd2_768": sd2, "sd1_512": sd1, "edm64": edm64, "edm2_xxl": edm2,
         "cc12m_cfg256": cc12m, "vdm_yfcc512L": vdm_cards[YFCC_CARD], "vdm_in128": vdm_cards[IN128_CARD],
         "jit_l16_cfg": jit_l, "jit_h16": jit_h,
+        "load_adm256": loaded["adm256"], "load_sd2_unet": loaded["sd2_unet"],
     }
     for entry in kernels:
         extra = {path: run["launches"][entry["name"]] for path, run in paths.items() if run["launches"].get(entry["name"])}
