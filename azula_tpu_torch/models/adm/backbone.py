@@ -22,6 +22,7 @@ __all__ = [
     "timestep_embedding",
 ]
 
+import functools
 import math
 import torch
 import torch.nn.functional as F
@@ -30,6 +31,7 @@ from collections.abc import Sequence
 from torch import Tensor, nn
 
 from ...nn.layers import Conv, Dropout, GroupNorm, Linear
+from ...nn.utils import checkpoint
 from ...ops.attention import dot_product_attention
 from ...ops.norm import group_norm_silu
 
@@ -319,8 +321,10 @@ class ADMUNet(nn.Module):
         use_scale_shift_norm: FiLM-style conditioning.
         resblock_updown: Residual blocks for up/downsampling.
         use_new_attention_order: QKV channel order (see :class:`ADMAttentionBlock`).
-        checkpointing: Recompute each stage in the backward pass (training;
-            not ported yet, must be False).
+        checkpointing: Recompute each input, middle and output stage in the
+            backward pass (training), through
+            :func:`azula_tpu_torch.nn.utils.checkpoint`, which replays the
+            dropout's generator.
         device: The device of the parameters. Defaults to the card.
         dtype: The dtype of the parameters.
         generator: The generator of the initial parameters (the JAX `key`).
@@ -354,13 +358,12 @@ class ADMUNet(nn.Module):
 
         if device is None:
             device = torch.device("cuda")
-        if checkpointing:
-            raise NotImplementedError("checkpointing is for training, not ported yet (ROADMAP A16)")
         if num_heads_upsample == -1:
             num_heads_upsample = num_heads
 
         self.model_channels = model_channels
         self.num_classes = num_classes
+        self.checkpointing = checkpointing
 
         attention_resolutions = set(attention_resolutions)
         factory = dict(device=device, dtype=dtype, generator=generator)  # noqa: C408
@@ -462,7 +465,8 @@ class ADMUNet(nn.Module):
             timesteps: Timestep indices (fractional ok), with shape :math:`(B,)`
                 or :math:`()`.
             y: Class labels, with shape :math:`(B,)` (class-conditional only).
-            generator: Enables dropout (training, not ported yet).
+            generator: The generator of the dropout, which it enables
+                (training; the JAX `key`).
 
         Returns:
             The output tensor, with shape :math:`(B, H, W, C_o)`.
@@ -480,10 +484,15 @@ class ADMUNet(nn.Module):
         if self.num_classes is not None:
             emb = emb + self.label_emb[y].to(emb.dtype)
 
-        def run(layers, h):
+        def stage(layers, h, emb, generator=None):
             for layer in layers:
                 h = layer(h, emb, generator=generator)
             return h
+
+        def run(layers, h):
+            if self.checkpointing and torch.is_grad_enabled():
+                return checkpoint(functools.partial(stage, layers))(h, emb, generator=generator)
+            return stage(layers, h, emb, generator)
 
         hs = []
         h = x

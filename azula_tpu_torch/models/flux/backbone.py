@@ -217,7 +217,7 @@ class JointAttention(nn.Module):
         self.to_add_out = Linear(dim, dim, **factory)
 
     def forward(self, img: Tensor, txt: Tensor, cos: Tensor, sin: Tensor) -> tuple[Tensor, Tensor]:
-        B, L, C = img.shape
+        B, L, _ = img.shape
         Lt = txt.shape[1]
         H = self.heads
 
@@ -236,7 +236,7 @@ class JointAttention(nn.Module):
 
         # RMS-normalized q and k bound the logits: the max-free softmax
         a = dot_product_attention(q, k, v, max_free=True)
-        a = a.transpose(1, 2).reshape(B, Lt + L, C)
+        a = a.transpose(1, 2).reshape(B, Lt + L, -1)  # -1: a tensor-parallel rank's heads
 
         return self.to_out[0](a[:, Lt:]), self.to_add_out(a[:, :Lt])
 
@@ -287,7 +287,7 @@ class SingleAttention(nn.Module):
         self.norm_k = RMSNorm(dim // heads, **factory)
 
     def forward(self, x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
-        B, L, C = x.shape
+        B, L, _ = x.shape
         H = self.heads
 
         q = apply_rope(self.norm_q(_split_heads(self.to_q(x), H)), cos, sin)
@@ -297,7 +297,7 @@ class SingleAttention(nn.Module):
         # RMS-normalized q and k: the max-free softmax
         a = dot_product_attention(q, k, v, max_free=True)
 
-        return a.transpose(1, 2).reshape(B, L, C)
+        return a.transpose(1, 2).reshape(B, L, -1)
 
 
 class FluxSingleTransformerBlock(nn.Module):

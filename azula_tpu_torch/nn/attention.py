@@ -40,8 +40,14 @@ class MultiheadSelfAttention(nn.Module):
         implementation: :py:`None` or `'auto'` (the fused kernel where the
             gate admits the input, else the attention of
             :func:`~azula_tpu_torch.ops.attention.dot_product_attention`),
-            `'kernel'` or `'plain'` (the unfused route, forwarded). The
-            sequence-parallel routes `'ring'` and `'ulysses'` are not ported.
+            `'kernel'` or `'plain'` (the unfused route, forwarded), or the
+            sequence-parallel routes `'ring'` and `'ulysses'`
+            (:mod:`azula_tpu_torch.parallel.ring`,
+            :mod:`~azula_tpu_torch.parallel.ulysses`), for inputs that hold
+            this rank's tokens of a sequence split over `ring_axis`.
+        ring_axis: The ranks that split the sequence under `'ring'` or
+            `'ulysses'`: a process group, the name of a dim of the current
+            mesh, or :py:`None` for all ranks.
         device: The device of the parameters. Defaults to the card (`'cuda'`).
         dtype: The dtype of the parameters. Defaults to float32.
         generator: The generator of the initial parameters (the JAX `key`).
@@ -57,6 +63,7 @@ class MultiheadSelfAttention(nn.Module):
         rope: bool = False,
         dropout: float | None = None,
         implementation: str | None = None,
+        ring_axis=None,
         *,
         device=None,
         dtype=None,
@@ -66,11 +73,7 @@ class MultiheadSelfAttention(nn.Module):
 
         if channels % attention_heads:
             raise ValueError(f"{channels} channels do not split into {attention_heads} heads")
-        if implementation in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"sequence-parallel attention ('{implementation}') is not ported yet (ROADMAP A20)"
-            )
-        if implementation not in (None, "auto", "kernel", "plain"):
+        if implementation not in (None, "auto", "kernel", "plain", "ring", "ulysses"):
             raise ValueError(f"unknown attention implementation '{implementation}'")
 
         device = default_device(device)
@@ -101,6 +104,7 @@ class MultiheadSelfAttention(nn.Module):
         self.heads = attention_heads
         self.dropout = 0.0 if dropout is None else dropout
         self.implementation = implementation
+        self.ring_axis = ring_axis
 
     def forward(
         self,
@@ -146,15 +150,41 @@ class MultiheadSelfAttention(nn.Module):
             theta = theta.unflatten(-1, (self.heads, -1)).transpose(-3, -2)
             q, k = apply_rope(q, k, theta)
 
-        y = dot_product_attention(
-            q,
-            k,
-            v,
-            mask=mask,
-            dropout_rate=self.dropout if generator is not None else 0.0,
-            generator=generator,
-            implementation=self.implementation,
-        )
+        if self.implementation == "ring":
+            # masks are cut to the blocks of the ring; dropout is refused, as
+            # its weights would need a counter scheme shared with the
+            # backward's recomputation across the ring's steps
+            if generator is not None and self.dropout > 0:
+                raise NotImplementedError(
+                    "ring attention does not support dropout; use implementation='ulysses' for "
+                    "sequence-parallel dropout training"
+                )
+
+            from ..parallel.ring import ring_attention_local
+
+            y = ring_attention_local(q, k, v, axis=self.ring_axis, mask=mask)
+        elif self.implementation == "ulysses":
+            from ..parallel.ulysses import ulysses_attention_local
+
+            y = ulysses_attention_local(
+                q,
+                k,
+                v,
+                axis=self.ring_axis,
+                mask=mask,
+                dropout_rate=self.dropout if generator is not None else 0.0,
+                generator=generator,
+            )
+        else:
+            y = dot_product_attention(
+                q,
+                k,
+                v,
+                mask=mask,
+                dropout_rate=self.dropout if generator is not None else 0.0,
+                generator=generator,
+                implementation=self.implementation,
+            )
 
         y = y.transpose(-3, -2).flatten(-2)  # (*, L, H C)
 

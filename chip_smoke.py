@@ -355,10 +355,44 @@ Phases, each of which raises on failure:
    attention launches (5/5/5/1 at L = 9216/2304/576/144), every recorded
    call against its plain version. Prints the files' sizes, each load's
    seconds and GB/s, and the peak memory.
-50. the kernels line `{"kernels": [...]}` (the launches of phases 36,
-   39-42, 44-47 and 49 added to their kernels' entries, by path; the wide
-   groups' and the new paths' GroupNorm timings beside the GroupNorm and
-   statistics entries), then the result line.
+50. ADM-256's checkpointed backward: `imagenet_256x256` in bf16 at batch
+   8, the parameter gradients of a fixed scalar of the output at t = 0.5
+   without and with `checkpointing=True` (each after a warm-up backward):
+   within `TOL_CKPT_GRAD` of each other; the same forward launches, and
+   the checkpointed backward's exactly the plain backward's plus the
+   forward's but for the final GroupNorm; peak memory, forward and
+   backward time of each, and the warm-up's gradients against the timed
+   run's (the run-to-run spread); planted faults, `emb` cut from the graph
+   in the middle stage and in every stage, the latter above
+   `TOL_CKPT_GRAD`.
+51. rank 0's loops of a 4-rank ring (`parallel.ring.ring_forward` and
+   `ring_backward`, which `ring_attention` runs) over FLUX.1-dev's joint
+   sequence (1, 24, 4608, 128) in 4 blocks of 1152, bf16 and float32,
+   driven alone in one process (`LoneRank`): o, the LSE, dq, and the dk
+   and dv rank 0 passes on against the whole-sequence LSE forward and
+   backward kernels (the cotangent zero outside rank 0's rows) and their
+   plain versions (`TOL_RING`, `TOL_RING_BWD`, `TOL_RING_LSE`); exactly
+   4 + 4 launches; timed beside the whole-sequence kernels, and the 4
+   launches without the merge.
+52. the parallel layer at world size 1 under `nccl` (a `tcp://localhost`
+   rendezvous; no other backend is tried): `sample_sharded` of ADM-256
+   DDIM-8 at batch 8 equal to `sampler(x1)` bit for bit with exactly 101 +
+   16 launches a forward; a sharded checkpoint (FSDP placements) of
+   ADM-256's backbone saved and loaded into another draw bit for bit;
+   Ulysses attention through a real `all_to_all_single` at the ring shape
+   equal to `dot_product_attention` (its gradients within `TOL_BWD_TC`);
+   `ring_attention` forward and backward at that shape, one LSE forward
+   and one backward launch, against `dot_product_attention` under grad
+   (`TOL_BWD_TC`); a float32 dit32 forward and backward with every
+   `MultiheadSelfAttention` on `'ring'`, then `'ulysses'`, against
+   `implementation='kernel'` (`TOL_SP`, `TOL_SP_GRAD`; 12 + 12 launches
+   each); a TP-split dit32 forward with its 12 fused MSA launches within
+   `TOL_TP_BF16` of the unsplit one. Phases 50-52 print their time, and
+   every line the card's name and power limit.
+53. the kernels line `{"kernels": [...]}` (the launches of phases 36,
+   39-42, 44-47 and 49-52 added to their kernels' entries, by path; the
+   wide groups' and the new paths' GroupNorm timings beside the GroupNorm
+   and statistics entries), then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -393,6 +427,7 @@ from azula_tpu_torch.denoise import KarrasDenoiser
 from azula_tpu_torch.guidance import CFGDenoiser, MMPSDenoiser
 from azula_tpu_torch.linalg import IsotropicCovariance
 from azula_tpu_torch.models import adm, edm, eldm, flux, jit, sana, sd, vdm
+from azula_tpu_torch.models.adm import backbone as adm_backbone
 from azula_tpu_torch.models.adm.convert import canonicalize_adm_keys
 from azula_tpu_torch.models.autoencoder import AutoencoderKL, canonicalize_vae_keys
 from azula_tpu_torch.models.clip import CLIPTextEncoder, canonicalize_clip_keys
@@ -832,6 +867,42 @@ TOL_TMPD_SLICE = 4e-4
 
 # the port's checkpoint manifests: each card's parameter names and shapes
 # (data, read as JSON)
+# the parallel layer: ADM-256's checkpointed backward at t = 0.5; the
+# ring step over FLUX.1-dev's joint sequence in blocks; world size 1 under nccl
+CKPT_TIME = 0.5
+# checkpointed against plain backward, every parameter's gradient, of the
+# parameter's largest: the recomputed forward is the forward, so what differs
+# is the order of the bf16 backward's float32 sums (dq's atomics, which
+# change from run to run) and the roundings to bf16 after them, carried back
+# through the network. Recorded on the H100 (PERF.md §6): checkpointed
+# against plain 1.57e-2 to 2.63e-2 in three runs, two plain backwards
+# 1.58e-2 to 2.06e-2; the bound is 1.5x the largest reading. Phase 50 reads
+# planted faults against it: every stage's emb cut from the graph must
+# exceed it (one stage's share lies under the noise; the CPU tests hold
+# float32 gradients to jax.grad's at 1e-4)
+TOL_CKPT_GRAD = 4e-2
+RING_SHAPE = FLUX_SHAPE
+RING_BLOCKS = 4
+# the ring step over the blocks against the whole-sequence kernel: in bf16
+# each block's output is rounded to bf16 before the float32 merge, and each
+# block's dq before the sum (the whole rounds once), a few roundings of 2^-8;
+# in float32 sums in another order. LSE: float32 sums in another order
+TOL_RING = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL_RING_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_RING_LSE = 1e-4
+PARALLEL_STEPS = 8
+# the MSA's 'ring' and 'ulysses' dispatch at world size 1 against the
+# attention's own route, float32: the same kernels on the same inputs, the
+# backward's sums in another order
+SP_BATCH = 8
+TOL_SP = 1e-5
+TOL_SP_GRAD = 1e-4
+# a row-parallel Linear adds its bias after the all-reduce, to its product
+# rounded to bf16, where the unsplit Linear adds it before that rounding: one
+# more rounding (2^-9) in each of dit32's 12 FFN outputs, carried to the
+# denoiser's output; of max |output|
+TOL_TP_BF16 = 2e-2
+
 MANIFESTS = pathlib.Path(__file__).resolve().parent / "azula_tpu_torch" / "models" / "manifests"
 
 # attention shapes off the main path that phase 3 also checks: a ragged
@@ -848,6 +919,10 @@ TINY = dict(  # noqa: C408  the tiny ADM of tests/test_torch_adm.py, with the ca
     resblock_updown=True,
     use_scale_shift_norm=True,
 )
+
+
+# the card's name and power limit, as nvidia-smi gives them (phase 1)
+SMI = "not read"
 
 
 def log(*args) -> None:
@@ -5186,6 +5261,427 @@ def checkpoint_loading(generator) -> dict:
     return {"adm256": adm256, "sd2_unet": sd2}
 
 
+def adm_checkpointed_backward(generator) -> dict:
+    r"""Phase 50: ADM-256's parameter gradients of a fixed scalar (the output
+    mean's inner product with a fixed random tensor) at t = 0.5, without and
+    with `checkpointing=True`, each after an untimed warm-up: the gradients
+    agree within `TOL_CKPT_GRAD`, the forward's launches are the same, and
+    the checkpointed backward launches the forward's kernels once more, but
+    for the final GroupNorm (outside the stages). Prints each way's peak
+    memory, forward and backward time and launches; the warm-up's gradients
+    against the timed run's show the run-to-run spread. Two planted faults
+    are read: the middle stage's `emb` cut from the graph (its share of the
+    time embedding's gradient is under the bf16 noise) and every stage's,
+    which must read above the bound."""
+
+    denoiser = full_width_model(generator)
+    backbone = denoiser.backbone
+    x = torch.randn((BATCH, 256, 256, 3), generator=generator, device="cuda")
+    w = torch.randn((BATCH, 256, 256, 3), generator=generator, device="cuda")
+    t = torch.tensor(CKPT_TIME, device="cuda")
+
+    # the launches outside the checkpointed stages: the final GroupNorm
+    h = torch.randn((BATCH, 256, 256, backbone.out_norm.weight.shape[0]), device="cuda", dtype=torch.bfloat16)
+    _build.LAUNCHES.clear()
+    backbone.out_norm(h.requires_grad_())
+    outside = collections.Counter(_build.LAUNCHES)
+    del h
+
+    def run() -> dict:
+        backbone.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss = (denoiser(x, t).mean.float() * w).sum()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forward = collections.Counter(_build.LAUNCHES)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return {
+            "forward_ms": (t1 - t0) * 1e3,
+            "backward_ms": (t2 - t1) * 1e3,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "forward": forward,
+            "launches": collections.Counter(_build.LAUNCHES),
+            # a parameter that the backward did not reach has a zero gradient
+            "grads": {
+                name: torch.zeros_like(p) if p.grad is None else p.grad.clone() for name, p in backbone.named_parameters()
+            },
+        }
+
+    runs = {}
+    for ckpt in (False, True):
+        backbone.checkpointing = ckpt
+        warm = run()
+        runs[ckpt] = run()
+        runs[ckpt]["spread"] = max(
+            errors(g, warm["grads"][name])[1] for name, g in runs[ckpt]["grads"].items() if g.abs().max() > 0
+        )
+        del warm
+
+    # planted faults: stages that take `emb` cut from the graph (what a
+    # reentrant checkpoint does to a captured input), so their share of the
+    # time embedding's gradients is lost; the middle stage's alone, and
+    # every stage's
+    real = adm_backbone.checkpoint
+
+    def planted(cut_all: bool) -> dict:
+        def cut(f):
+            wrapped = real(f)
+            if not cut_all and f.args[0] is not backbone.middle_block:
+                return wrapped
+            return lambda h, emb, generator=None: wrapped(h, emb.detach(), generator=generator)
+
+        adm_backbone.checkpoint = cut
+        try:
+            return run()["grads"]
+        finally:
+            adm_backbone.checkpoint = real
+
+    plain, ckpt = runs[False], runs[True]
+
+    def worst_of(grads):
+        return max((errors(g, plain["grads"][name])[1], name) for name, g in grads.items() if plain["grads"][name].abs().max() > 0)
+
+    worst = worst_of(ckpt["grads"])
+    fault_middle, fault_all = worst_of(planted(False)), worst_of(planted(True))
+    for label, r in (("plain", plain), ("checkpointed", ckpt)):
+        log(f"ADM-256 backward, {label}: forward {r['forward_ms']:.1f} ms, backward {r['backward_ms']:.1f} ms, peak "
+            f"{r['peak_gib']:.2f} GiB above the parameters, launches {dict(r['launches'])} (forward "
+            f"{dict(r['forward'])}); run-to-run spread of the gradients {r['spread']:.3e}; {SMI}")
+    log(f"checkpointed against plain gradients: worst {worst[0]:.3e} of max |grad| ({worst[1]}), tol {TOL_CKPT_GRAD}; "
+        f"planted faults, emb cut from the graph in the middle stage {fault_middle[0]:.3e} ({fault_middle[1]}), in "
+        f"every stage {fault_all[0]:.3e} ({fault_all[1]}); "
+        f"peak {ckpt['peak_gib'] / plain['peak_gib']:.3f} of the plain backward's, backward time "
+        f"{ckpt['backward_ms'] / plain['backward_ms']:.3f} of it; {SMI}")
+
+    if fault_all[0] <= TOL_CKPT_GRAD:
+        raise AssertionError("TOL_CKPT_GRAD does not separate checkpointed stages that drop emb's gradient")
+    if worst[0] > TOL_CKPT_GRAD:
+        raise AssertionError("the checkpointed ADM-256 gradients disagree with the plain ones")
+    if ckpt["forward"] != plain["forward"]:
+        raise AssertionError("checkpointing changed the forward's launches")
+    recompute = plain["forward"] - outside
+    if ckpt["launches"] != plain["launches"] + recompute:
+        raise AssertionError(f"expected the checkpointed backward to launch {dict(plain['launches'] + recompute)}")
+    if ckpt["peak_gib"] >= plain["peak_gib"]:
+        raise AssertionError("checkpointing did not lower the backward's peak memory")
+
+    backbone.checkpointing = False
+    return {
+        "launches": dict(ckpt["launches"]),
+        "plain": {k: v for k, v in plain.items() if k != "grads"},
+        "checkpointed": {k: v for k, v in ckpt.items() if k != "grads"},
+    }
+
+
+def check_ring_step(generator) -> dict:
+    r"""Phase 51: rank 0's loops of a ring of `RING_BLOCKS` ranks over
+    FLUX.1-dev's joint sequence (`parallel.ring.ring_forward` and
+    `ring_backward`, the loops that `ring_attention` runs), driven alone in
+    one process (`LoneRank`: the K/V blocks it receives are handed over, the
+    other ranks add no gradients): its o and LSE against the whole-sequence
+    LSE kernel's rows of rank 0 and against the plain version, then dq, and
+    the dk, dv rank 0 passes on, against the whole-sequence backward kernel
+    and its plain version with the cotangent zero outside rank 0's rows.
+    Timed beside the whole-sequence kernels (4x the ring's work); the timed
+    loops pass no bytes."""
+
+    from azula_tpu_torch.parallel.ring import LoneRank, ring_backward, ring_forward
+
+    B, H, L, D = RING_SHAPE
+    Lb = L // RING_BLOCKS
+    scale = 1 / math.sqrt(D)
+    out = {"launches": collections.Counter()}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g = (torch.randn(RING_SHAPE, generator=generator, device="cuda", dtype=dtype) for _ in range(4))
+        q0 = q[:, :, :Lb].contiguous()
+        g0 = g[:, :, :Lb].contiguous()
+        blocks = [torch.stack([k[:, :, j * Lb : (j + 1) * Lb], v[:, :, j * Lb : (j + 1) * Lb]]) for j in range(RING_BLOCKS)]
+
+        def forward():
+            o, lse = ring_forward(q0, blocks[0], scale, None, "one", 0, RING_BLOCKS, LoneRank(blocks, 0))
+            return o.to(dtype), lse
+
+        def backward(o, lse, ring=None):
+            ring = LoneRank(blocks, 0) if ring is None else ring
+            return ring_backward(q0, blocks[0], o, lse, g0, scale, None, "one", 0, RING_BLOCKS, ring)
+
+        _build.LAUNCHES.clear()
+        o, lse = forward()
+        ring = LoneRank(blocks, 0)
+        dq, _ = backward(o, lse, ring)
+        launches = collections.Counter(_build.LAUNCHES)
+        if launches != {"attention_fwd_lse": RING_BLOCKS, "attention_bwd": RING_BLOCKS}:
+            raise AssertionError(f"the ring step launched {dict(launches)}")
+        out["launches"] += launches
+        dq = dq.to(dtype)  # as ring_attention returns them
+        dkv = torch.cat(ring.block_grads(), dim=3).to(dtype)
+        dk, dv = dkv[0], dkv[1]
+
+        g_rows = torch.zeros_like(g)
+        g_rows[:, :, :Lb] = g0
+        o_w, lse_w = attention._attention_lse_kernel(q, k, v, scale)
+        dq_w, dk_w, dv_w = attention._attention_bwd_kernel(q, k, v, o_w, lse_w, g_rows, scale)
+        o_p, lse_p = attention._attention_lse_plain(q, k, v, scale)
+        dq_p, dk_p, dv_p = attention._attention_bwd_plain(q, k, v, o_p, lse_p, g_rows, scale)
+
+        checks = []
+        for label, got, kernel, plain, tol in (
+            ("o", o, o_w[:, :, :Lb], o_p[:, :, :Lb], TOL_RING[dtype]),
+            ("dq", dq, dq_w[:, :, :Lb], dq_p[:, :, :Lb], TOL_RING_BWD[dtype]),
+            ("dk", dk, dk_w, dk_p, TOL_RING_BWD[dtype]),
+            ("dv", dv, dv_w, dv_p, TOL_RING_BWD[dtype]),
+        ):
+            e_kernel, e_plain = errors(got, kernel)[1], errors(got, plain)[1]
+            checks.append(f"{label} {e_kernel:.2e} / {e_plain:.2e}")
+            if max(e_kernel, e_plain) > tol:
+                raise AssertionError(f"the ring step's {label} disagrees with the whole sequence's in {dtype}")
+        e_lse = max(errors(lse, lse_w[:, :, :Lb])[0], errors(lse, lse_p[:, :, :Lb])[0])
+        if e_lse > TOL_RING_LSE:
+            raise AssertionError(f"the ring step's log-sum-exp disagrees with the whole sequence's in {dtype}")
+        del o_p, lse_p, dq_p, dk_p, dv_p
+
+        ring_fwd = elapsed_ms(forward, reps=10)
+        launches_only = elapsed_ms(lambda: [attention._attention_lse_kernel(q0, kv[0], kv[1], scale) for kv in blocks], reps=10)
+        ring_bwd = elapsed_ms(lambda: backward(o, lse), reps=10)
+        whole_fwd = elapsed_ms(lambda: attention._attention_lse_kernel(q, k, v, scale), reps=10)
+        whole_bwd = elapsed_ms(lambda: attention._attention_bwd_kernel(q, k, v, o_w, lse_w, g_rows, scale), reps=10)
+        log(f"ring step {dtype}, {RING_BLOCKS} blocks of {tuple(q0.shape)}: relative errors against the whole-sequence "
+            f"kernel / plain version: {', '.join(checks)}, LSE {e_lse:.2e} absolute; rank 0's ring forward "
+            f"{ring_fwd:.3f} ms ({launches_only:.3f} ms of it the {RING_BLOCKS} launches without the merge), backward "
+            f"{ring_bwd:.3f} ms; the whole sequence ({RING_BLOCKS}x the work) forward "
+            f"{whole_fwd:.3f} ms, backward {whole_bwd:.3f} ms; ring x {RING_BLOCKS} / whole: forward "
+            f"{RING_BLOCKS * ring_fwd / whole_fwd:.3f}, backward {RING_BLOCKS * ring_bwd / whole_bwd:.3f}; {SMI}")
+        out[str(dtype)] = {
+            "forward_ms": ring_fwd, "launches_ms": launches_only, "backward_ms": ring_bwd,
+            "whole_forward_ms": whole_fwd, "whole_backward_ms": whole_bwd,
+        }
+        del q, k, v, g, g_rows, o_w, lse_w, dq_w, dk_w, dv_w, blocks, dkv, ring
+        torch.cuda.empty_cache()
+
+    out["launches"] = dict(out["launches"])
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def world_size_one(generator) -> dict:
+    r"""Phase 52: the parallel layer at world size 1 under `nccl` (no other
+    backend is tried): (a) `sample_sharded` of ADM-256 DDIM-8 in bf16 at
+    batch 8 against `sampler(x1)` bit for bit, with exactly 101 + 16
+    launches a forward; (b) Ulysses attention through a real
+    `all_to_all_single` at the ring shape, against `dot_product_attention`
+    bit for bit, forward and under grad; (c) a TP-split dit32 forward with
+    its 12 fused MSA launches, against the unsplit forward within
+    `TOL_TP_BF16`;
+    (d) a sharded checkpoint (FSDP placements) of ADM-256's backbone saved
+    and loaded into another draw, bit for bit; (e) `ring_attention` forward
+    and backward at the ring shape, one LSE forward and one backward launch,
+    against `dot_product_attention`; (f) a float32 dit32 forward and
+    backward with every `MultiheadSelfAttention` on `'ring'`, then
+    `'ulysses'`, against `implementation='kernel'`."""
+
+    import torch.distributed as dist
+
+    from azula_tpu_torch import parallel
+    from azula_tpu_torch.utils.checkpoint import load_checkpoint_sharded, save_checkpoint_sharded
+
+    parallel.initialize_distributed(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0, timeout=120
+    )
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the process group runs {dist.get_backend()}, not nccl")
+        mesh = parallel.make_mesh(device="cuda")
+        out = {"launches": collections.Counter()}
+
+        # (a) sample_sharded
+        denoiser = full_width_model(generator)
+        sampler = DDIMSampler(denoiser, eta=0.0, steps=PARALLEL_STEPS)
+        shape = (BATCH, 256, 256, 3)
+        with torch.inference_mode():
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            y = parallel.sample_sharded(sampler, shape, torch.Generator(device="cuda").manual_seed(11), mesh)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = collections.Counter(_build.LAUNCHES)
+            y = parallel.gather_batch(y, mesh)
+            want = sampler(sampler.init(shape, generator=torch.Generator(device="cuda").manual_seed(11)))
+        expected = {name: n * PARALLEL_STEPS for name, n in CALLS_PER_FORWARD.items()}
+        log(f"sample_sharded, ADM-256 DDIM-{PARALLEL_STEPS} at batch {BATCH}, world size 1: {seconds:.3f} s, "
+            f"launches {dict(launches)}, expected {expected}; equal to sampler(x1): {torch.equal(y, want)}; {SMI}")
+        if launches != expected or not torch.equal(y, want):
+            raise AssertionError("sample_sharded at world size 1 is not sampler(x1) on the kernels")
+        out["launches"] += launches
+        out["sample_sharded_s"] = seconds
+
+        # (d) the sharded checkpoint, of the same backbone
+        split = parallel.shard_module_fsdp(denoiser.backbone, mesh)
+        other = parallel.shard_module_fsdp(full_width_model(torch.Generator(device="cuda").manual_seed(12)).backbone, mesh)
+        del denoiser, sampler, y, want
+        nbytes = sum(p.numel() * p.element_size() for p in split.parameters())
+        with tempfile.TemporaryDirectory() as directory:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint_sharded(pathlib.Path(directory) / "adm256", split, mesh=mesh)
+            t1 = time.perf_counter()
+            load_checkpoint_sharded(pathlib.Path(directory) / "adm256", other, mesh=mesh)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        equal = all(torch.equal(a, b) for a, b in zip(split.state_dict().values(), other.state_dict().values(), strict=True))
+        log(f"sharded checkpoint of ADM-256's backbone ({nbytes / 1e9:.3f} GB bf16, "
+            f"{sum(hasattr(p, 'placement') for p in split.parameters())} split parameters): saved in {t1 - t0:.2f} s "
+            f"({nbytes / 1e9 / (t1 - t0):.3f} GB/s), loaded in {t2 - t1:.2f} s ({nbytes / 1e9 / (t2 - t1):.3f} GB/s); "
+            f"equal: {equal}; {SMI}")
+        if not equal:
+            raise AssertionError("the sharded checkpoint did not round-trip bit for bit")
+        out["checkpoint_s"] = (t1 - t0, t2 - t1)
+        del split, other
+        torch.cuda.empty_cache()
+
+        # (b) Ulysses through all_to_all_single at the ring shape
+        q, k, v = (torch.randn(RING_SHAPE, generator=generator, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+        with torch.inference_mode():
+            _build.LAUNCHES.clear()
+            y = parallel.ulysses_attention(q, k, v, mesh)
+            launches = collections.Counter(_build.LAUNCHES)
+            want = attention.dot_product_attention(q, k, v)
+            uly_ms = elapsed_ms(lambda: parallel.ulysses_attention(q, k, v, mesh), reps=10)
+            direct_ms = elapsed_ms(lambda: attention.dot_product_attention(q, k, v), reps=10)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        _build.LAUNCHES.clear()
+        parallel.ulysses_attention(qg, kg, vg, mesh).float().square().sum().backward()
+        launches += _build.LAUNCHES
+        qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
+        attention.dot_product_attention(qd, kd, vd).float().square().sum().backward()
+        grad_err = max(errors(a.grad, b.grad)[1] for a, b in ((qg, qd), (kg, kd), (vg, vd)))
+        log(f"Ulysses attention at {RING_SHAPE} bf16, world size 1: launches {dict(launches)}; forward equal to "
+            f"dot_product_attention: {torch.equal(y, want)}, gradients within {grad_err:.2e} (dq's atomics); "
+            f"{uly_ms:.3f} ms against {direct_ms:.3f} ms direct; {SMI}")
+        if not torch.equal(y, want) or grad_err > TOL_BWD_TC:
+            raise AssertionError("Ulysses attention at world size 1 is not the attention")
+        if launches != {"attention_fwd": 1, "attention_fwd_lse": 1, "attention_bwd": 1}:
+            raise AssertionError("Ulysses attention did not launch the attention kernels once each")
+        out["launches"] += launches
+        out["ulysses_ms"] = (uly_ms, direct_ms)
+        del qg, kg, vg, qd, kd, vd, y, want
+
+        # (e) ring attention through its entry point at the ring shape
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        _build.LAUNCHES.clear()
+        y = parallel.ring_attention(qr, kr, vr, mesh)
+        y.float().square().sum().backward()
+        launches = collections.Counter(_build.LAUNCHES)
+        qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
+        want = attention.dot_product_attention(qd, kd, vd)
+        want.float().square().sum().backward()
+        fwd_err = errors(y, want)[1]
+        grad_err = max(errors(a.grad, b.grad)[1] for a, b in ((qr, qd), (kr, kd), (vr, vd)))
+        log(f"ring attention at {RING_SHAPE} bf16, world size 1: launches {dict(launches)}; against "
+            f"dot_product_attention under grad: forward {fwd_err:.2e} (equal: {torch.equal(y, want)}), gradients "
+            f"within {grad_err:.2e} (dq's atomics); {SMI}")
+        if fwd_err > TOL_BWD_TC or grad_err > TOL_BWD_TC:
+            raise AssertionError("ring attention at world size 1 is not the attention")
+        if launches != {"attention_fwd_lse": 1, "attention_bwd": 1}:
+            raise AssertionError("ring attention did not launch the LSE forward and the backward once each")
+        out["launches"] += launches
+        del q, k, v, qr, kr, vr, qd, kd, vd, y, want
+
+        # (f) the MSA's sequence-parallel dispatch: a float32 dit32 forward
+        # and backward with every MSA on 'ring', then 'ulysses', over the
+        # mesh's data dim, against implementation='kernel'
+        vit = ViT(3, 3, **DIT32, device="cuda", generator=generator)
+        sp = KarrasDenoiser(Modulated(vit, DIT32["mod_features"], device="cuda", generator=generator), VPSchedule())
+        msas = [m for m in sp.modules() if isinstance(m, MultiheadSelfAttention)]
+        xs = torch.randn((SP_BATCH, 32, 32, 3), generator=generator, device="cuda")
+        ts = torch.full((SP_BATCH,), 0.5, device="cuda")
+        runs = {}
+        for implementation in ("kernel", "ring", "ulysses"):
+            for msa in msas:
+                msa.implementation, msa.ring_axis = implementation, mesh.get_group("data")
+            sp.zero_grad(set_to_none=True)
+            _build.LAUNCHES.clear()
+            y = sp(xs, ts).mean
+            y.square().sum().backward()
+            grads = {name: p.grad.clone() for name, p in sp.named_parameters() if p.grad is not None}
+            runs[implementation] = (y.detach(), grads, collections.Counter(_build.LAUNCHES))
+        y_k, grads_k, launches_k = runs["kernel"]
+        expected = {"attention_fwd_lse": len(msas), "attention_bwd": len(msas)}
+        for implementation in ("ring", "ulysses"):
+            y, grads, launches = runs[implementation]
+            fwd_err = errors(y, y_k)[1]
+            grad_err = max(errors(g, grads_k[name])[1] for name, g in grads.items() if grads_k[name].abs().max() > 0)
+            log(f"dit32 float32 at batch {SP_BATCH}, {len(msas)} MSAs on '{implementation}', world size 1: launches "
+                f"{dict(launches)}; against implementation='kernel' ({dict(launches_k)}): forward {fwd_err:.2e}, "
+                f"gradients {grad_err:.2e} of each parameter's max (tol {TOL_SP}, {TOL_SP_GRAD}); {SMI}")
+            if fwd_err > TOL_SP or grad_err > TOL_SP_GRAD or set(grads) != set(grads_k):
+                raise AssertionError(f"the MSA's '{implementation}' dispatch is not the attention at world size 1")
+            if launches != expected or launches_k != expected:
+                raise AssertionError(f"expected {expected} from each dit32 forward and backward")
+            out["launches"] += launches
+        del vit, sp, msas, runs, y, grads
+
+        # (c) the TP-split dit32 forward
+        dit = dit32_model(generator)
+        split = parallel.shard_module(dit, mesh, rules=parallel.DIT_TP_RULES)
+        xd = torch.randn((DIT_BATCH, 32, 32, 3), generator=generator, device="cuda")
+        td = torch.full((DIT_BATCH,), 0.5, device="cuda")
+        with torch.inference_mode():
+            want = dit(xd, td).mean
+            _build.LAUNCHES.clear()
+            got = split(xd, td).mean
+            launches = collections.Counter(_build.LAUNCHES)
+        err = errors(got, want)[1]
+        log(f"TP-split dit32 forward, world size 1: launches {dict(launches)}, against the unsplit forward "
+            f"{err:.3e} of max |output| (tol {TOL_TP_BF16}); {SMI}")
+        if launches != DIT_CALLS_PER_FORWARD or err > TOL_TP_BF16:
+            raise AssertionError("the TP-split dit32 forward is not the forward on its 12 fused MSA launches")
+        out["launches"] += launches
+    finally:
+        dist.destroy_process_group()
+
+    out["launches"] = dict(out["launches"])
+    return out
+
+
+def parallel_phases(generator) -> tuple[dict, dict, dict]:
+    r"""Phases 50-52, timed."""
+
+    log("== 50. ADM-256's checkpointed backward at full width: imagenet_256x256, bf16, batch "
+        f"{BATCH}, t = {CKPT_TIME}, without and with checkpointing=True")
+    t50 = time.perf_counter()
+    ckpt = adm_checkpointed_backward(generator)
+    log(f"phase 50 took {time.perf_counter() - t50:.1f} s; {SMI}")
+
+    log(f"== 51. the ring step at full width: FLUX.1-dev's joint sequence {RING_SHAPE} in {RING_BLOCKS} blocks, "
+        "bf16 and float32, as rank 0 of the ring")
+    t51 = time.perf_counter()
+    ring = check_ring_step(generator)
+    log(f"phase 51 took {time.perf_counter() - t51:.1f} s; {SMI}")
+
+    log("== 52. the parallel layer at world size 1 under nccl: sample_sharded, the sharded checkpoint, Ulysses, "
+        "ring attention, the MSA's sequence-parallel dispatch, tensor parallelism")
+    t52 = time.perf_counter()
+    world1 = world_size_one(generator)
+    log(f"phase 52 took {time.perf_counter() - t52:.1f} s; phases 50-52 took {time.perf_counter() - t50:.1f} s; {SMI}")
+
+    return ckpt, ring, world1
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
@@ -5200,7 +5696,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    log(smi.stdout.strip().splitlines()[0])
+    global SMI
+    SMI = smi.stdout.strip().splitlines()[0]
+    log(SMI)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5550,7 +6048,9 @@ def main() -> None:
         f"{loaded['adm256']['peak_mib']:.1f} MiB), the sd_2 UNet read at {loaded['sd2_unet']['gb_s']:.3f} GB/s; "
         f"{smi.stdout.strip().splitlines()[0]}; phase 49 took {time.perf_counter() - t49:.1f} s")
 
-    log("== 50. result")
+    ckpt, ring, world1 = parallel_phases(generator)
+
+    log("== 53. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -5651,8 +6151,8 @@ def main() -> None:
 
     # the launches of the text-to-image path (phase 36), of the SD, EDM and
     # EDM2 paths (phases 39-42), of the v-diffusion and JiT paths (phases
-    # 44-47) and of the loaded models (phase 49) beside each kernel's own
-    # main path's; the FLUX.1-dev VAE
+    # 44-47), of the loaded models (phase 49) and of the parallel layer's
+    # phases 50-52 beside each kernel's own main path's; the FLUX.1-dev VAE
     # decode's GroupNorm calls timed as phase 3 times ADM's; the wide groups
     # of phases 3 and 23 (one call each) and the GroupNorm calls of one
     # cc12m_cfg256 and one vdm_yfcc512L call (each at its count)
@@ -5661,6 +6161,7 @@ def main() -> None:
         "cc12m_cfg256": cc12m, "vdm_yfcc512L": vdm_cards[YFCC_CARD], "vdm_in128": vdm_cards[IN128_CARD],
         "jit_l16_cfg": jit_l, "jit_h16": jit_h,
         "load_adm256": loaded["adm256"], "load_sd2_unet": loaded["sd2_unet"],
+        "adm256_checkpointed_backward": ckpt, "ring_step": ring, "world_size_1": world1,
     }
     for entry in kernels:
         extra = {path: run["launches"][entry["name"]] for path, run in paths.items() if run["launches"].get(entry["name"])}
@@ -5682,7 +6183,7 @@ def main() -> None:
     if idle:
         raise AssertionError(f"kernels launched no time on their main path: {idle}")
 
-    log(f"all phases took {time.perf_counter() - t_start:.1f} s")
+    log(f"all phases took {time.perf_counter() - t_start:.1f} s; {SMI}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

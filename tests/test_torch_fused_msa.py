@@ -217,6 +217,34 @@ def test_implementations_and_no_launch_on_cpu():
 
 
 @pytest.mark.parametrize("implementation", ["ring", "ulysses"])
-def test_sequence_parallel_routes_not_ported(implementation):
-    with pytest.raises(NotImplementedError, match="A20"):
-        tattention.MultiheadSelfAttention(C, attention_heads=H, implementation=implementation, device="cpu")
+def test_sequence_parallel_routes_not_ported(implementation, monkeypatch):
+    # the sequence-parallel routes are ported (azula_tpu_torch.parallel):
+    # the MSA hands the split, normalized and rotated heads and its
+    # `ring_axis` to the route's local function, as JAX's dispatch does; the
+    # multi-rank runs are tests/test_torch_ring.py and test_torch_ulysses.py
+    from azula_tpu_torch.parallel import ring, ulysses
+
+    module = {"ring": ring, "ulysses": ulysses}[implementation]
+    seen = {}
+
+    def local(q, k, v, axis=None, mask=None, **kwargs):
+        seen.update(axis=axis, shape=tuple(q.shape), kwargs=kwargs)
+        return tattention.dot_product_attention(q, k, v, mask=mask)
+
+    monkeypatch.setattr(module, f"{implementation}_attention_local", local)
+
+    _, tmsa, x, pos = _msa_pair(True, True)
+    want = tmsa(torch.from_numpy(x), torch.from_numpy(pos))
+    tmsa.implementation, tmsa.ring_axis = implementation, "data"
+    got = tmsa(torch.from_numpy(x), torch.from_numpy(pos))
+
+    assert seen["axis"] == "data" and seen["shape"] == (B, H, L, D)
+    assert torch.allclose(got, want, rtol=0, atol=1e-6)
+
+    tmsa.dropout = 0.1
+    if implementation == "ring":
+        with pytest.raises(NotImplementedError, match="ulysses"):
+            tmsa(torch.from_numpy(x), torch.from_numpy(pos), generator=torch.Generator())
+    else:
+        tmsa(torch.from_numpy(x), torch.from_numpy(pos), generator=torch.Generator())
+        assert seen["kwargs"]["dropout_rate"] == 0.1

@@ -39,7 +39,8 @@ def test_sources_found():
 
 
 @pytest.mark.parametrize(
-    "path", SOURCES + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+    # tests/torch_dist.py: the ranks of the multi-rank tests
+    "path", SOURCES + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist.py"], ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text())
