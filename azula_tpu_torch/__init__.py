@@ -11,4 +11,16 @@ package. Entry points run on the card unless the caller asks for the CPU.
 
 __version__ = "0.1.0"
 
-from . import denoise, guidance, linalg, noise, sample, train  # noqa: F401
+from . import (  # noqa: F401
+    debug,
+    denoise,
+    guidance,
+    hub,
+    linalg,
+    nn,
+    noise,
+    ops,
+    parallel,
+    sample,
+    train,
+)

@@ -110,6 +110,16 @@ def _map(fn: Callable, tree):
     return fn(tree)
 
 
+def _leaves(tree) -> list:
+    r"""The leaves of a tuple, list or dict tree, in :func:`_map`'s order."""
+
+    if isinstance(tree, (tuple, list)):
+        return [leaf for a in tree for leaf in _leaves(a)]
+    if isinstance(tree, dict):
+        return [leaf for a in tree.values() for leaf in _leaves(a)]
+    return [tree]
+
+
 def _floating(a) -> bool:
     return isinstance(a, torch.Tensor) and a.is_floating_point()
 

@@ -27,6 +27,7 @@ __all__ = [
     "NVCC_FLAGS",
     "check",
     "forward_only",
+    "launched",
     "library",
     "ptxas_log",
     "stream",
@@ -63,6 +64,11 @@ NVCC_FLAGS = (
 # `attention_fwd_lse_bias_dropout`, and so on. `conv3x3` also counts the
 # launches of its tensor-core form under `conv3x3_tc`.
 LAUNCHES: collections.Counter = collections.Counter()
+
+# Whether :func:`launched` checks the kernels' outputs for NaNs: the
+# dispatcher sees the `torch.empty` of an output but not the kernel's writes,
+# so `utils.profiling.enable_nan_checks` sets this beside its dispatch mode.
+NAN_CHECKS = False
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -219,6 +225,19 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = library().azula_error_string(status).decode()
         raise RuntimeError(f"{name} failed to launch: CUDA error {status} ({msg})")
+
+
+def launched(name: str, *outputs: torch.Tensor) -> None:
+    r"""Counts a launch of the kernel `name` in :data:`LAUNCHES`; under
+    `utils.profiling.enable_nan_checks`, raises `FloatingPointError` when one
+    of its floating outputs holds a NaN."""
+
+    LAUNCHES[name] += 1
+
+    if NAN_CHECKS:
+        for out in outputs:
+            if out.is_floating_point() and bool(torch.isnan(out).any()):
+                raise FloatingPointError(f"the {name} kernel gave a NaN")
 
 
 def stream(device: torch.device) -> int:

@@ -517,7 +517,7 @@ def _launch_attention(
 
     status = getattr(_build.library(), f"azula_{name}")(*args)
     _build.check(status, name)
-    _build.LAUNCHES[name + _form(bias, rate)] += 1
+    _build.launched(name + _form(bias, rate), o)
 
     return o
 
@@ -577,7 +577,7 @@ def _attention_lse_kernel(
         *_mask_args(q, bias, mode, seed, rate),
     )
     _build.check(status, "attention_fwd_lse")
-    _build.LAUNCHES["attention_fwd_lse" + _form(bias, rate)] += 1
+    _build.launched("attention_fwd_lse" + _form(bias, rate), o, lse)
 
     return o, lse
 
@@ -637,7 +637,7 @@ def _attention_bwd_kernel(
         *_mask_args(q, bias, mode, seed, rate),
     )
     _build.check(status, "attention_bwd")
-    _build.LAUNCHES["attention_bwd" + _form(bias, rate)] += 1
+    _build.launched("attention_bwd" + _form(bias, rate), dq, dk, dv)
 
     return dq, dk, dv
 
@@ -1014,7 +1014,7 @@ def _flash_blhd_fwd_kernel(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: f
         B, L, H, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
     )
     _build.check(status, "flash_blhd_fwd")
-    _build.LAUNCHES["flash_blhd_fwd"] += 1
+    _build.launched("flash_blhd_fwd", o, lse)
 
     return o, lse
 
@@ -1045,7 +1045,7 @@ def _flash_blhd_bwd_kernel(
         B, L, H, D, scale, _DTYPES[q.dtype], _build.stream(q.device),
     )
     _build.check(status, "flash_blhd_bwd")
-    _build.LAUNCHES["flash_blhd_bwd"] += 1
+    _build.launched("flash_blhd_bwd", dq, dk, dv)
 
     return dq, dk, dv
 

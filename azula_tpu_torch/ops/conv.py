@@ -90,7 +90,7 @@ def _conv3x3_kernel(x: Tensor, w: Tensor) -> Tensor:
         x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C, K, _DTYPES[x.dtype], _build.stream(x.device)
     )
     _build.check(status, "conv3x3")
-    _build.LAUNCHES["conv3x3"] += 1
+    _build.launched("conv3x3", y)
     if tensor_cores:
         _build.LAUNCHES["conv3x3_tc"] += 1
 

@@ -251,7 +251,7 @@ def _fused_msa_kernel(
         scale, _DTYPES[qkv.dtype], _build.stream(qkv.device),
     )
     _build.check(status, "fused_msa")
-    _build.LAUNCHES["fused_msa"] += 1
+    _build.launched("fused_msa", o)
 
     return o
 

@@ -334,7 +334,7 @@ def _group_norm_kernel(
         eps, int(silu), _DTYPES[x.dtype], _build.stream(x.device),
     )
     _build.check(status, "group_norm")
-    _build.LAUNCHES["group_norm_silu" if silu else "group_norm"] += 1
+    _build.launched("group_norm_silu" if silu else "group_norm", y)
 
     return y
 
@@ -553,7 +553,7 @@ def _stats_kernel(x: Tensor, groups: int) -> tuple[Tensor, Tensor]:
         _DTYPES[x.dtype], _build.stream(x.device),
     )
     _build.check(status, "group_stats")
-    _build.LAUNCHES["group_stats"] += 1
+    _build.launched("group_stats", out)
 
     return out[0], out[1]
 

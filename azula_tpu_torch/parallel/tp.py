@@ -97,14 +97,18 @@ class Segments:
 
 class Placement(NamedTuple):
     r"""How a parameter of a split module is split: the mesh dim, the
-    placement over it (`Shard` or :class:`Segments`) and the whole shape.
-    :func:`shard_module` and :func:`shard_module_fsdp` set it as the
+    placement over it (`Shard` or :class:`Segments`) and the whole shape;
+    and, where the piece is split again over a second mesh dim (ZeRO-3 on a
+    tensor-parallel piece, :func:`~azula_tpu_torch.parallel.recipes.flux_serving_shardings`),
+    that dim and the dimension it splits (`then`), which the spec leaves
+    whole. :func:`shard_module` and :func:`shard_module_fsdp` set it as the
     `placement` attribute of each piece, which the sharded checkpoints
     read."""
 
     axis: str
     spec: object
     shape: tuple[int, ...]
+    then: tuple[str, int] | None = None
 
 
 def _attention_and_mlp(shape: tuple[int, ...]) -> tuple[int, int]:
@@ -173,7 +177,11 @@ def _segments(spec, shape: tuple[int, ...]) -> tuple[int, ...]:
 
 
 def _piece(x: Tensor, spec, rank: int, n: int) -> Tensor:
-    r"""This rank's piece of a whole tensor under `spec`."""
+    r"""This rank's piece of a whole tensor under `spec`; `x` itself over
+    one rank."""
+
+    if n == 1:
+        return x
 
     parts = []
     for seg in x.split(list(_segments(spec, tuple(x.shape))), dim=spec.dim):
@@ -191,7 +199,7 @@ def split_pieces(local: Tensor, placement: Placement, n: int) -> list[tuple[Tens
     whole parameter is the segments' concatenation along the split
     dimension. :func:`join_pieces` is the inverse."""
 
-    _, spec, shape = placement
+    spec, shape = placement.spec, placement.shape
 
     out = []
     segments = _segments(spec, shape)
@@ -348,9 +356,13 @@ def _replace(root: nn.Module, prefix: str, new: nn.Module) -> None:
     setattr(root.get_submodule(parent), child, new)
 
 
-def shard_module(module: nn.Module, mesh: DeviceMesh | None = None, rules=DIT_TP_RULES) -> nn.Module:
-    r"""Returns a copy of `module` split over the mesh's `'model'` dim by the
-    rules: each split `Linear` becomes a :class:`ColumnParallelLinear`
+def shard_module(
+    module: nn.Module, mesh: DeviceMesh | None = None, rules=DIT_TP_RULES, inplace: bool = False
+) -> nn.Module:
+    r"""Returns a copy of `module` (or `module` itself, split in place, with
+    `inplace`: the whole parameters are dropped as their pieces replace them,
+    so that a model that fills the card is never held twice) split over the
+    mesh's `'model'` dim by the rules: each split `Linear` becomes a :class:`ColumnParallelLinear`
     (`Shard(0)`, :class:`Segments` of dim 0) or a
     :class:`RowParallelLinear` (`Shard(1)`, :class:`Segments` of dim 1), an
     RMS norm with a split weight a :class:`ParallelRMSNorm`, and each module
@@ -372,7 +384,8 @@ def shard_module(module: nn.Module, mesh: DeviceMesh | None = None, rules=DIT_TP
     rank, n = mesh.get_local_rank("model"), mesh.size(mesh.mesh_dim_names.index("model"))
 
     specs = module_shardings(module, rules)
-    module = copy.deepcopy(module)
+    if not inplace:
+        module = copy.deepcopy(module)
 
     split = {name: spec for name, spec in specs.items() if not isinstance(spec, Replicate)}
     owners = {}
@@ -463,6 +476,8 @@ class _GatherParameter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
+        if dist.get_world_size(group) == 1:
+            return x.view_as(x)
         pieces = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(pieces, x.contiguous(), group=group)
         return torch.cat(pieces, dim=dim)
@@ -493,6 +508,36 @@ def _use_hooks(owner: nn.Module, leaves, use: Callable[[Tensor, str], Tensor]) -
     owner.register_forward_hook(post)
 
 
+def _split_over(module: nn.Module, specs: dict, mesh: DeviceMesh, axis: str) -> nn.Module:
+    r"""Splits, in place, each parameter of `module` that `specs` maps to a
+    `Shard` over the mesh's `axis` dim, as :func:`shard_module_fsdp`
+    describes; a piece of :func:`shard_module` split so again records the
+    second dim in its placement (`Placement.then`). Returns `module`."""
+
+    group = mesh.get_group(axis)
+    rank, n = mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(axis))
+
+    owners = {}
+    for name, spec in specs.items():
+        if isinstance(spec, Shard):
+            owner, prefix, leaf = _owner(module, name)
+            whole = owner._parameters[leaf]
+            piece = nn.Parameter(_piece(whole.detach(), spec, rank, n))
+            placement = getattr(whole, "placement", None)
+            if placement is None:
+                piece.placement = Placement(axis, spec, tuple(whole.shape))
+            else:
+                piece.placement = placement._replace(then=(axis, spec.dim))
+            piece.fsdp_group = group
+            owner._parameters[leaf] = piece
+            owners.setdefault(prefix, (owner, {}))[1][leaf] = spec.dim
+
+    for owner, leaves in owners.values():
+        _use_hooks(owner, leaves, lambda p, leaf, dims=leaves: _GatherParameter.apply(p, dims[leaf], group))
+
+    return module
+
+
 def shard_module_fsdp(module: nn.Module, mesh: DeviceMesh | None = None, axis: str = "data", min_size: int = 2**16) -> nn.Module:
     r"""Returns a copy of `module` whose parameters are split by
     :func:`fsdp_shardings`: each split parameter keeps its name and holds
@@ -505,24 +550,6 @@ def shard_module_fsdp(module: nn.Module, mesh: DeviceMesh | None = None, axis: s
     if mesh is None:
         mesh = get_mesh()
 
-    group = mesh.get_group(axis)
-    rank, n = mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(axis))
-
     specs = fsdp_shardings(module, mesh, axis, min_size)
-    module = copy.deepcopy(module)
 
-    owners = {}
-    for name, spec in specs.items():
-        if isinstance(spec, Shard):
-            owner, prefix, leaf = _owner(module, name)
-            whole = owner._parameters[leaf]
-            piece = nn.Parameter(_piece(whole.detach(), spec, rank, n))
-            piece.placement = Placement(axis, spec, tuple(whole.shape))
-            piece.fsdp_group = group
-            owner._parameters[leaf] = piece
-            owners.setdefault(prefix, (owner, {}))[1][leaf] = spec.dim
-
-    for owner, leaves in owners.values():
-        _use_hooks(owner, leaves, lambda p, leaf, dims=leaves: _GatherParameter.apply(p, dims[leaf], group))
-
-    return module
+    return _split_over(copy.deepcopy(module), specs, mesh, axis)

@@ -72,7 +72,8 @@ def load_checkpoint(
 def _entries(key: str, local: Tensor, placement, mesh) -> dict:
     r"""The checkpoint entries of one tensor: itself when it is replicated;
     else a DTensor over `mesh` per segment of its split, whose whole tensor
-    is that segment of the unsplit parameter."""
+    is that segment of the unsplit parameter (split over a second mesh dim
+    too where the placement says `then`)."""
 
     if placement is None:
         return {key: local}
@@ -81,9 +82,13 @@ def _entries(key: str, local: Tensor, placement, mesh) -> dict:
 
     from ..parallel.tp import split_pieces
 
-    axis, spec, _ = placement
+    axis, spec = placement.axis, placement.spec
     n = mesh.size(mesh.mesh_dim_names.index(axis))
-    placements = [Shard(spec.dim) if name == axis else Replicate() for name in mesh.mesh_dim_names]
+    dims = {axis: spec.dim}
+    if placement.then is not None:
+        then, dim = placement.then
+        dims[then] = dim
+    placements = [Shard(dims[name]) if name in dims else Replicate() for name in mesh.mesh_dim_names]
 
     pieces = split_pieces(local, placement, n)
 

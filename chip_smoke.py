@@ -389,10 +389,48 @@ Phases, each of which raises on failure:
    each); a TP-split dit32 forward with its 12 fused MSA launches within
    `TOL_TP_BF16` of the unsplit one. Phases 50-52 print their time, and
    every line the card's name and power limit.
-53. the kernels line `{"kernels": [...]}` (the launches of phases 36,
-   39-42, 44-47 and 49-52 added to their kernels' entries, by path; the
+53. the pipeline and the serving recipes at world size 1 under `nccl` (a
+   `tcp://localhost` rendezvous; no other backend is tried): (a)
+   `parallel.pipeline_dit` over dit32's 12 blocks (the ViT of phase 8,
+   bf16) on its patch tokens at batch 128 in 4 microbatches, against the
+   sequential forward within `TOL_PP_BF16` (a planted fault, a stage that
+   leaves its last block out, must exceed it), exactly 12
+   x 4 fused MSA launches, timed and its peak memory beside the
+   sequential forward's, under `Throughput`, and a profile of each; then
+   in float32 under grad,
+   exactly 12 x 4 `_flash_blhd` forward and backward launches, the
+   gradients of the tokens, the modulation and the replicated parameters
+   within `TOL_PP_GRAD` of the sequential backward's; (b) the same stack
+   in 4 stages of 3 blocks driven in one process by `pp.LoneStage` (each
+   stage receives the sends the previous one recorded; fill and drain
+   across real stages), 3 x 4 fused MSA launches a stage, the last stage's
+   output equal to (a)'s bit for bit (the same sums) and within
+   `TOL_PP_BF16` of the sequential forward; (d) the support
+   modules: `prefetch_to_device` of 8 batches from pinned host memory,
+   alone and on the mesh, equal to the host batches, `annotate` regions in
+   a profiler trace, `enable_nan_checks` raising `FloatingPointError` on a
+   NaN planted into the fused MSA kernel's input and on a plain operation,
+   and quiet when off; one call of each kernel at the new shapes (fused
+   MSA at a microbatch, the `_flash_blhd` pair in float32, the ring step's
+   LSE forward and backward at its block and whole-sequence shapes) beside
+   its plain version, the library's call and the bound; (c)
+   `parallel.serve_flux` on FLUX.1-dev (phase 15's random weights drawn
+   anew, DDIM-4, 1024 px) on the (1, 1) mesh, placed in place: the
+   distilled path at batch 1 against `DDIMSampler(denoiser)`, batched CFG
+   at batch 2 against `DDIMSampler(CFGDenoiser(denoiser, batched=True))`
+   (both run before the placement), chunks of one image against the
+   unchunked run, each within `TOL_SERVE` (a planted fault, the two
+   prompts swapped, must exceed it), exactly 57 max-free launches a step;
+   images/s and seconds a step beside the unplaced sampler's (after a
+   warm-up run of each), a profile of one call at batch 1 unplaced and
+   placed, and the peak memory, which may exceed the
+   unplaced runs' by `SERVE_SLACK` at most (no second copy of the
+   weights). Phase 53 prints its time.
+54. the kernels line `{"kernels": [...]}` (the launches of phases 36,
+   39-42, 44-47 and 49-53 added to their kernels' entries, by path; the
    wide groups' and the new paths' GroupNorm timings beside the GroupNorm
-   and statistics entries), then the result line.
+   and statistics entries; phase 53's calls at the new shapes beside their
+   kernels), then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -902,6 +940,28 @@ TOL_SP_GRAD = 1e-4
 # more rounding (2^-9) in each of dit32's 12 FFN outputs, carried to the
 # denoiser's output; of max |output|
 TOL_TP_BF16 = 2e-2
+# phase 53: pipeline_dit over dit32's blocks in microbatches of 32 against
+# the sequential forward at batch 128, bf16, of max |output|: equal bit for
+# bit on the H100 (torch 2.11); the bound leaves room for a cuBLAS algorithm
+# that rounds a microbatch's sums in other places, one bf16 rounding
+# (2^-8), where a stage that leaves its last block out reads 1.7e-2. Its
+# float32 backward against the sequential one: the same kernels, sums in
+# another order; of the largest gradient
+PP_MICROBATCHES = 4
+PP_STAGES = 4
+TOL_PP_BF16 = 4e-3
+TOL_PP_GRAD = 1e-4
+# serve_flux on FLUX.1-dev against the unplaced sampler, bf16, DDIM-4, of
+# max |x|: each row-parallel Linear adds its bias after the sum, rounded to
+# bf16, where F.linear adds it before (1.9e-3 to 2.3e-3 distilled, 8.7e-3 to
+# 1.06e-2 batched CFG on the H100; the two prompts swapped read 0.36). The
+# served runs' peak may exceed the unplaced runs' by SERVE_SLACK at most (a
+# second copy of the weights is 22 GiB)
+SERVE_BATCH = 2
+SERVE_CFG = 2.5
+TOL_SERVE = 2e-2
+SERVE_SLACK = 2**30
+PREFETCH_BATCHES = 8
 
 MANIFESTS = pathlib.Path(__file__).resolve().parent / "azula_tpu_torch" / "models" / "manifests"
 
@@ -5682,6 +5742,422 @@ def parallel_phases(generator) -> tuple[dict, dict, dict]:
     return ckpt, ring, world1
 
 
+def new_shape_timings(generator) -> dict:
+    r"""The kernels at the new paths' shapes, one call each: timed by events
+    beside their plain versions, the library's call and the bound, and held
+    to the plain version. Fused MSA at a dit32 microbatch of `pipeline_dit`
+    in bf16; the `_flash_blhd` pair at that microbatch in float32 (phase
+    53's backward); and the ring step's LSE forward and backward at its
+    block and whole-sequence shapes in bf16 (phase 51's, whose plain and
+    library times no phase took)."""
+
+    out = {}
+    heads = DIT32["attention_heads"]
+    C = DIT32["hid_channels"]
+    D = C // heads
+    B, L = DIT_BATCH // PP_MICROBATCHES, 256
+    eps, scale = 1e-5, 1 / math.sqrt(D)
+
+    qkv = torch.randn((B, L, 3 * C), generator=generator, device="cuda").to(torch.bfloat16)
+    got = fused_msa._fused_msa_kernel(qkv, None, None, heads, eps, scale)
+    err = errors(got, fused_msa._fused_msa_plain(qkv, None, None, heads, eps, scale))
+    x5 = qkv.view(B, L, 3, heads, D)
+
+    def rms(z):
+        z = z.float()
+        return (z * torch.rsqrt(torch.mean(torch.square(z), dim=-1, keepdim=True) + eps)).to(torch.bfloat16)
+
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (rms(x5[:, :, 0]), rms(x5[:, :, 1]), x5[:, :, 2]))
+    ops = 4 * B * heads * L * L * D
+    out["fused_msa"] = dict(  # noqa: C408
+        shape=(B, L, 3 * C), err=err, ops=ops,
+        ms=elapsed_ms(lambda: fused_msa._fused_msa_kernel(qkv, None, None, heads, eps, scale)),
+        plain_ms=elapsed_ms(lambda: fused_msa._fused_msa_plain(qkv, None, None, heads, eps, scale)),
+        library_ms=elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+        bound=bound_ms(4 * B * L * C * 2, ops, torch.bfloat16),
+    )
+    del qkv, got, q, k, v
+
+    q, k, v, g = (torch.randn((B, L, C), generator=generator, device="cuda") for _ in range(4))
+    o, lse = attention._flash_blhd_fwd_kernel(q, k, v, heads, scale)
+    grads = attention._flash_blhd_bwd_kernel(q, k, v, o, g, lse, heads, scale)
+    err_fwd = errors(o, attention._flash_blhd_fwd_plain(q, k, v, heads, scale))
+    want = attention._flash_blhd_bwd_plain(q, k, v, o, g, heads, scale)
+    err_bwd = max((errors(a, b) for a, b in zip(grads, want, strict=True)), key=lambda e: e[1])
+    leaves = [attention._split_heads(t, heads).detach().requires_grad_() for t in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+    gh = attention._split_heads(g, heads)
+    n = q.numel() * 4
+    ops = {"fwd": 4 * B * heads * L * L * D, "bwd": 10 * B * heads * L * L * D}
+    out["flash_blhd_fwd"] = dict(  # noqa: C408
+        shape=(B, L, C), err=err_fwd, ops=ops["fwd"],
+        ms=elapsed_ms(lambda: attention._flash_blhd_fwd_kernel(q, k, v, heads, scale)),
+        plain_ms=elapsed_ms(lambda: attention._flash_blhd_fwd_plain(q, k, v, heads, scale)),
+        library_ms=elapsed_ms(lambda: F.scaled_dot_product_attention(*leaves, scale=scale)),
+        bound=bound_ms(4 * n + lse.numel() * 4, ops["fwd"], torch.float32),
+    )
+    out["flash_blhd_bwd"] = dict(  # noqa: C408
+        shape=(B, L, C), err=err_bwd, ops=ops["bwd"],
+        ms=elapsed_ms(lambda: attention._flash_blhd_bwd_kernel(q, k, v, o, g, lse, heads, scale)),
+        plain_ms=elapsed_ms(lambda: attention._flash_blhd_bwd_plain(q, k, v, o, g, heads, scale)),
+        library_ms=elapsed_ms(lambda: torch.autograd.grad(sdpa, leaves, gh, retain_graph=True)),
+        bound=bound_ms(8 * n + lse.numel() * 4, ops["bwd"], torch.float32),
+    )
+    del q, k, v, g, o, lse, grads, want, leaves, sdpa, gh
+
+    Bh, H, Lw, Dh = RING_SHAPE
+    for label, Lq in (("ring block", Lw // RING_BLOCKS), ("whole sequence", Lw)):
+        shape = (Bh, H, Lq, Dh)
+        scale = 1 / math.sqrt(Dh)
+        q, k, v, g = (torch.randn(shape, generator=generator, device="cuda", dtype=torch.bfloat16) for _ in range(4))
+        o, lse = attention._attention_lse_kernel(q, k, v, scale)
+        grads = attention._attention_bwd_kernel(q, k, v, o, lse, g, scale)
+        o_p, _ = attention._attention_tiled_plain(q, k, v, scale)
+        err_fwd = errors(o, o_p)
+        want = attention._attention_bwd_plain(q, k, v, o, lse, g, scale)
+        err_bwd = max((errors(a, b) for a, b in zip(grads, want, strict=True)), key=lambda e: e[1])
+        del o_p, want
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+        n, ops = q.numel() * 2, {"fwd": 4 * Bh * H * Lq * Lq * Dh, "bwd": 10 * Bh * H * Lq * Lq * Dh}
+        out[f"attention_fwd_lse {label}"] = dict(  # noqa: C408
+            shape=shape, err=err_fwd, ops=ops["fwd"],
+            ms=elapsed_ms(lambda: attention._attention_lse_kernel(q, k, v, scale), reps=10),
+            plain_ms=elapsed_ms(lambda: attention._attention_tiled_plain(q, k, v, scale), reps=5, warmup=1),
+            library_ms=elapsed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=10),
+            bound=bound_ms(4 * n + lse.numel() * 4, ops["fwd"], torch.bfloat16),
+        )
+        out[f"attention_bwd {label}"] = dict(  # noqa: C408
+            shape=shape, err=err_bwd, ops=ops["bwd"],
+            ms=elapsed_ms(lambda: attention._attention_bwd_kernel(q, k, v, o, lse, g, scale), reps=10),
+            plain_ms=elapsed_ms(lambda: attention._attention_bwd_plain(q, k, v, o, lse, g, scale), reps=5, warmup=1),
+            library_ms=elapsed_ms(lambda: torch.autograd.grad(sdpa, leaves, g, retain_graph=True), reps=10),
+            bound=bound_ms(8 * n + lse.numel() * 4, ops["bwd"], torch.bfloat16),
+        )
+        del q, k, v, g, o, lse, grads, leaves, sdpa
+        torch.cuda.empty_cache()
+
+    for name, t in out.items():
+        bound, by = t["bound"]
+        log(f"  {name} at {t['shape']}: {t['ms']:.4f} ms ({speed(t['ops'], t['ms'], bound)}), plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}); against the "
+            f"plain version {t['err'][1]:.3e} (tol {TOL_ATTN[torch.bfloat16]}); {SMI}")
+        if t["err"][1] > TOL_ATTN[torch.bfloat16]:
+            raise AssertionError(f"{name} at {t['shape']} disagrees with its plain version")
+
+    return out
+
+
+def pipeline_dit_full_width(generator, mesh) -> dict:
+    r"""Phase 53 (a) and (b): `pipeline_dit` over dit32's 12 blocks on the
+    (data=1, model=1) mesh, and the 4-stage schedule driven in one process."""
+
+    from azula_tpu_torch import parallel
+    from azula_tpu_torch.nn.dit import DiT
+    from azula_tpu_torch.parallel import pp, recipes
+    from azula_tpu_torch.utils import profiling
+
+    out = {}
+    denoiser = dit32_model(generator)
+    vit = denoiser.backbone.backbone
+    x = torch.randn((DIT_BATCH, 32, 32, 3), generator=generator, device="cuda", dtype=torch.bfloat16)
+    t = torch.rand((DIT_BATCH,), generator=generator, device="cuda")  # a modulation for each image
+
+    with torch.inference_mode():
+        tokens = vit.patch(x).flatten(1, -2)
+        grids = torch.meshgrid(*(torch.arange(16, device="cuda").to(tokens.dtype),) * 2, indexing="ij")
+        pos = torch.stack(grids, dim=-1).reshape(-1, 2)
+        mod = denoiser.backbone.time_embedding(t).to(tokens.dtype)
+
+        forward = parallel.pipeline_dit(vit, mesh, microbatches=PP_MICROBATCHES)
+
+        _build.LAUNCHES.clear()
+        got = forward(tokens, mod, pos=pos)
+        launches = collections.Counter(_build.LAUNCHES)
+        want = DiT.forward(vit, tokens, mod, pos=pos)
+        err = errors(got, want)[1]
+        # a planted fault: a stage that leaves its last block out
+        faulty = copy.copy(vit)
+        faulty._modules = {**vit._modules, "blocks": vit.blocks[:-1]}
+        fault = errors(parallel.pipeline_dit(faulty, mesh, microbatches=PP_MICROBATCHES)(tokens, mod, pos=pos), want)[1]
+        del faulty
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        forward(tokens, mod, pos=pos)
+        pp_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        DiT.forward(vit, tokens, mod, pos=pos)
+        seq_peak = torch.cuda.max_memory_allocated() - base
+        pp_ms = elapsed_ms(lambda: forward(tokens, mod, pos=pos), reps=10)
+        seq_ms = elapsed_ms(lambda: DiT.forward(vit, tokens, mod, pos=pos), reps=10)
+
+        meter = profiling.Throughput()
+        for _ in range(5):
+            meter.update(forward(tokens, mod, pos=pos), items=DIT_BATCH)
+
+        profile_step(lambda: forward(tokens, mod, pos=pos), "a pipelined dit32 forward")
+        profile_step(lambda: DiT.forward(vit, tokens, mod, pos=pos), "the sequential dit32 forward")
+
+    expected = {"fused_msa": DIT_CALLS_PER_FORWARD["fused_msa"] * PP_MICROBATCHES}
+    log(f"(a) pipeline_dit over dit32's {len(vit.blocks)} blocks, bf16, batch {DIT_BATCH} in {PP_MICROBATCHES} "
+        f"microbatches, world size 1: launches {dict(launches)}, expected {expected}; against the sequential forward "
+        f"{err:.3e} of max |output| (tol {TOL_PP_BF16}; a planted fault, the last block left out: {fault:.3e}); "
+        f"{pp_ms:.3f} ms a forward against {seq_ms:.3f} ms sequential; peak above the inputs "
+        f"{pp_peak / 2**20:.1f} MiB against {seq_peak / 2**20:.1f} MiB; Throughput {meter.rate():.1f} images/s; {SMI}")
+    if launches != expected or err > TOL_PP_BF16 or fault <= TOL_PP_BF16:
+        raise AssertionError("pipeline_dit is not dit32's forward on its fused MSA launches")
+    out["forward"] = {"launches": launches, "ms": pp_ms, "sequential_ms": seq_ms, "err": err, "fault": fault,
+                      "images_s": meter.rate(), "peak_mib": pp_peak / 2**20, "sequential_peak_mib": seq_peak / 2**20}
+    out["call"] = (forward, (tokens, mod), {"pos": pos})
+
+    # (b) the S = 4 schedule on one card: 3 blocks a stage, the stages driven
+    # in turn, each receiving the sends the previous one recorded
+    blocks, k = list(vit.blocks), len(vit.blocks) // PP_STAGES
+    with torch.inference_mode():
+        h = vit.in_proj(tokens) + vit.pos_proj(vit.pos_encoding(pos).flatten(-2))
+        received, per_stage = None, []
+        for s in range(PP_STAGES):
+            exchange = pp.LoneStage(received)
+            _build.LAUNCHES.clear()
+            state = pp.pipeline_stage(
+                recipes._dit_block, blocks[s * k : (s + 1) * k], {"h": h, "mod": mod}, s, PP_STAGES, exchange,
+                microbatches=PP_MICROBATCHES, consts=({"pos": pos},),
+            )
+            per_stage.append(dict(_build.LAUNCHES))
+            received = exchange.sent
+        staged = vit.out_proj(state["h"])
+    err_b = errors(staged, want)[1]
+    stage_launches = {"fused_msa": k * PP_MICROBATCHES}
+    log(f"(b) the {PP_STAGES}-stage schedule in one process ({k} blocks a stage, {PP_MICROBATCHES} microbatches, "
+        f"fill and drain across the stages): launches by stage {per_stage}, expected {stage_launches} each; the "
+        f"last stage's output equal to (a)'s: {torch.equal(staged, got)}, against the sequential forward {err_b:.3e} "
+        f"(tol {TOL_PP_BF16}); {SMI}")
+    if any(n != stage_launches for n in per_stage) or err_b > TOL_PP_BF16 or not torch.equal(staged, got):
+        raise AssertionError("the lone-stage schedule is not (a)'s pipeline bit for bit")
+    out["stages"] = {"launches": sum((collections.Counter(n) for n in per_stage), collections.Counter()),
+                     "equal": bool(torch.equal(staged, got)), "err": err_b}
+
+    # (a) under grad, in float32: the flash route's forward and backward
+    vit32 = copy.deepcopy(vit).float()
+    forward32 = parallel.pipeline_dit(vit32, mesh, microbatches=PP_MICROBATCHES)
+    runs = {}
+    for label, fn in (("pipeline", forward32), ("sequential", lambda *a, **kw: DiT.forward(vit32, *a, **kw))):
+        vit32.zero_grad(set_to_none=True)
+        xg, mg = tokens.float().clone().requires_grad_(), mod.float().clone().requires_grad_()
+        _build.LAUNCHES.clear()
+        fn(xg, mg, pos=pos.float()).square().sum().backward()
+        grads = {"x": xg.grad, "mod": mg.grad}
+        grads.update({n: p.grad.clone() for n, p in vit32.named_parameters() if p.grad is not None})
+        runs[label] = (grads, collections.Counter(_build.LAUNCHES))
+    grads, launches = runs["pipeline"]
+    grads_seq, _ = runs["sequential"]
+    scale = max(g.abs().max().item() for g in grads_seq.values())
+    grad_err = max((grads[n] - grads_seq[n]).abs().max().item() for n in grads) / scale
+    expected = {name: n * PP_MICROBATCHES for name, n in DIT_TRAIN_CALLS_PER_STEP.items()}
+    blocks_reached = sum(n.startswith("blocks.") for n in grads)
+    log(f"(a) pipeline_dit's float32 backward: launches {dict(launches)}, expected {expected}; the gradients of the "
+        f"tokens, the modulation and the {len(grads) - 2} parameters ({blocks_reached} of them in the blocks; the "
+        f"sequential backward reaches {len(grads_seq) - 2}) against the sequential backward's: {grad_err:.3e} of the "
+        f"largest (tol {TOL_PP_GRAD}); {SMI}")
+    if launches != expected or grad_err > TOL_PP_GRAD or set(grads) != set(grads_seq):
+        raise AssertionError("pipeline_dit's backward is not the sequential backward on the flash kernels")
+    out["backward"] = {"launches": launches, "err": grad_err}
+    return out
+
+
+def serve_flux_full_width(generator, mesh) -> dict:
+    r"""Phase 53 (c): `serve_flux` on FLUX.1-dev at full width on the
+    ('data', 'model') = (1, 1) mesh, against the unplaced denoiser's DDIM
+    runs made before the placement (which is in place)."""
+
+    from azula_tpu_torch import parallel
+
+    torch.cuda.empty_cache()
+    flux = FluxDenoiser(FluxTransformer(device="cuda", dtype=torch.bfloat16, generator=generator), DecaySchedule())
+    nbytes = sum(p.numel() * p.element_size() for p in flux.parameters())
+    B = SERVE_BATCH
+    positive = dict(  # noqa: C408
+        prompt_t5=torch.randn((B, FLUX_TEXT, 4096), generator=generator, device="cuda", dtype=torch.bfloat16),
+        prompt_clip=torch.randn((B, 768), generator=generator, device="cuda", dtype=torch.bfloat16),
+        guidance=FLUX_GUIDANCE,
+    )
+    negative = dict(  # noqa: C408
+        prompt_t5=torch.zeros((B, FLUX_TEXT, 4096), device="cuda", dtype=torch.bfloat16),
+        prompt_clip=torch.zeros((B, 768), device="cuda", dtype=torch.bfloat16),
+        guidance=FLUX_GUIDANCE,
+    )
+    first = {k: v[:1] if isinstance(v, torch.Tensor) else v for k, v in positive.items()}
+    x1 = DDIMSampler(flux, steps=FLUX_STEPS).init((B, FLUX_SIDE, FLUX_SIDE, 64), generator=generator)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the unplaced sampler, its distilled run twice (the first warms up)
+        unplaced = DDIMSampler(flux, eta=0.0, steps=FLUX_STEPS)
+        unplaced(x1[:1], **first)
+        want_plain, plain_s = timed(lambda: unplaced(x1[:1], **first))
+        want_cfg, cfg_s = timed(lambda: DDIMSampler(CFGDenoiser(flux, batched=True), eta=0.0, steps=FLUX_STEPS)(
+            x1, positive=positive, negative=negative, guidance=SERVE_CFG
+        ))
+        peak_ref = torch.cuda.max_memory_allocated()
+        t_half = torch.full((1,), 0.5, device="cuda")
+        profile_step(lambda: flux(x1[:1], t_half, **first), "an unplaced FLUX.1-dev call at batch 1")
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sample = parallel.serve_flux(flux, mesh, steps=FLUX_STEPS)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        place_peak = torch.cuda.max_memory_allocated()
+        # a second server over the placed denoiser, in chunks of one image
+        chunked = parallel.serve_flux(flux, mesh, steps=FLUX_STEPS, microbatch=1)
+        placed = sum(p.numel() * p.element_size() for p in flux.parameters())
+
+        sample(x1[:1], first)  # warm-up: the process group's first collectives
+        profile_step(lambda: flux(x1[:1], t_half, **first), "a placed FLUX.1-dev call at batch 1")
+
+        runs = {}
+        for label, fn, batch, want, unplaced_s in (
+            ("distilled", lambda: sample(x1[:1], first), 1, want_plain, plain_s),
+            ("batched CFG", lambda: sample(x1, positive, negative=negative, guidance=SERVE_CFG), B, want_cfg, cfg_s),
+            ("chunked CFG", lambda: chunked(x1, positive, negative=negative, guidance=SERVE_CFG), B, None, cfg_s),
+        ):
+            _build.LAUNCHES.clear()
+            y, seconds = timed(fn)
+            launches = collections.Counter(_build.LAUNCHES)
+            if want is None:  # against the unchunked server's
+                want = runs["batched CFG"]["y"]
+            err = errors(y, want)[1]
+            chunks = batch if label.startswith("chunked") else 1
+            expected = {"attention_fwd_max_free": FLUX_CALLS_PER_FORWARD["attention_fwd_max_free"] * FLUX_STEPS * chunks}
+            log(f"(c) serve_flux {label} at batch {batch}: {seconds:.3f} s, {batch / seconds:.4f} images/s, "
+                f"{seconds / (FLUX_STEPS * chunks) * 1e3:.1f} ms a step (the unplaced sampler {unplaced_s:.3f} s, "
+                f"{seconds / unplaced_s:.3f}x); launches {dict(launches)}, expected "
+                f"{expected}; against {'the unchunked run' if label.startswith('chunked') else 'the unplaced sampler'}: "
+                f"{err:.3e} of max |x|, equal: {torch.equal(y, want)} (tol {TOL_SERVE}); {SMI}")
+            if launches != expected or not bool(torch.isfinite(y).all()) or err > TOL_SERVE:
+                raise AssertionError(f"serve_flux's {label} run is not the sampler's on its max-free launches")
+            runs[label] = {"y": y, "s": seconds, "images_s": batch / seconds, "launches": launches, "err": err,
+                           "equal": bool(torch.equal(y, want)), "unplaced_s": unplaced_s}
+        peak = torch.cuda.max_memory_allocated()
+
+        # a planted fault: the prompts of the batch's two images swapped
+        swapped = {k: v.flip(0) if isinstance(v, torch.Tensor) else v for k, v in positive.items()}
+        fault = errors(sample(x1, swapped, negative=negative, guidance=SERVE_CFG), want_cfg)[1]
+
+    log(f"(c) FLUX.1-dev placed in place in {place_s:.2f} s ({nbytes / 2**30:.2f} GiB of parameters before, "
+        f"{placed / 2**30:.2f} GiB after; peak {place_peak / 2**30:.2f} GiB while placing); peak of the served runs "
+        f"{peak / 2**30:.2f} GiB against the unplaced runs' {peak_ref / 2**30:.2f} GiB (limit + "
+        f"{SERVE_SLACK / 2**30:.1f} GiB: no second copy); a planted fault, the two prompts swapped: {fault:.3e} "
+        f"(tol {TOL_SERVE}); {SMI}")
+    if placed != nbytes or max(place_peak, peak) > peak_ref + SERVE_SLACK or fault <= TOL_SERVE:
+        raise AssertionError("serve_flux held a second copy of the weights, or its bound misses a fault")
+    out = {name: {k: v for k, v in run.items() if k != "y"} for name, run in runs.items()}
+    out["launches"] = sum((run["launches"] for run in runs.values()), collections.Counter())
+    out["peak_gib"], out["reference_peak_gib"], out["place_s"] = peak / 2**30, peak_ref / 2**30, place_s
+    return out
+
+
+def support_modules(generator, mesh, forward_args) -> None:
+    r"""Phase 53 (d): `prefetch_to_device` of a `batches` stream from pinned
+    host memory, `annotate` in a profiler trace, and `enable_nan_checks` on
+    a kernel's route and on a plain operation."""
+
+    from azula_tpu_torch.utils import data, profiling
+
+    host = torch.randn((PREFETCH_BATCHES * DIT_BATCH, 32, 32, 3), generator=torch.Generator().manual_seed(5))
+    labels = torch.arange(PREFETCH_BATCHES * DIT_BATCH)
+    batches = list(data.batches((host, labels), DIT_BATCH))
+    staged = list(data.prefetch_to_device(data.batches((host, labels), DIT_BATCH), size=2))
+    staged_mesh = list(data.prefetch_to_device(data.batches((host, labels), DIT_BATCH), size=2, mesh=mesh))
+    torch.cuda.synchronize()
+    equal = all(
+        b[0].device.type == "cuda" and torch.equal(b[0].cpu(), h[0]) and torch.equal(b[1].cpu(), h[1])
+        for run in (staged, staged_mesh) for b, h in zip(run, batches, strict=True)
+    )
+    log(f"(d) prefetch_to_device: {len(staged)} batches of {tuple(host.shape[1:])} at {DIT_BATCH} from pinned host "
+        f"memory, alone and on the mesh, equal to the host batches: {equal}; {SMI}")
+    if len(staged) != PREFETCH_BATCHES or not equal:
+        raise AssertionError("prefetch_to_device did not stage the host batches")
+
+    forward, args, kwargs = forward_args
+    with torch.inference_mode(), torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        with profiling.annotate("pipeline_dit forward"):
+            forward(*args, **kwargs)
+        with profiling.annotate("prefetch"):
+            next(data.prefetch_to_device(iter(batches[:1])))
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    log(f"(d) annotate: regions in the trace {sorted(n for n in names if n in ('pipeline_dit forward', 'prefetch'))}; "
+        f"{SMI}")
+    if not {"pipeline_dit forward", "prefetch"} <= names:
+        raise AssertionError("the annotated regions are missing from the profiler's trace")
+
+    heads = DIT32["attention_heads"]
+    scale = 1 / math.sqrt(DIT32["hid_channels"] // heads)
+    qkv = torch.randn((4, 256, 3 * DIT32["hid_channels"]), generator=generator, device="cuda", dtype=torch.bfloat16)
+    qkv[1, 7, 11] = float("nan")
+    caught = []
+    profiling.enable_nan_checks(True)
+    try:
+        for label, fn in (
+            ("fused MSA kernel", lambda: fused_msa._fused_msa_kernel(qkv, None, None, heads, 1e-5, scale)),
+            ("plain operation", lambda: torch.log(-torch.ones(3, device="cuda"))),
+        ):
+            try:
+                fn()
+                caught.append(f"{label}: not caught")
+            except FloatingPointError as error:
+                caught.append(f"{label}: {error}")
+    finally:
+        profiling.enable_nan_checks(False)
+    quiet = bool(torch.isnan(fused_msa._fused_msa_kernel(qkv, None, None, heads, 1e-5, scale)).any())
+    log(f"(d) enable_nan_checks: {caught}; off again, the kernel's NaN passes quietly: {quiet}; {SMI}")
+    if any(c.endswith("not caught") for c in caught) or "fused_msa" not in caught[0] or not quiet:
+        raise AssertionError("enable_nan_checks missed a NaN")
+
+
+def pipeline_and_serving(generator) -> dict:
+    r"""Phase 53: the pipeline and the serving recipes at full width at
+    world size 1 under `nccl` (no other backend is tried)."""
+
+    import torch.distributed as dist
+
+    from azula_tpu_torch import parallel
+
+    parallel.initialize_distributed(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0, timeout=120
+    )
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the process group runs {dist.get_backend()}, not nccl")
+        mesh = parallel.make_mesh(model=1, device="cuda")
+
+        pipeline = pipeline_dit_full_width(generator, mesh)
+        support_modules(generator, mesh, pipeline.pop("call"))
+        torch.cuda.empty_cache()
+
+        log(f"new shapes of the kernels on these paths, one call each; {SMI}")
+        timings = new_shape_timings(generator)
+        torch.cuda.empty_cache()
+
+        serving = serve_flux_full_width(generator, mesh)
+    finally:
+        dist.destroy_process_group()
+
+    return {"pipeline": pipeline, "serving": serving, "timings": timings}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=64, help="DDIM steps of the full-width ADM run")
@@ -6050,7 +6526,14 @@ def main() -> None:
 
     ckpt, ring, world1 = parallel_phases(generator)
 
-    log("== 53. result")
+    log("== 53. the pipeline and the serving recipes at full width, world size 1 under nccl: pipeline_dit over "
+        f"dit32's blocks in {PP_MICROBATCHES} microbatches, the {PP_STAGES}-stage schedule in one process, serve_flux "
+        "on FLUX.1-dev, the support modules")
+    t53 = time.perf_counter()
+    recipes = pipeline_and_serving(generator)
+    log(f"phase 53 took {time.perf_counter() - t53:.1f} s; {SMI}")
+
+    log("== 54. result")
     kernels = []
     for name, entry, path_launches, per_forward in (
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
@@ -6162,6 +6645,8 @@ def main() -> None:
         "jit_l16_cfg": jit_l, "jit_h16": jit_h,
         "load_adm256": loaded["adm256"], "load_sd2_unet": loaded["sd2_unet"],
         "adm256_checkpointed_backward": ckpt, "ring_step": ring, "world_size_1": world1,
+        "pipeline_dit": recipes["pipeline"]["forward"], "pipeline_dit_backward": recipes["pipeline"]["backward"],
+        "pipeline_lone_stages": recipes["pipeline"]["stages"], "serve_flux": recipes["serving"],
     }
     for entry in kernels:
         extra = {path: run["launches"][entry["name"]] for path, run in paths.items() if run["launches"].get(entry["name"])}
@@ -6178,6 +6663,15 @@ def main() -> None:
                 entry[key] = timings(calls, timed)
         if entry["name"] == "group_stats":
             entry["wide_groups"] = timings(len(WIDE_GN_SHAPES), stats["wide"])
+        # one call at each new shape of phase 53 (the microbatch of
+        # pipeline_dit; the ring step's block and whole sequence)
+        for key, t in recipes["timings"].items():
+            name, _, where = key.partition(" ")
+            if name == entry["name"]:
+                entry[where.replace(" ", "_") or "pipeline_dit_microbatch"] = {
+                    "shape": list(t["shape"]), "ms": t["ms"], "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                    "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "max_err": t["err"][1],
+                }
 
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

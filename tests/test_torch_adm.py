@@ -19,6 +19,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from azula_tpu.models import adm as jadm
 from azula_tpu.sample import DDIMSampler as JaxDDIM

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from jax.experimental.pallas import tpu as pltpu
 

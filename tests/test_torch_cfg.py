@@ -24,6 +24,7 @@ import numpy as np
 import pathlib
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from azula_tpu.guidance import CFGDenoiser as JaxCFG
 from azula_tpu.models import adm as jadm

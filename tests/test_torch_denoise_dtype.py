@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from test_torch_adm import CARD
 from test_torch_adm import _pair as _adm_pair

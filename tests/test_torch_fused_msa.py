@@ -14,6 +14,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 import types
 
 from azula_tpu.nn import attention as jattention

@@ -19,6 +19,7 @@ import pickletools
 import pytest
 import tarfile
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 import urllib.error
 import urllib.request
 import zipfile

@@ -173,3 +173,31 @@ def test_kernel_sources_exist_and_are_packaged():
 
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "build/" in ignored
+
+
+@pytest.mark.parametrize(
+    "module", ["debug.py", "utils/data.py", "utils/profiling.py", "parallel/pp.py", "parallel/recipes.py"]
+)
+def test_the_last_modules_are_checked(module):
+    # the modules of the last slice are among the sources the tests above read
+    assert PACKAGE / module in SOURCES
+
+
+def _imported_names(path: pathlib.Path) -> set[str]:
+    r"""The names a package's `__init__.py` imports from its own modules."""
+
+    tree = ast.parse(path.read_text())
+    return {
+        alias.asname or alias.name
+        for node in ast.walk(tree)
+        if isinstance(node, ast.ImportFrom) and node.level == 1
+        for alias in node.names
+    }
+
+
+@pytest.mark.parametrize("package", ["", "parallel"])
+def test_exports_cover_the_jax_packages(package):
+    # read as text: neither package is imported here
+    theirs = _imported_names(ROOT / "azula_tpu" / package / "__init__.py")
+    ours = _imported_names(PACKAGE / package / "__init__.py")
+    assert theirs and theirs <= ours, sorted(theirs - ours)

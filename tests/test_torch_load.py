@@ -32,6 +32,7 @@ import pytest
 import shutil
 import tarfile
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 import urllib.error
 import urllib.request
 

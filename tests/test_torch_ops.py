@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from azula_tpu.ops import attention as jattention
 from azula_tpu.ops import norm as jnorm

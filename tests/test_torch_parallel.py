@@ -29,6 +29,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 import torch_dist
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 import yaml
 
 from azula_tpu import noise as jnoise

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 import yaml
 
 from azula_tpu.guidance import CFGDenoiser as JaxCFG

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from azula_tpu.models import clip as jclip
 from azula_tpu.models import flux as jflux

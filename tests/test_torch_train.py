@@ -19,6 +19,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from jax.experimental.pallas import tpu as pltpu
 

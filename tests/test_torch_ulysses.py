@@ -19,6 +19,7 @@ import math
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  one thread a process
 import torch_dist
 
 from azula_tpu.nn.dit import DiT as JaxDiT

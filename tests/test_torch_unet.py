@@ -20,6 +20,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from azula_tpu import denoise as jdenoise
 from azula_tpu import noise as jnoise
@@ -27,7 +28,7 @@ from azula_tpu.nn import embedding as jembedding
 from azula_tpu.nn import layers as jlayers
 from azula_tpu.nn import unet as junet
 from azula_tpu.sample import DDIMSampler as JaxDDIM
-from azula_tpu.utils.pytree import combine, filter_jit, load_state_dict, partition, state_dict
+from azula_tpu.utils.pytree import combine, filter_eval_shape, filter_jit, load_state_dict, partition, state_dict
 from azula_tpu_torch import denoise as tdenoise
 from azula_tpu_torch import noise as tnoise
 from azula_tpu_torch import train as ttrain
@@ -80,6 +81,15 @@ def _load_jax(module, sd):
     return load_state_dict(module, {k: jnp.asarray(v) for k, v in sd.items()})
 
 
+def _skeleton(cls, *args, **kwargs):
+    r"""A JAX module built abstractly: `_pair` draws every leaf of it."""
+
+    return filter_eval_shape(cls, *args, **kwargs, key=jax.random.key(0))
+
+
+_jax_call = filter_jit(lambda module, *args, **kwargs: module(*args, **kwargs))
+
+
 def _pair(jmodule, tmodule, seed):
     sd = _random_state(jmodule, seed)
     # the converter takes the leaves of submodules: a lone layer's go under "m."
@@ -108,7 +118,7 @@ def test_conv_matches_jax(spatial, padding, periodic, stride):
     kernel = (3, 4, 3)[:spatial]
     kwargs = dict(kernel_size=kernel, stride=(stride,) * spatial, padding=padding, periodic=periodic)  # noqa: C408
     jconv, tconv = _pair(
-        jlayers.Conv(5, 6, **kwargs, key=jax.random.key(0)), tlayers.Conv(5, 6, **kwargs, device="cpu"), 1
+        _skeleton(jlayers.Conv, 5, 6, **kwargs), tlayers.Conv(5, 6, **kwargs, device="cpu"), 1
     )
 
     x = _x((2, *(9, 8, 7)[:spatial], 5), seed=2)
@@ -122,7 +132,7 @@ def test_conv_matches_jax(spatial, padding, periodic, stride):
 @pytest.mark.parametrize("channels", [(4, 6), (6, 4)])
 def test_identity_init_matches_jax(channels):
     jconv, tconv = _pair(
-        jlayers.Conv(*channels, kernel_size=(3, 3), key=jax.random.key(0)),
+        _skeleton(jlayers.Conv, *channels, kernel_size=(3, 3)),
         tlayers.Conv(*channels, kernel_size=(3, 3), device="cpu"),
         3,
     )
@@ -152,7 +162,7 @@ def test_convnd_and_upsample():
 @pytest.mark.parametrize("spatial", [1, 2])
 def test_ada_zero_matches_jax(mod_features, spatial):
     jada, tada = _pair(
-        junet.AdaZero(mod_features, 12, key=jax.random.key(0)), tunet.AdaZero(mod_features, 12, device="cpu"), 5
+        _skeleton(junet.AdaZero, mod_features, 12), tunet.AdaZero(mod_features, 12, device="cpu"), 5
     )
     mod = _x((3, mod_features), seed=6) if mod_features else None
 
@@ -171,12 +181,12 @@ def test_ada_zero_matches_jax(mod_features, spatial):
 def test_unet_block_matches_jax(norm):
     kwargs = dict(mod_features=8, norm=norm, groups=4, ffn_factor=2, kernel_size=(3, 3), padding=((1, 1), (1, 1)))  # noqa: C408
     jblock, tblock = _pair(
-        junet.UNetBlock(16, **kwargs, key=jax.random.key(0)), tunet.UNetBlock(16, **kwargs, device="cpu"), 7
+        _skeleton(junet.UNetBlock, 16, **kwargs), tunet.UNetBlock(16, **kwargs, device="cpu"), 7
     )
     x = _x((2, 6, 5, 16), seed=8) * 2 + 0.5
     mod = _x((2, 8), seed=9)
 
-    want = jblock(jnp.asarray(x), jnp.asarray(mod))
+    want = _jax_call(jblock, jnp.asarray(x), jnp.asarray(mod))
     got = tblock(torch.from_numpy(x), torch.from_numpy(mod))
 
     assert _rel_err(got, want) <= TOL
@@ -234,7 +244,7 @@ def test_unet_block_checkpointing_keeps_output_and_gradients():
 )
 def test_unet_matches_jax(kwargs, shape):
     jnet, tnet = _pair(
-        junet.UNet(3, 2, mod_features=8, **kwargs, key=jax.random.key(0)),
+        _skeleton(junet.UNet, 3, 2, mod_features=8, **kwargs),
         tunet.UNet(3, 2, mod_features=8, **kwargs, device="cpu"),
         14,
     )
@@ -242,7 +252,7 @@ def test_unet_matches_jax(kwargs, shape):
     mod = _x((shape[0], 8), seed=16)
     cond = _x((*shape, kwargs["cond_channels"]), seed=17) if kwargs["cond_channels"] else None
 
-    want = jnet(jnp.asarray(x), jnp.asarray(mod), cond=None if cond is None else jnp.asarray(cond))
+    want = _jax_call(jnet, jnp.asarray(x), jnp.asarray(mod), cond=None if cond is None else jnp.asarray(cond))
     with torch.no_grad():
         got = tnet(torch.from_numpy(x), torch.from_numpy(mod), cond=None if cond is None else torch.from_numpy(cond))
 
@@ -257,8 +267,9 @@ def _slice_pair(norm: str, seed: int):
     r"""The same random tiny UNet denoiser in JAX and in the port (on the CPU),
     with the JAX backbone."""
 
-    k1, k2 = jax.random.split(jax.random.key(0))
-    jbackbone = jembedding.Modulated(junet.UNet(3, 3, norm=norm, **TINY, key=k1), 16, key=k2)
+    jbackbone = filter_eval_shape(
+        lambda: jembedding.Modulated(junet.UNet(3, 3, norm=norm, **TINY, key=jax.random.key(0)), 16, key=jax.random.key(1))
+    )
     tbackbone = tembedding.Modulated(tunet.UNet(3, 3, norm=norm, **TINY, device="cpu"), 16, device="cpu")
     jbackbone, tbackbone = _pair(jbackbone, tbackbone, seed)
 
@@ -289,14 +300,20 @@ def test_denoiser_and_ddim_match_jax(norm):
     assert _rel_err(got, want) <= 5 * TOL
 
 
-def _jax_value_and_grad(jbackbone, x, t, key):
+@filter_jit
+def _jax_loss_and_grads(jbackbone, x, t, key):
     params, static = partition(jbackbone)
 
     def loss_fn(p):
         return jdenoise.KarrasDenoiser(combine(p, static), jnoise.VPSchedule()).loss(x, t, key)
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
-    return loss, combine(grads, static)
+    return jax.value_and_grad(loss_fn)(params)
+
+
+def _jax_value_and_grad(jbackbone, x, t, key):
+    # jitted: one compile for the file's calls, where op by op compiles each
+    loss, grads = _jax_loss_and_grads(jbackbone, x, t, key)
+    return loss, combine(grads, partition(jbackbone)[1])
 
 
 @pytest.mark.parametrize("norm", ["group", "layer"])
@@ -338,12 +355,13 @@ def test_adamw_steps_match_optax():
     optimizer = optax.adamw(1e-4)
     state = optimizer.init(params)
     toptimizer = torch.optim.AdamW(td.parameters(), **ttrain.OPTAX_ADAMW)
+    update, apply_updates = jax.jit(optimizer.update), jax.jit(optax.apply_updates)
 
     for i in range(3):
         key = jax.random.key(27 + i)
         _, grads = _jax_value_and_grad(combine(params, static), x, t, key)
-        updates, state = optimizer.update(partition(grads)[0], state, params)
-        params = optax.apply_updates(params, updates)
+        updates, state = update(partition(grads)[0], state, params)
+        params = apply_updates(params, updates)
 
         z = torch.from_numpy(np.array(jax.random.normal(key, x.shape, dtype=jnp.float32)))
         td._loss(torch.from_numpy(np.array(x)), torch.from_numpy(np.array(t)), z).backward()
@@ -367,7 +385,9 @@ def _to_jax_layout(key: str, value: np.ndarray) -> np.ndarray:
 
 
 def test_converter_both_ways():
-    jbackbone = jembedding.Modulated(junet.UNet(3, 3, norm="group", **TINY, key=jax.random.key(0)), 16, key=jax.random.key(1))
+    jbackbone = filter_eval_shape(
+        lambda: jembedding.Modulated(junet.UNet(3, 3, norm="group", **TINY, key=jax.random.key(0)), 16, key=jax.random.key(1))
+    )
     tbackbone = tembedding.Modulated(tunet.UNet(3, 3, norm="group", **TINY, device="cpu"), 16, device="cpu")
     sd = _random_state(jbackbone, 28)
 
@@ -385,7 +405,7 @@ def test_converter_both_ways():
         assert np.array_equal(np.asarray(value), sd[key]), key
 
     # AdaZero without modulation: its (3, C) param crosses as it is
-    jnet = junet.UNet(3, 3, hid_channels=(8,), hid_blocks=(1,), key=jax.random.key(2))
+    jnet = _skeleton(junet.UNet, 3, 3, hid_channels=(8,), hid_blocks=(1,))
     sd0 = _random_state(jnet, 29)
     assert "descent.0.1.ada_zero.param" in sd0
     out = from_jax_state_dict(sd0, tunet.UNet(3, 3, hid_channels=(8,), hid_blocks=(1,), device="cpu"))

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import re
 import torch
+import torch_cpu  # noqa: F401  one thread a process
 
 from azula_tpu.models import autoencoder as jvae
 from azula_tpu.utils.pytree import filter_eval_shape, filter_jit, load_state_dict, state_dict

@@ -1,7 +1,8 @@
 r"""The ranks of the port's multi-rank tests on the CPU, and their launcher.
 
-`tests/test_torch_parallel.py`, `tests/test_torch_ring.py` and
-`tests/test_torch_ulysses.py` each start one group of `WORLD` processes
+`tests/test_torch_parallel.py`, `tests/test_torch_ring.py`,
+`tests/test_torch_ulysses.py` and `tests/test_torch_pipeline.py` each start
+one group of `WORLD` processes
 (:func:`launch`) that run every case of their suite under the `gloo`
 backend, while the test process computes the JAX side; then they compare.
 The ranks rendezvous through a `FileStore` in the test's temporary
@@ -90,6 +91,9 @@ SD = dict(  # noqa: C408
 )
 TRAIN_STEPS = 3
 FSDP_MIN_SIZE = 1024
+PP_BLOCK = dict(channels=32, mod_features=16, attention_heads=4)  # noqa: C408
+PP_DIT = dict(in_channels=3, out_channels=3, mod_features=16, hid_channels=32, hid_blocks=8, attention_heads=4)  # noqa: C408
+FLUX_MIN_SIZE = 256
 
 
 class Dummy(nn.Module):
@@ -570,9 +574,194 @@ def ulysses_tp_composition(inputs, rank):
     return {"out": out, "grads": [_sum(q.grad)]}
 
 
+# ----------------------------------------------------------------- pipeline
+
+
+def _stage_slices(t: torch.Tensor, group) -> torch.Tensor:
+    r"""The whole stack of a parameter from each stage's slice of its
+    gradient (each rank's gradient is zero outside its slice)."""
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    k = t.shape[0] // n
+    return _gather_rows(t[r * k : (r + 1) * k].contiguous(), group)
+
+
+def tanh_block(p, x):
+    r"""The block of `tests/test_parallel.py`'s pipeline tests."""
+
+    return x + torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline_blocks_equality(inputs, rank):
+    mesh = parallel.make_mesh(model=WORLD, device="cpu")
+    params = {k: _t(inputs[k]) for k in ("w", "b")}
+    x = _t(inputs["x"])
+
+    with torch.no_grad():
+        return {
+            f"M={m}": parallel.pipeline_blocks(tanh_block, params, x, mesh, microbatches=m)
+            for m in (None, 8)
+        }
+
+
+def pipeline_real_dit_blocks(inputs, rank):
+    from azula_tpu_torch.nn.dit import DiTBlock
+
+    mesh = parallel.make_mesh(model=WORLD, device="cpu")
+    blocks = [_loaded(DiTBlock(**PP_BLOCK, device="cpu"), state) for state in inputs["states"]]
+    x, mod = _t(inputs["x"]), torch.ones(1, PP_BLOCK["mod_features"])
+
+    params, apply = parallel.stack_modules(blocks)
+    with torch.no_grad():
+        out = parallel.pipeline_blocks(lambda p, h: apply(p, h, mod), params, x, mesh)
+
+    try:
+        parallel.stack_modules([blocks[0], DiTBlock(**{**PP_BLOCK, "attention_heads": 2, "channels": 16}, device="cpu")])
+        refused = False
+    except ValueError:
+        refused = True
+
+    return {"out": out, "refused": refused}
+
+
+def pipeline_blocks_grads(inputs, rank):
+    mesh = parallel.make_mesh(model=WORLD, device="cpu")
+    w = _t(inputs["w"]).requires_grad_()
+    x = _t(inputs["x"]).requires_grad_()
+
+    out = parallel.pipeline_blocks(lambda p, h: h + torch.tanh(h @ p["w"]), {"w": w}, x, mesh)
+    out.square().sum().backward()
+
+    return {"w": _stage_slices(w.grad, mesh.get_group("model")), "x": x.grad}
+
+
+def pipeline_blocks_pytree_state(inputs, rank):
+    mesh = parallel.make_mesh(model=WORLD, device="cpu")
+
+    def block_fn(p, state, shift):
+        h = state["h"] + torch.tanh(state["scale"] * (state["h"] @ p["w"]) + shift)
+        return {**state, "h": h}
+
+    with torch.no_grad():
+        out = parallel.pipeline_blocks(
+            block_fn, {"w": _t(inputs["w"])}, {"h": _t(inputs["x"]), "scale": _t(inputs["scale"])}, mesh,
+            consts=(_t(inputs["shift"]),),
+        )
+
+    return out
+
+
+def pipeline_dit_equality(inputs, rank):
+    mesh = parallel.make_mesh(model=WORLD, device="cpu")
+    out = {}
+    for name, case in inputs.items():
+        dit = _loaded(DiT(**PP_DIT, **case.get("config", {}), device="cpu"), case["state"])
+        forward = parallel.pipeline_dit(dit, mesh)
+        kwargs = {k: _t(case[k]) for k in ("mod", "pos") if k in case}
+        with torch.no_grad():
+            out[name] = forward(_t(case["x"]), **kwargs)
+    return out
+
+
+def pipeline_dit_grads(inputs, rank):
+    mesh = parallel.make_mesh(model=WORLD, device="cpu")
+    dit = _loaded(DiT(**{**PP_DIT, "hid_blocks": 4}, device="cpu"), inputs["state"])
+    x, mod = _t(inputs["x"]).requires_grad_(), _t(inputs["mod"]).requires_grad_()
+
+    parallel.pipeline_dit(dit, mesh)(x, mod).square().sum().backward()
+
+    # every parameter the backward reached on this rank: the replicated
+    # projections and this rank's stage's blocks
+    params = {name: p.grad for name, p in dit.named_parameters() if p.grad is not None}
+
+    return {"x": x.grad, "mod": mod.grad, "params": params}
+
+
+def _flux_denoiser(state):
+    from azula_tpu_torch.models.flux import FluxDenoiser
+    from azula_tpu_torch.models.flux.backbone import FluxTransformer
+
+    return FluxDenoiser(_loaded(FluxTransformer(**FLUX, device="cpu"), state))
+
+
+def _whole(p: torch.Tensor, mesh) -> torch.Tensor:
+    r"""The whole parameter from each rank's piece of a serving placement:
+    the 'data' split gathered first, then the tensor-parallel one."""
+
+    placement = getattr(p, "placement", None)
+    p = p.detach()
+    if placement is None:
+        return p
+    if placement.then is not None:
+        axis, dim = placement.then
+        p = _gather_rows(p, mesh.get_group(axis), dim=dim)
+        placement = placement._replace(then=None)
+    return _gather_parameter(p, placement, mesh.get_group(placement.axis))
+
+
+def pipeline_serve_flux(inputs, rank):
+    mesh = parallel.make_mesh(data=2, model=2, device="cpu")
+    x1 = _t(inputs["x1"])
+    positive, negative = ({k: v if isinstance(v, float) else _t(v) for k, v in inputs[c].items()} for c in ("positive", "negative"))
+
+    denoiser = _flux_denoiser(inputs["state"])
+    specs = parallel.flux_serving_shardings(denoiser, mesh, min_size=FLUX_MIN_SIZE)
+    whole = {name: p.detach().clone() for name, p in denoiser.named_parameters()}
+
+    with torch.no_grad():
+        sampler = parallel.serve_flux(denoiser, mesh, steps=3, min_size=FLUX_MIN_SIZE)
+        out = parallel.gather_batch(sampler(x1, positive), mesh)
+        cfg = parallel.gather_batch(sampler(x1, positive, negative=negative, guidance=2.5), mesh)
+
+        chunked = parallel.serve_flux(_flux_denoiser(inputs["state"]), mesh, steps=3, microbatch=4, min_size=FLUX_MIN_SIZE)
+        mb = parallel.gather_batch(chunked(x1, positive, negative=negative, guidance=2.5), mesh)
+
+    # the placement: every piece's size, and the whole parameters again
+    pieces = {name: tuple(p.shape) for name, p in denoiser.named_parameters()}
+    unjoined = [name for name, p in denoiser.named_parameters() if not torch.equal(_whole(p, mesh), whole[name])]
+
+    # the sharded checkpoint of the placement, into another placed denoiser
+    directory = pathlib.Path(inputs["directory"])
+    save_checkpoint_sharded(directory, denoiser, mesh=mesh)
+    other = _flux_denoiser(inputs["state"])
+    with torch.no_grad():
+        for p in other.parameters():
+            p.zero_()
+    other = parallel.recipes._place(other, mesh, FLUX_MIN_SIZE)
+    load_checkpoint_sharded(directory, other, mesh=mesh)
+    restored = all(torch.equal(a, b) for a, b in zip(denoiser.parameters(), other.parameters(), strict=True))
+    dims = sorted({(p.placement.axis, p.placement.then is not None) for p in other.parameters() if hasattr(p, "placement")})
+
+    # a placed denoiser is served again on its own placement only
+    refused = {}
+    elsewhere = {
+        "min_size": (denoiser, FLUX_MIN_SIZE + 1),
+        "shard_module": (tp.shard_module(_flux_denoiser(inputs["state"]), mesh, rules=tp.FLUX_TP_RULES), FLUX_MIN_SIZE),
+    }
+    for case, (module, min_size) in elsewhere.items():
+        try:
+            parallel.serve_flux(module, mesh, steps=3, min_size=min_size)
+            refused[case] = None
+        except ValueError as e:
+            refused[case] = str(e)
+    parallel.serve_flux(denoiser, mesh, steps=3, min_size=FLUX_MIN_SIZE)
+
+    return {
+        "specs": {name: tuple((type(p).__name__, getattr(p, "dim", None)) for p in spec) for name, spec in specs.items()},
+        "pieces": pieces,
+        "unjoined": unjoined,
+        "restored": restored,
+        "dims": dims,
+        "refused": refused,
+        "out": out,
+        "cfg": cfg,
+        "mb": mb,
+    }
+
+
 SUITES = {
     suite: {name.removeprefix(suite + "_"): fn for name, fn in globals().items() if name.startswith(suite + "_") and callable(fn)}
-    for suite in ("parallel", "ring", "ulysses")
+    for suite in ("parallel", "ring", "ulysses", "pipeline")
 }
 
 
