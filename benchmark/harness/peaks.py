@@ -1,0 +1,5 @@
+r"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates
+without sparsity, at the full power limit of 700 W)."""
+
+HBM_BYTES_PER_S = 3.35e12
+FLOPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float8": 1979e12, "tf32": 495e12, "float32": 67e12}
