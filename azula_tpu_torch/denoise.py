@@ -35,6 +35,7 @@ from torch import Tensor, nn
 from .linalg.covariance import Covariance, IsotropicCovariance
 from .nn.utils import get_module_dtype
 from .noise import Schedule
+from .utils.profiling import annotate
 
 
 def broadcast_scales(alpha_t: Tensor, sigma_t: Tensor, x: Tensor) -> tuple[Tensor, Tensor]:
@@ -97,9 +98,16 @@ class GaussianPosterior(Posterior):
 
 
 class Denoiser(nn.Module, abc.ABC):
-    r"""Abstract denoiser module."""
+    r"""Abstract denoiser module.
+
+    Every call runs in the span `azula.denoise` (:func:`~azula_tpu_torch.utils.profiling.annotate`),
+    its hooks included."""
 
     schedule: Schedule
+
+    def __call__(self, *args, **kwargs) -> Posterior:
+        with annotate("azula.denoise"):
+            return super().__call__(*args, **kwargs)
 
     @abc.abstractmethod
     def forward(self, x_t: Tensor, t: Tensor, **kwargs) -> Posterior:

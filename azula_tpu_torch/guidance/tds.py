@@ -25,6 +25,7 @@ from torch import Tensor
 
 from ..denoise import Denoiser
 from ..sample import Sampler
+from ..utils.profiling import annotate
 from ._common import require_autograd
 
 
@@ -95,53 +96,54 @@ class TDSSampler(Sampler):
         log_w = torch.zeros(K, dtype=x.dtype, device=x.device)
 
         for i in range(self.steps):
-            t, s = time[i], time[i + 1]
+            with annotate("azula.sample.step"):
+                t, s = time[i], time[i + 1]
 
-            alpha_s, sigma_s = self.denoiser.schedule(s)
-            alpha_t, sigma_t = self.denoiser.schedule(t)
+                alpha_s, sigma_s = self.denoiser.schedule(s)
+                alpha_t, sigma_t = self.denoiser.schedule(t)
 
-            # the twisted score through the denoiser
-            with torch.enable_grad():
-                x_t = x.detach().requires_grad_()
-                x_hat = self.denoiser(x_t, t, **kwargs).mean
-                log_p_y = self.twist(x_hat, sigma_t / alpha_t)
-                (score_y,) = torch.autograd.grad(log_p_y.sum(), x_t)
-            x_hat, log_p_y = x_hat.detach(), log_p_y.detach()
+                # the twisted score through the denoiser
+                with torch.enable_grad():
+                    x_t = x.detach().requires_grad_()
+                    x_hat = self.denoiser(x_t, t, **kwargs).mean
+                    log_p_y = self.twist(x_hat, sigma_t / alpha_t)
+                    (score_y,) = torch.autograd.grad(log_p_y.sum(), x_t)
+                x_hat, log_p_y = x_hat.detach(), log_p_y.detach()
 
-            # the twist factor at the current time joins the weights
-            log_p_y = log_p_y.reshape(K, -1).sum(dim=-1)
-            log_w = log_p_y + log_w
+                # the twist factor at the current time joins the weights
+                log_p_y = log_p_y.reshape(K, -1).sum(dim=-1)
+                log_w = log_p_y + log_w
 
-            # adaptive resampling, both branches on the device
-            resample = _log_ess(log_w) < threshold
-            idx = torch.where(resample, self._resample(log_w, generator), ancestors)
-            x, x_hat, log_p_y, score_y = x[idx], x_hat[idx], log_p_y[idx], score_y[idx]
-            log_w = torch.where(resample, torch.zeros_like(log_w), log_w[idx])
+                # adaptive resampling, both branches on the device
+                resample = _log_ess(log_w) < threshold
+                idx = torch.where(resample, self._resample(log_w, generator), ancestors)
+                x, x_hat, log_p_y, score_y = x[idx], x_hat[idx], log_p_y[idx], score_y[idx]
+                log_w = torch.where(resample, torch.zeros_like(log_w), log_w[idx])
 
-            # the proposal: a DDPM transition, twisted
-            def ddpm_loc_scale(mean):
-                eps = (x - alpha_t * mean) / sigma_t
-                tau = (alpha_t / alpha_s * sigma_s / sigma_t) ** 2
-                return alpha_s * mean + sigma_s * torch.sqrt(tau) * eps, sigma_s * torch.sqrt(1 - tau)
+                # the proposal: a DDPM transition, twisted
+                def ddpm_loc_scale(mean):
+                    eps = (x - alpha_t * mean) / sigma_t
+                    tau = (alpha_t / alpha_s * sigma_s / sigma_t) ** 2
+                    return alpha_s * mean + sigma_s * torch.sqrt(tau) * eps, sigma_s * torch.sqrt(1 - tau)
 
-            # no twist on the last transition, whose scale collapses to
-            # sigma_min (as in the JAX package)
-            shift = sigma_t**2 / alpha_t if i < self.steps - 1 else torch.zeros_like(sigma_t)
+                # no twist on the last transition, whose scale collapses to
+                # sigma_min (as in the JAX package)
+                shift = sigma_t**2 / alpha_t if i < self.steps - 1 else torch.zeros_like(sigma_t)
 
-            loc, scale = ddpm_loc_scale(x_hat)
-            loc_y, scale_y = ddpm_loc_scale(x_hat + shift * score_y)
+                loc, scale = ddpm_loc_scale(x_hat)
+                loc_y, scale_y = ddpm_loc_scale(x_hat + shift * score_y)
 
-            x_s = loc_y + scale_y * self._normal(generator, x.shape, x)
+                x_s = loc_y + scale_y * self._normal(generator, x.shape, x)
 
-            # the incremental weight q(x_s | x_t) / [q_y(x_s | x_t) p(y | x_t)]
-            log_q_xs = _normal_log_prob(x_s, loc, scale).reshape(K, -1).sum(dim=-1)
-            log_q_xs_y = _normal_log_prob(x_s, loc_y, scale_y).reshape(K, -1).sum(dim=-1)
+                # the incremental weight q(x_s | x_t) / [q_y(x_s | x_t) p(y | x_t)]
+                log_q_xs = _normal_log_prob(x_s, loc, scale).reshape(K, -1).sum(dim=-1)
+                log_q_xs_y = _normal_log_prob(x_s, loc_y, scale_y).reshape(K, -1).sum(dim=-1)
 
-            log_w = log_w + log_q_xs - log_q_xs_y - log_p_y
-            x = x_s
+                log_w = log_w + log_q_xs - log_q_xs_y - log_p_y
+                x = x_s
 
             if tracker is not None:
-                tracker(i)
+                tracker(i, x)
 
         if self.return_weights:
             # the terminal twist factor completes the weights

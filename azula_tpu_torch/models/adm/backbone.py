@@ -34,6 +34,7 @@ from ...nn.layers import Conv, Dropout, GroupNorm, Linear
 from ...nn.utils import checkpoint
 from ...ops.attention import dot_product_attention
 from ...ops.norm import group_norm_silu
+from ...utils.profiling import annotate
 
 
 def timestep_embedding(t: Tensor, dim: int, max_period: float = 10000.0) -> Tensor:
@@ -302,6 +303,13 @@ class ADMAttentionBlock(nn.Module):
         return (t + a).reshape(B, *spatial, C)
 
 
+def _span(layers: nn.ModuleList) -> str:
+    r"""The span of a block of the UNet: its layers' classes, as
+    `azula.block.ADMResBlock+ADMAttentionBlock`."""
+
+    return "azula.block." + "+".join(type(m).__name__ for m in layers)
+
+
 class ADMUNet(nn.Module):
     r"""The full ADM UNet with attention and timestep embedding, channels-last.
 
@@ -452,6 +460,13 @@ class ADMUNet(nn.Module):
         self.out_norm = _norm(ch, device, dtype)
         self.out_conv = _zero(_conv3(input_ch, out_channels, **factory))
 
+        # the span of each block in `forward`
+        self._spans = (
+            [_span(layers) for layers in self.input_blocks],
+            _span(self.middle_block),
+            [_span(layers) for layers in self.output_blocks],
+        )
+
     def forward(
         self,
         x: Tensor,
@@ -489,22 +504,28 @@ class ADMUNet(nn.Module):
                 h = layer(h, emb, generator=generator)
             return h
 
-        def run(layers, h):
-            if self.checkpointing and torch.is_grad_enabled():
-                return checkpoint(functools.partial(stage, layers))(h, emb, generator=generator)
-            return stage(layers, h, emb, generator)
+        def run(layers, h, span):
+            with annotate(span):
+                if self.checkpointing and torch.is_grad_enabled():
+                    return checkpoint(functools.partial(stage, layers))(h, emb, generator=generator)
+                return stage(layers, h, emb, generator)
 
+        inputs, middle, outputs = self._spans
         hs = []
         h = x
 
-        for i, layers in enumerate(self.input_blocks):
-            h = run(layers, h) if i > 0 else layers[0](h)
+        for i, (layers, span) in enumerate(zip(self.input_blocks, inputs)):
+            if i > 0:
+                h = run(layers, h, span)
+            else:
+                with annotate(span):
+                    h = layers[0](h)
             hs.append(h)
 
-        h = run(self.middle_block, h)
+        h = run(self.middle_block, h, middle)
 
-        for layers in self.output_blocks:
-            h = run(layers, (h, hs.pop()))
+        for layers, span in zip(self.output_blocks, outputs):
+            h = run(layers, (h, hs.pop()), span)
 
         h = h.to(x.dtype)
         h = F.silu(self.out_norm(h))

@@ -29,6 +29,7 @@ from torch import Tensor, nn
 from ...denoise import Denoiser, DiracPosterior, time_scales
 from ...nn.utils import get_module_dtype, skip_init
 from ...noise import DecaySchedule, Schedule
+from ...utils.profiling import annotate
 from ..utils import check_manifest, load_cards, load_device, load_weights
 from .backbone import FluxTransformer
 
@@ -182,37 +183,39 @@ class FluxDenoiser(Denoiser):
             The Dirac delta :math:`\delta(Z - \mu_\phi(z_t \mid y))`.
         """
 
-        _, alpha_t, sigma_t = time_scales(self.schedule, t, z_t)
-
-        c_in = 1 / (alpha_t + sigma_t)
-        c_out = -sigma_t / (alpha_t + sigma_t)
-        c_skip = 1 / (alpha_t + sigma_t)
-        c_time = (sigma_t / (alpha_t + sigma_t)).reshape(-1)
-
-        B, H, W, C = z_t.shape
-        L, D = prompt_t5.shape[-2:]
-
         # the backbone's inputs, the time, the ids and the guidance included,
         # are rounded to its dtype, as in the JAX package
-        dtype = get_module_dtype(self.backbone)
-        device = z_t.device
+        with annotate("azula.denoise.inputs"):
+            _, alpha_t, sigma_t = time_scales(self.schedule, t, z_t)
 
-        img_ids = torch.tensor(self.coordinates(H, W), dtype=dtype, device=device)  # a copy of the cached array
-        txt_ids = torch.zeros((L, 3), dtype=dtype, device=device)
+            c_in = 1 / (alpha_t + sigma_t)
+            c_out = -sigma_t / (alpha_t + sigma_t)
+            c_skip = 1 / (alpha_t + sigma_t)
+            c_time = (sigma_t / (alpha_t + sigma_t)).reshape(-1)
 
-        if guidance is not None:
-            guidance = torch.broadcast_to(torch.as_tensor(guidance, dtype=dtype, device=device), (B,))
+            B, H, W, C = z_t.shape
+            L, D = prompt_t5.shape[-2:]
 
-        output = self.backbone(
-            timestep=torch.broadcast_to(c_time, (B,)).to(dtype),
-            hidden_states=(c_in * z_t).to(dtype).reshape(B, H * W, C),
-            encoder_hidden_states=torch.broadcast_to(prompt_t5.to(dtype), (B, L, D)),
-            pooled_projections=prompt_clip.to(dtype),
-            img_ids=img_ids,
-            txt_ids=txt_ids,
-            guidance=guidance,
-            **kwargs,
-        )
+            dtype = get_module_dtype(self.backbone)
+            device = z_t.device
+
+            img_ids = torch.tensor(self.coordinates(H, W), dtype=dtype, device=device)  # a copy of the cached array
+            txt_ids = torch.zeros((L, 3), dtype=dtype, device=device)
+
+            if guidance is not None:
+                guidance = torch.broadcast_to(torch.as_tensor(guidance, dtype=dtype, device=device), (B,))
+
+            inputs = dict(  # noqa: C408
+                timestep=torch.broadcast_to(c_time, (B,)).to(dtype),
+                hidden_states=(c_in * z_t).to(dtype).reshape(B, H * W, C),
+                encoder_hidden_states=torch.broadcast_to(prompt_t5.to(dtype), (B, L, D)),
+                pooled_projections=prompt_clip.to(dtype),
+                img_ids=img_ids,
+                txt_ids=txt_ids,
+                guidance=guidance,
+            )
+
+        output = self.backbone(**inputs, **kwargs)
         output = output.reshape(z_t.shape).to(z_t.dtype)
 
         return DiracPosterior(mean=c_skip * z_t + c_out * output)

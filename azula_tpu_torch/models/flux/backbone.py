@@ -30,6 +30,7 @@ from torch import Tensor, nn
 from ...nn.layers import LayerNorm, Linear, rms_norm
 from ...nn.utils import default_device
 from ...ops.attention import dot_product_attention
+from ...utils.profiling import annotate
 
 
 def sinusoidal_timestep_embedding(t: Tensor, dim: int) -> Tensor:
@@ -439,12 +440,14 @@ class FluxTransformer(nn.Module):
         cos, sin = rope_cos_sin(ids, self.axes_dims_rope)
 
         for block in self.transformer_blocks:
-            img, txt = block(img, txt, emb, cos, sin)
+            with annotate("azula.block.FluxTransformerBlock"):
+                img, txt = block(img, txt, emb, cos, sin)
 
         h = torch.cat([txt, img], dim=1)
 
         for block in self.single_transformer_blocks:
-            h = block(h, emb, cos, sin)
+            with annotate("azula.block.FluxSingleTransformerBlock"):
+                h = block(h, emb, cos, sin)
 
         h = h[:, txt.shape[1] :]
 

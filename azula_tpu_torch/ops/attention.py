@@ -45,6 +45,7 @@ import torch
 from torch import Tensor
 
 from . import _build
+from ..utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 192, 256)
@@ -787,6 +788,18 @@ def _max_free_route(q: Tensor) -> bool:
     return L > _BATCHED_MAX_L and L % 128 == 0 and D % 64 == 0 and D <= 256
 
 
+def _attention_work(q: Tensor, k: Tensor, v: Tensor) -> tuple[tuple[int, ...], int, int]:
+    r"""An attention call's nominal work: shape :math:`(B, H, L_q, L_k, D)`,
+    :math:`4 B H L_q L_k D` FLOPs, q, k and v read once and o written once."""
+
+    *lead, H, Lq, D = q.shape
+    Lk = k.shape[-2]
+    B = math.prod(lead)
+    nbytes = q.element_size() * B * H * (2 * Lq * D + Lk * (D + v.shape[-1]))
+
+    return (B, H, Lq, Lk, D), 4 * B * H * Lq * Lk * D, nbytes
+
+
 def dot_product_attention(
     q: Tensor,
     k: Tensor,
@@ -852,47 +865,48 @@ def dot_product_attention(
         The attention output, with shape :math:`(*, H, L, D)`.
     """
 
-    if implementation not in (None, "auto", "kernel", "plain"):
-        raise ValueError(f"unknown attention implementation '{implementation}'")
+    with profiling.annotate("azula.ops.attention", _attention_work, q, k, v):
+        if implementation not in (None, "auto", "kernel", "plain"):
+            raise ValueError(f"unknown attention implementation '{implementation}'")
 
-    if dropout_rate > 0 and generator is None:
-        raise ValueError("attention dropout requires a `generator`")
+        if dropout_rate > 0 and generator is None:
+            raise ValueError("attention dropout requires a `generator`")
 
-    if scale is None:
-        scale = 1 / math.sqrt(q.shape[-1])
+        if scale is None:
+            scale = 1 / math.sqrt(q.shape[-1])
 
-    masked = mask is not None or dropout_rate > 0
-    if masked:
-        covered = _use_kernels(q, k, v, mask, floor=128 if dropout_rate > 0 else 512)
-    else:
-        covered = _self_attention(q, k, v)
-
-    if implementation == "plain" or not covered:
-        if dropout_rate > 0:
-            return _attention_dropout_plain(q, k, v, mask, dropout_rate, generator, scale)
-        return _attention_plain(q, k, v, mask=mask, scale=scale)
-
-    on_card = implementation == "kernel" or q.device.type == "cuda"
-    if not on_card and dropout_rate == 0:
-        return _attention_plain(q, k, v, mask=mask, scale=scale)
-
-    bias, mode = (None, "one") if mask is None else _mask_to_bias(mask, q)
-    seed = _dropout_seed(generator, q.device) if dropout_rate > 0 else None
-
-    if not on_card:
-        return _flash(q, k, v, scale, "plain", bias, mode, seed, dropout_rate)
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        masked = mask is not None or dropout_rate > 0
         if masked:
-            return _flash(q, k, v, scale, implementation="kernel", bias=bias, mode=mode, seed=seed, rate=dropout_rate)
-        return _flash(q, k, v, scale, implementation="kernel")
+            covered = _use_kernels(q, k, v, mask, floor=128 if dropout_rate > 0 else 512)
+        else:
+            covered = _self_attention(q, k, v)
 
-    if masked:
-        return _attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale, bias, mode, seed, dropout_rate)
+        if implementation == "plain" or not covered:
+            if dropout_rate > 0:
+                return _attention_dropout_plain(q, k, v, mask, dropout_rate, generator, scale)
+            return _attention_plain(q, k, v, mask=mask, scale=scale)
 
-    kernel = _attention_max_free_kernel if max_free and _max_free_route(q) else _attention_kernel
+        on_card = implementation == "kernel" or q.device.type == "cuda"
+        if not on_card and dropout_rate == 0:
+            return _attention_plain(q, k, v, mask=mask, scale=scale)
 
-    return kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+        bias, mode = (None, "one") if mask is None else _mask_to_bias(mask, q)
+        seed = _dropout_seed(generator, q.device) if dropout_rate > 0 else None
+
+        if not on_card:
+            return _flash(q, k, v, scale, "plain", bias, mode, seed, dropout_rate)
+
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            if masked:
+                return _flash(q, k, v, scale, implementation="kernel", bias=bias, mode=mode, seed=seed, rate=dropout_rate)
+            return _flash(q, k, v, scale, implementation="kernel")
+
+        if masked:
+            return _attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale, bias, mode, seed, dropout_rate)
+
+        kernel = _attention_max_free_kernel if max_free and _max_free_route(q) else _attention_kernel
+
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale)
 
 
 def _split_heads(x: Tensor, heads: int) -> Tensor:

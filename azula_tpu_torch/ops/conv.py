@@ -30,6 +30,7 @@ from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ..utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -140,7 +141,8 @@ def conv3x3(x: Tensor, w: Tensor) -> Tensor:
         The output, with shape :math:`(B, H, W, K)` and the dtype of `x`.
     """
 
-    return _Conv3x3.apply(x, w)
+    with profiling.annotate("azula.ops.conv3x3"):
+        return _Conv3x3.apply(x, w)
 
 
 def can_use_conv3x3(x_shape, w_shape, stride, padding, periodic: bool) -> bool:

@@ -33,6 +33,7 @@ import torch
 from torch import Tensor
 
 from . import _build
+from ..utils import profiling
 from .attention import _BLHD_HEAD_DIMS, _BLHD_MAX_L, _attention_tiled_plain, _flash_blhd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -316,28 +317,29 @@ def fused_msa_attention(
         the feature layout of the unfused path.
     """
 
-    if implementation not in (None, "auto", "kernel", "plain"):
-        raise ValueError(f"unknown fused MSA implementation '{implementation}'")
+    with profiling.annotate("azula.ops.fused_msa"):
+        if implementation not in (None, "auto", "kernel", "plain"):
+            raise ValueError(f"unknown fused MSA implementation '{implementation}'")
 
-    D = qkv.shape[-1] // 3 // heads
+        D = qkv.shape[-1] // 3 // heads
 
-    if scale is None:
-        scale = 1 / math.sqrt(D)
+        if scale is None:
+            scale = 1 / math.sqrt(D)
 
-    if theta is not None:
-        cos2, sin2 = rope_tables(theta, heads)
-    else:
-        cos2 = sin2 = None
+        if theta is not None:
+            cos2, sin2 = rope_tables(theta, heads)
+        else:
+            cos2 = sin2 = None
 
-    if implementation in (None, "auto"):
-        implementation = "kernel" if qkv.device.type == "cuda" else "plain"
+        if implementation in (None, "auto"):
+            implementation = "kernel" if qkv.device.type == "cuda" else "plain"
 
-    if implementation == "plain":
-        return _fused_msa_plain(qkv, cos2, sin2, heads, eps, scale)
+        if implementation == "plain":
+            return _fused_msa_plain(qkv, cos2, sin2, heads, eps, scale)
 
-    # as the JAX package's `_fused` custom_vjp: the serving kernel has no
-    # backward, so a forward that autograd records takes the flash route
-    if torch.is_grad_enabled() and (qkv.requires_grad or (theta is not None and theta.requires_grad)):
-        return _reference_core_flash(qkv, cos2, sin2, heads, eps, scale, implementation="kernel")
+        # as the JAX package's `_fused` custom_vjp: the serving kernel has no
+        # backward, so a forward that autograd records takes the flash route
+        if torch.is_grad_enabled() and (qkv.requires_grad or (theta is not None and theta.requires_grad)):
+            return _reference_core_flash(qkv, cos2, sin2, heads, eps, scale, implementation="kernel")
 
-    return _fused_msa_kernel(qkv.contiguous(), cos2, sin2, heads, eps, scale)
+        return _fused_msa_kernel(qkv.contiguous(), cos2, sin2, heads, eps, scale)

@@ -53,6 +53,7 @@ from torch.autograd.function import once_differentiable
 from typing import NamedTuple
 
 from . import _build
+from ..utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -624,7 +625,8 @@ def group_stats(x: Tensor, groups: int, implementation: str | None = None) -> tu
     if x.shape[-1] % groups:
         raise ValueError(f"channels ({x.shape[-1]}) must be divisible by groups ({groups})")
 
-    return _GroupStats.apply(x, groups, implementation)
+    with profiling.annotate("azula.ops.group_stats"):
+        return _GroupStats.apply(x, groups, implementation)
 
 
 def _gn_forward(
@@ -707,6 +709,17 @@ def _gn_fused(
     return _gn_forward(x, P, Q, groups, eps, silu, implementation)
 
 
+def _gn_work(x: Tensor, *params: Tensor | None) -> tuple[tuple[int, ...], int, int]:
+    r"""A GroupNorm call's nominal work: shape :math:`(B, HW, C)`, no FLOPs
+    counted (it is bound by its bytes), x read once, the output written once,
+    and the affine and modulation parameters that it is given read once."""
+
+    B, C = x.shape[0], x.shape[-1]
+    nbytes = 2 * x.numel() * x.element_size() + sum(p.numel() * p.element_size() for p in params if p is not None)
+
+    return (B, x.numel() // (B * C), C), 0, nbytes
+
+
 def group_norm(
     x: Tensor,
     groups: int,
@@ -736,9 +749,10 @@ def group_norm(
         The normalized tensor, with shape :math:`(B, *, C)` and the dtype of `x`.
     """
 
-    xf, P, Q = _compose_affine(x, groups, scale, bias, mod_scale, mod_shift)
+    with profiling.annotate("azula.ops.group_norm", _gn_work, x, scale, bias, mod_scale, mod_shift):
+        xf, P, Q = _compose_affine(x, groups, scale, bias, mod_scale, mod_shift)
 
-    return _gn_fused(xf, P, Q, groups, eps, False, implementation).reshape(x.shape)
+        return _gn_fused(xf, P, Q, groups, eps, False, implementation).reshape(x.shape)
 
 
 def group_norm_silu(
@@ -754,6 +768,7 @@ def group_norm_silu(
     r"""Fused GroupNorm (+ optional modulation) + SiLU, in one elementwise
     pass after the statistics. Arguments as :func:`group_norm`."""
 
-    xf, P, Q = _compose_affine(x, groups, scale, bias, mod_scale, mod_shift)
+    with profiling.annotate("azula.ops.group_norm", _gn_work, x, scale, bias, mod_scale, mod_shift):
+        xf, P, Q = _compose_affine(x, groups, scale, bias, mod_scale, mod_shift)
 
-    return _gn_fused(xf, P, Q, groups, eps, True, implementation).reshape(x.shape)
+        return _gn_fused(xf, P, Q, groups, eps, True, implementation).reshape(x.shape)

@@ -34,33 +34,39 @@ import sys
 import torch
 
 from collections.abc import Sequence
-from time import perf_counter
 from torch import Tensor
 
 from .denoise import Denoiser
 from .nn.utils import _linspace
+from .utils.profiling import _mark, _ready, _seconds, annotate
 
 
 class _Progress:
-    r"""Host-side sampling progress line with rate and ETA, printed to stderr
-    after each step. It reads no tensor, so it never waits for the card: its
-    rate is the rate at which the host enqueues steps."""
+    r"""Sampling progress line with rate and ETA, printed to stderr after
+    each step: the steps queued, the rate at which the device completes
+    them and the time until it completes the last. On a CUDA device an event
+    is recorded after each step and queried without a wait, so the line
+    never waits for the card; on the CPU, where a step is done when it
+    returns, the host clock times it."""
 
     def __init__(self, total: int) -> None:
         self.total = total
-        self.t0 = None
+        self.marks = []  # `profiling._mark` after each step
+        self.done = 0  # steps the device has completed
 
-    def __call__(self, i: int) -> None:
+    def __call__(self, i: int, x: Tensor) -> None:
+        marks = self.marks
+        marks.append(_mark(x))
+
+        while self.done < len(marks) and _ready(marks[self.done]):
+            self.done += 1
+
+        done = self.done
+        dt = _seconds(marks[0], marks[done - 1]) if done > 1 else 0.0
+        rate = (done - 1) / dt if dt > 0 else float("nan")
+        eta = (self.total - done) / rate if rate > 0 else float("nan")
+
         i = i + 1
-
-        if i == 1 or self.t0 is None:
-            self.t0 = perf_counter()
-            rate = eta = float("nan")
-        else:
-            dt = perf_counter() - self.t0
-            rate = (i - 1) / dt if dt > 0 else float("nan")
-            eta = (self.total - i) / rate if rate > 0 else float("nan")
-
         end = "\n" if i >= self.total else ""
         print(
             f"\rsampling {i}/{self.total} ({rate:5.2f} steps/s, ETA {eta:4.0f}s)",
@@ -180,9 +186,10 @@ class Sampler(abc.ABC):
         tracker = self._tracker()
 
         for i in range(self.steps):
-            x = self.step(x, time[i], time[i + 1], generator=generator, **kwargs)
+            with annotate("azula.sample.step"):
+                x = self.step(x, time[i], time[i + 1], generator=generator, **kwargs)
             if tracker is not None:
-                tracker(i)
+                tracker(i, x)
 
         return x
 
@@ -487,15 +494,16 @@ class _MultistepSampler(Sampler):
         tracker = self._tracker()
 
         for i in range(self.steps):
-            q_t = self.denoiser(x, time[i], **kwargs)
-            d_t = self._derivative(x, q_t.mean, alpha[i], sigma[i])
+            with annotate("azula.sample.step"):
+                q_t = self.denoiser(x, time[i], **kwargs)
+                d_t = self._derivative(x, q_t.mean, alpha[i], sigma[i])
 
-            history = torch.cat((history[1:], d_t.to(x.dtype)[None]))
-            integral = torch.tensordot(table[i], history, dims=1)
+                history = torch.cat((history[1:], d_t.to(x.dtype)[None]))
+                integral = torch.tensordot(table[i], history, dims=1)
 
-            x = self._update(x, integral, alpha[i], sigma[i], alpha[i + 1], sigma[i + 1])
+                x = self._update(x, integral, alpha[i], sigma[i], alpha[i + 1], sigma[i + 1])
             if tracker is not None:
-                tracker(i)
+                tracker(i, x)
 
         return x
 

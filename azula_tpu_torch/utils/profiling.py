@@ -2,9 +2,12 @@ r"""Tracing and profiling helpers.
 
 Port of :mod:`azula_tpu.utils.profiling`:
 
-- :func:`annotate` — named regions in `torch.profiler` traces;
-- :class:`Throughput` — an items/s counter that waits for the card at each
-  update;
+- :func:`annotate` — the program's spans, named regions of a
+  `torch.profiler` trace, opened only while a profiler records; a kernel
+  call's span also keeps a :class:`Record` of its nominal work
+  (:func:`records`, :func:`clear_records`);
+- :class:`Throughput` — an items/s counter that marks each update on the
+  card's stream and waits for the card once, when its rate is read;
 - :func:`enable_nan_checks` — raises `FloatingPointError` where an operation
   gives a NaN, the counterpart of JAX's `jax_debug_nans`.
 """
@@ -12,42 +15,160 @@ Port of :mod:`azula_tpu.utils.profiling`:
 from __future__ import annotations
 
 __all__ = [
-    "annotate",
+    "Record",
     "Throughput",
+    "annotate",
+    "clear_records",
     "enable_nan_checks",
+    "records",
 ]
 
+import collections
 import contextlib
 import time
 import torch
 
+from collections.abc import Callable
+from torch.autograd import profiler as _profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+from typing import NamedTuple
 
 from ..ops import _build
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    r"""Named trace region visible in `torch.profiler` traces."""
+class Record(NamedTuple):
+    r"""One kernel call, kept while a profiler records.
 
-    with torch.profiler.record_function(name):
-        yield
+    Attributes:
+        op: The name of the call's span (`'azula.ops.attention'`, ...).
+        route: The kernels it launched, by their `ops._build.LAUNCHES` names
+            joined by `'+'`, or `'plain'` where it launched none.
+        shape: The shape its work is counted from, in the op's own order.
+        flops: Its nominal floating-point operations, from its arguments'
+            shapes, whichever route computed them.
+        bytes: Its nominal memory traffic: each input read once, each output
+            written once.
+    """
+
+    op: str
+    route: str
+    shape: tuple[int, ...]
+    flops: int
+    bytes: int
 
 
-def _sync(tree) -> None:
-    r"""Waits until the card has computed the first tensor of `tree`; a CPU
-    tensor is ready already."""
+# the newest records, so that a long or repeated profiler session keeps a
+# bounded list (a traced sampling trajectory keeps a few thousand)
+_KEEP = 1 << 16
+_RECORDS: collections.deque[Record] = collections.deque(maxlen=_KEEP)
+
+# a span while no profiler records: the flag check and this null context
+_OFF = contextlib.nullcontext()
+
+
+def records() -> list[Record]:
+    r"""The records kept since the last :func:`clear_records`, oldest
+    first: the newest 65,536 of them."""
+
+    return list(_RECORDS)
+
+
+def clear_records() -> None:
+    r"""Drops the kept records."""
+
+    _RECORDS.clear()
+
+
+class _Span:
+    r"""A `record_function` region; with `work`, a kernel call's span, which
+    adds its :class:`Record` once it closes."""
+
+    __slots__ = ("args", "before", "name", "region", "work")
+
+    def __init__(self, name: str, work: Callable | None, args: tuple) -> None:
+        self.name, self.work, self.args = name, work, args
+
+    def __enter__(self) -> None:
+        if self.work is not None:
+            self.before = dict(_build.LAUNCHES)
+        self.region = torch.profiler.record_function(self.name)
+        self.region.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        self.region.__exit__(*exc)
+
+        if self.work is not None and exc[0] is None:
+            route = "+".join(k for k, n in _build.LAUNCHES.items() if n != self.before.get(k, 0))
+            shape, flops, nbytes = self.work(*self.args)
+            _RECORDS.append(Record(self.name, route or "plain", shape, flops, nbytes))
+
+        return False
+
+
+def annotate(name: str, work: Callable | None = None, *args):
+    r"""The program's span: a named region of a `torch.profiler` trace, on
+    the profiler's clock, inside the span open around it.
+
+    While no profiler records in the process, it reads the profiler's own
+    flag and opens nothing; there is no other switch. Code that
+    `torch.compile` traces opens none either. While one records, the
+    span is a `torch.profiler.record_function` region and, given `work`, a
+    kernel call's span: once it closes, :func:`records` holds the call's
+    :class:`Record`, with the route it took and its work `work(*args)`, a
+    `(shape, flops, bytes)` triple.
+
+    .. code-block:: python
+
+        with annotate("azula.sample.step"):
+            x = sampler.step(x, t, s)
+    """
+
+    if not _profiler._is_profiler_enabled or torch.compiler.is_compiling():
+        return _OFF
+
+    return _Span(name, work, args)
+
+
+def _mark(tree):
+    r"""A completion mark after the work queued for the first tensor of
+    `tree`: a CUDA event on its device's current stream, or the host clock
+    for a CPU tensor, which is ready already."""
 
     for leaf in tree_leaves(tree):
         if isinstance(leaf, torch.Tensor):
             if leaf.device.type == "cuda":
-                torch.cuda.synchronize(leaf.device)
-            return
+                event = torch.cuda.Event(enable_timing=True)
+                event.record(torch.cuda.current_stream(leaf.device))
+                return event
+            break
+
+    return time.perf_counter()
+
+
+def _ready(mark) -> bool:
+    r"""Whether the work before a mark of :func:`_mark` is done, without a
+    wait."""
+
+    return not isinstance(mark, torch.cuda.Event) or mark.query()
+
+
+def _seconds(first, last) -> float:
+    r"""The seconds between two marks of :func:`_mark`, both done."""
+
+    if isinstance(first, torch.cuda.Event):
+        return first.elapsed_time(last) / 1e3
+
+    return last - first
 
 
 class Throughput:
-    r"""Synchronized throughput counter.
+    r"""Throughput counter on the card's clock.
+
+    Each :meth:`update` marks the end of the work queued so far (a CUDA
+    event; the host clock for CPU tensors) and never waits. :meth:`rate`
+    waits once, for the last mark, and gives the items of the updates after
+    the first over the time from the first mark to the last.
 
     .. code-block:: python
 
@@ -60,22 +181,25 @@ class Throughput:
 
     def __init__(self) -> None:
         self.items = 0
-        self.start = None
-        self.elapsed = 0.0
+        self.first = self.last = None
+        self.first_items = 0
 
     def update(self, result, items: int) -> None:
-        if self.start is None:
-            self.start = time.perf_counter()
-
-        _sync(result)
-
+        self.last = _mark(result)
         self.items += items
-        self.elapsed = time.perf_counter() - self.start
+
+        if self.first is None:
+            self.first, self.first_items = self.last, items
 
     def rate(self) -> float:
-        if not self.elapsed:
+        if self.first is None or self.last is self.first:
             return 0.0
-        return self.items / self.elapsed
+
+        if isinstance(self.last, torch.cuda.Event):
+            self.last.synchronize()
+        elapsed = _seconds(self.first, self.last)
+
+        return (self.items - self.first_items) / elapsed if elapsed > 0 else 0.0
 
 
 # the operations that give uninitialized memory, which may hold any bits
