@@ -34,6 +34,7 @@ from ...nn.layers import Conv, Dropout, GroupNorm, Linear
 from ...nn.utils import checkpoint
 from ...ops.attention import dot_product_attention
 from ...ops.norm import group_norm_silu
+from ...ops.residual import residual_add
 from ...utils.profiling import annotate
 
 
@@ -232,11 +233,16 @@ class ADMResBlock(nn.Module):
             )
 
         h = self.drop(h, generator)
-        h = self.out_conv(h)
 
-        skip = x if self.skip is None else self.skip(x)
+        # the convolutions without their biases, which the residual sum adds
+        # in the same pass (cuDNN adds a bias in a broadcast pass of its own)
+        h, b_out = self.out_conv(h, defer_bias=True)
+        if self.skip is None:
+            skip, b_skip = x, None
+        else:
+            skip, b_skip = self.skip(x, defer_bias=True)
 
-        return skip + h
+        return residual_add(skip, h, b_out, b_skip)
 
 
 class ADMAttentionBlock(nn.Module):

@@ -151,7 +151,17 @@ class Conv(nn.Module):
         for i in range(min(in_channels, out_channels)):
             self.weight[(i, i, *center)] += 1.0
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, defer_bias: bool = False) -> Tensor | tuple[Tensor, Tensor | None]:
+        r"""
+        Arguments:
+            x: The input, with shape :math:`(B, *, C_i)`.
+            defer_bias: Whether to return the convolution without its bias
+                and, beside it, the bias in the dtype of `x` (or `None`), for
+                a caller that adds it in a later pass of its own
+                (`ops.residual_add`). Through the module's call, so that hooks
+                on it (the parallel layer's parameter gathers) see both.
+        """
+
         h = x.movedim(-1, 1)  # (B, C, *spatial) view of channels-last memory
 
         # F.pad takes (lo, hi) pairs from the last dimension to the first
@@ -166,9 +176,11 @@ class Conv(nn.Module):
             padding = 0
 
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        y = _CONV[len(self.stride)](h, self.weight.to(x.dtype), bias, stride=self.stride, padding=padding)
+        w = self.weight.to(x.dtype)
+        y = _CONV[len(self.stride)](h, w, None if defer_bias else bias, stride=self.stride, padding=padding)
+        y = y.movedim(1, -1)
 
-        return y.movedim(1, -1)
+        return (y, bias) if defer_bias else y
 
 
 def ConvNd(

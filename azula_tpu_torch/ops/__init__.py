@@ -5,6 +5,7 @@ from .attention import dot_product_attention
 from .conv import conv3x3
 from .fused_msa import fused_msa_attention
 from .norm import group_norm, group_norm_silu, group_stats
+from .residual import residual_add
 
 __all__ = [
     "conv3x3",
@@ -13,4 +14,5 @@ __all__ = [
     "group_norm",
     "group_norm_silu",
     "group_stats",
+    "residual_add",
 ]

@@ -113,6 +113,8 @@ _SIGNATURES = {
     "azula_flash_blhd_fwd_tc_shared_bytes": [_I, _I],
     # q, k, v, o, g, lse, dq, dk, dv, delta, dq_acc, B, L, H, D, scale, dtype, stream
     "azula_flash_blhd_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
+    # skip, h, b0, b1, out, rows, C, dtype, stream
+    "azula_residual_add": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -35,7 +35,12 @@ Phases, each of which raises on failure:
    group of up to 2048 channels, spanning up to four bands, or of a whole
    256 x 256 image): each against its plain version in bf16 and float32,
    timed beside its bound and `F.group_norm`, and at |mean| / std = 1e4
-   against the float64 GroupNorm.
+   against the float64 GroupNorm. Each recorded residual sum
+   (`residual.residual_add`, which must launch its kernel) bit for bit
+   against its plain version in bf16 and float32, timed beside its bound,
+   its plain version and the library's `skip + h + b_1 + b_2`; and the
+   kernel's bandwidth at the benchmark's largest residual,
+   `RESIDUAL_LARGEST`, with two biases.
 4. slice: the tiny ADM of the CPU tests, same random weights, on the CPU
    (plain versions) and on the card (kernels), float32: the denoiser's output
    and a 4-step DDIM trajectory.
@@ -360,7 +365,9 @@ Phases, each of which raises on failure:
    without and with `checkpointing=True` (each after a warm-up backward):
    within `TOL_CKPT_GRAD` of each other; the same forward launches, and
    the checkpointed backward's exactly the plain backward's plus the
-   forward's but for the final GroupNorm; peak memory, forward and
+   forward's but for the final GroupNorm and the residual sums that end a
+   stage (the recomputation stops once the saved tensors are back); peak
+   memory, forward and
    backward time of each, and the warm-up's gradients against the timed
    run's (the run-to-run spread); planted faults, `emb` cut from the graph
    in the middle stage and in every stage, the latter above
@@ -430,7 +437,8 @@ Phases, each of which raises on failure:
    39-42, 44-47 and 49-53 added to their kernels' entries, by path; the
    wide groups' and the new paths' GroupNorm timings beside the GroupNorm
    and statistics entries; phase 53's calls at the new shapes beside their
-   kernels), then the result line.
+   kernels; the residual sum's bandwidth at `RESIDUAL_LARGEST` beside its
+   entry), then the result line.
 
 The last line of standard output is the JSON result
 `{"ok": true, "device": {...}}`; nothing is printed there unless every phase
@@ -481,7 +489,7 @@ from azula_tpu_torch.nn.layers import Conv, GroupNorm
 from azula_tpu_torch.nn.unet import UNet, UNetBlock
 from azula_tpu_torch.nn.vit import ViT
 from azula_tpu_torch.noise import DecaySchedule, VPSchedule
-from azula_tpu_torch.ops import _build, attention, conv, fused_msa, norm
+from azula_tpu_torch.ops import _build, attention, conv, fused_msa, norm, residual
 from azula_tpu_torch.sample import DDIMSampler
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory, bf16 tensor cores,
@@ -495,8 +503,12 @@ GROUPS = 32
 # per forward of imagenet_256x256 (42 ResBlocks, 16 attention blocks): two
 # fused GroupNorm + SiLU per ResBlock (the skip concatenation runs as one
 # GroupNorm), one GroupNorm before each attention block and the final
-# `out_norm`, whose SiLU runs after it, unfused, as in the JAX package
-CALLS_PER_FORWARD = {"group_norm_silu": 84, "group_norm": 17, "attention_fwd": 16}
+# `out_norm`, whose SiLU runs after it, unfused, as in the JAX package; and
+# one residual sum per ResBlock, which adds its convolutions' biases
+CALLS_PER_FORWARD = {"group_norm_silu": 84, "group_norm": 17, "attention_fwd": 16, "residual_add": 42}
+# the largest residual sum of the benchmark's ADM-256 cell (batch 16), whose
+# bandwidth phase 3 reads
+RESIDUAL_LARGEST = (16, 256, 256, 256)
 
 # dit32 (bench.py's `_dit32`): DiT-S-class ViT, 32 x 32 x 3 images, patch 2
 # (L = 256 tokens), 384 channels in 6 heads of 64, 12 blocks; one fused MSA
@@ -881,7 +893,7 @@ MMPS_VJPS_PER_STEP = 2
 GUIDED_STEPS = 4
 GUIDED_LAUNCHES_PER_STEP = {
     "group_norm_silu": 84, "group_norm": 17, "group_stats": 101,
-    "attention_fwd_lse": 16, "attention_bwd": 16 * MMPS_VJPS_PER_STEP,
+    "attention_fwd_lse": 16, "attention_bwd": 16 * MMPS_VJPS_PER_STEP, "residual_add": 42,
 }
 # per step, by sequence length: the LSE forwards and the backwards (rows 9 at
 # L = 1024, row 8's form at L = 256 and 64)
@@ -1243,8 +1255,8 @@ def recording():
     r"""Records the kernel calls (shape, dtype, flags and one set of affine
     inputs per distinct call) that the main path makes while it is active:
     GroupNorm, the group statistics, the attention forwards (exact,
-    max-free, fused MSA) and the attention training route (the LSE forward
-    and the backward)."""
+    max-free, fused MSA), the attention training route (the LSE forward
+    and the backward) and the residual sums with their biases."""
 
     calls = collections.Counter()
     affine = {}
@@ -1283,13 +1295,19 @@ def recording():
         calls[("bwd", tuple(q.shape), q.dtype, scale)] += 1
         return bwd_kernel(q, k, v, o, lse_, g, scale, *masked)
 
+    def residual_sum(skip, h, *biases):
+        calls[("residual", tuple(h.shape), h.dtype, len(biases))] += 1
+        return residual_kernel(skip, h, *biases)
+
     def stats(x, groups):
         calls[("stats", tuple(x.shape), x.dtype, groups)] += 1
         return stats_kernel(x, groups)
 
     lse_kernel, bwd_kernel = attention._attention_lse_kernel, attention._attention_bwd_kernel
     stats_kernel = norm._STATS["kernel"]
+    residual_kernel = residual._residual_add_kernel
     norm._compose_affine, norm._group_norm_kernel, attention._attention_kernel = compose_affine, gn, attn
+    residual._residual_add_kernel = residual_sum
     fused_msa._fused_msa_kernel, attention._attention_max_free_kernel = msa, max_free
     attention._attention_lse_kernel, attention._attention_bwd_kernel = lse, bwd
     norm._STATS["kernel"] = stats
@@ -1300,6 +1318,7 @@ def recording():
         fused_msa._fused_msa_kernel, attention._attention_max_free_kernel = msa_kernel, max_free_kernel
         attention._attention_lse_kernel, attention._attention_bwd_kernel = lse_kernel, bwd_kernel
         norm._STATS["kernel"] = stats_kernel
+        residual._residual_add_kernel = residual_kernel
 
 
 def kernel_name(key) -> str:
@@ -1309,7 +1328,7 @@ def kernel_name(key) -> str:
         return "group_norm_silu" if key[4] else "group_norm"
     return {
         "attn": "attention_fwd", "msa": "fused_msa", "max_free": "attention_fwd_max_free",
-        "lse": "attention_fwd_lse", "bwd": "attention_bwd", "stats": "group_stats",
+        "lse": "attention_fwd_lse", "bwd": "attention_bwd", "stats": "group_stats", "residual": "residual_add",
     }[key[0]]
 
 
@@ -3424,7 +3443,8 @@ def check_recorded(label: str, calls, affine, seed: int, quiet: bool = True) -> 
     the recorded affine inputs (`check_gn_calls`, the planner's plan for
     the recorded batch), the attention forward (`check_attention`), the
     statistics (`check_stats_case`) and the LSE forward with the backward
-    (`check_training_pair`, also against their bf16 rounding points). The
+    (`check_training_pair`, also against their bf16 rounding points) and
+    the residual sums (`check_residual_case`, bit for bit). The
     inputs come from a generator seeded with `seed`, so that the path's own
     draws stay as they were. One line for the path, and one per training
     pair; `quiet=False` adds one per call."""
@@ -3444,6 +3464,11 @@ def check_recorded(label: str, calls, affine, seed: int, quiet: bool = True) -> 
                 worst["group_stats", dtype] = max(worst["group_stats", dtype], mean_rel, var_rel)
                 if not quiet:
                     log(line)
+        for key in sorted(k for k in calls if k[0] == "residual"):
+            for dtype in (torch.bfloat16, torch.float32):
+                worst["residual_add", dtype] = max(
+                    worst["residual_add", dtype], check_residual_case(key[1], key[3], dtype, generator)
+                )
         pairs = sorted({(k[1], k[3]) for k in calls if k[0] in ("lse", "bwd")})
         for shape, scale in pairs:
             for dtype in (torch.bfloat16, torch.float32):
@@ -3457,6 +3482,75 @@ def check_recorded(label: str, calls, affine, seed: int, quiet: bool = True) -> 
     shapes = collections.Counter(kernel_name(k) for k in calls)
     log(f"  {label}: every recorded call against its plain version, distinct shapes {dict(shapes)}; worst rel err "
         + ", ".join(f"{name} {str(dtype)[6:]} {err:.3e}" for (name, dtype), err in worst.items()))
+
+
+def residual_inputs(shape, biases: int, dtype, generator) -> tuple:
+    r"""Random `skip`, `h` of `shape` and `biases` per-channel biases on the
+    card, in `dtype`."""
+
+    skip, h = (torch.randn(shape, generator=generator, device="cuda").to(dtype) for _ in range(2))
+    bs = [torch.randn(shape[-1], generator=generator, device="cuda").to(dtype) for _ in range(biases)]
+    return skip, h, bs
+
+
+def check_residual_case(shape, biases: int, dtype, generator) -> float:
+    r"""`residual.residual_add` (on the card, `csrc/residual.cu`) against its
+    plain version on random inputs of `shape` with `biases` biases: the
+    same float32 expression in the same order, rounded once, so bit for
+    bit; the call must launch the kernel. Returns the largest difference."""
+
+    skip, h, bs = residual_inputs(shape, biases, dtype, generator)
+    before = _build.LAUNCHES["residual_add"]
+    got = residual.residual_add(skip, h, *bs)
+    if _build.LAUNCHES["residual_add"] != before + 1:
+        raise AssertionError(f"residual_add at {shape} {dtype} did not launch its kernel")
+    want = residual._residual_add_plain(skip, h, *bs)
+    if not torch.equal(got, want):
+        raise AssertionError(f"the residual_add kernel differs from its plain version at {shape} {dtype}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def residual_timing(shape, biases: int, generator) -> tuple:
+    r"""One bf16 residual sum at `shape` with `biases` biases, through
+    `residual.residual_add`: (ms by events, device ms, plain ms, the
+    library's `skip + h + b_1 + b_2` in ms, bound and what bounds it, bytes
+    moved). The bound is that of the bytes: `skip` and `h` read, the output
+    written, the biases read."""
+
+    skip, h, bs = residual_inputs(shape, biases, torch.bfloat16, generator)
+    ms = elapsed_ms(lambda: residual.residual_add(skip, h, *bs))
+    dev = device_ms(lambda: residual.residual_add(skip, h, *bs), reps=10)
+    plain = elapsed_ms(lambda: residual._residual_add_plain(skip, h, *bs))
+    library = elapsed_ms(lambda: sum(bs, skip + h))
+    nbytes = 3 * h.numel() * h.element_size() + sum(b.numel() * b.element_size() for b in bs)
+    bound, by = bound_ms(nbytes, h.numel() * (1 + biases), torch.bfloat16)
+    return ms, dev, plain, library, bound, by, nbytes
+
+
+def check_residual(calls, generator) -> dict:
+    r"""Each recorded residual sum against its plain version in bf16 and
+    float32 (`check_residual_case`), then timed in bf16 at its shape times
+    its count (`residual_timing`); and the kernel's bandwidth on the device
+    at the benchmark's largest residual, `RESIDUAL_LARGEST` with two biases.
+    Returns the timed entry, the latter under `"largest"`."""
+
+    entry = new_entry()
+    for key, count in sorted(((k, n) for k, n in calls.items() if k[0] == "residual"), key=str):
+        _, shape, _, biases = key
+        err = max(check_residual_case(shape, biases, dtype, generator) for dtype in (torch.bfloat16, torch.float32))
+        ms, dev, plain, library, bound, by, _ = residual_timing(shape, biases, generator)
+        add_timing(entry, count, ms, plain, library, bound, by, err, err)
+        entry["device_ms"] += count * dev
+        log(f"  residual_add {shape} {biases} biases x{count}/fwd: bit for bit; {ms:.4f} ms, device {dev:.4f} ms, "
+            f"plain {plain:.4f} ms, library {library:.4f} ms, bound {bound:.4f} ms ({by})")
+
+    ms, dev, plain, library, bound, by, nbytes = residual_timing(RESIDUAL_LARGEST, 2, generator)
+    tb_s = nbytes / dev / 1e9
+    entry["largest"] = {"shape": list(RESIDUAL_LARGEST), "ms": ms, "device_ms": dev, "tb_s": tb_s,
+                        "plain_ms": plain, "library_ms": library, "bound_ms": bound}
+    log(f"  residual_add {RESIDUAL_LARGEST} bf16, two biases: device {dev:.4f} ms, {tb_s:.3f} TB/s "
+        f"({bound / dev:.3f} of the bound), plain {plain:.4f} ms, library {library:.4f} ms")
+    return entry
 
 
 def launch_counts(calls) -> dict:
@@ -3905,7 +3999,7 @@ GUIDED_SAMPLERS = {
 # the kernels each guidance method runs on the tiny ADM: a VJP through the
 # denoiser takes the training route (GroupNorm's autograd node with its
 # statistics, the LSE forward and the backward)
-GRAD_ROUTE = {"group_norm_silu", "group_norm", "group_stats", "attention_fwd_lse", "attention_bwd"}
+GRAD_ROUTE = {"group_norm_silu", "group_norm", "group_stats", "attention_fwd_lse", "attention_bwd", "residual_add"}
 
 
 def check_guidance_slices() -> None:
@@ -5327,7 +5421,9 @@ def adm_checkpointed_backward(generator) -> dict:
     with `checkpointing=True`, each after an untimed warm-up: the gradients
     agree within `TOL_CKPT_GRAD`, the forward's launches are the same, and
     the checkpointed backward launches the forward's kernels once more, but
-    for the final GroupNorm (outside the stages). Prints each way's peak
+    for the final GroupNorm (outside the stages) and the residual sums that
+    end a stage, which save nothing for the backward, so the recomputation
+    stops before them. Prints each way's peak
     memory, forward and backward time and launches; the warm-up's gradients
     against the timed run's show the run-to-run spread. Two planted faults
     are read: the middle stage's `emb` cut from the graph (its share of the
@@ -5426,7 +5522,14 @@ def adm_checkpointed_backward(generator) -> dict:
         raise AssertionError("the checkpointed ADM-256 gradients disagree with the plain ones")
     if ckpt["forward"] != plain["forward"]:
         raise AssertionError("checkpointing changed the forward's launches")
-    recompute = plain["forward"] - outside
+    # the recomputation of a stage stops once the tensors its backward saved
+    # are back, so it skips a residual sum that ends the stage (it saves
+    # nothing)
+    ending = sum(
+        isinstance(layers[-1], adm_backbone.ADMResBlock)
+        for layers in (*backbone.input_blocks[1:], backbone.middle_block, *backbone.output_blocks)
+    )
+    recompute = plain["forward"] - outside - collections.Counter({"residual_add": ending})
     if ckpt["launches"] != plain["launches"] + recompute:
         raise AssertionError(f"expected the checkpointed backward to launch {dict(plain['launches'] + recompute)}")
     if ckpt["peak_gib"] >= plain["peak_gib"]:
@@ -6214,6 +6317,7 @@ def main() -> None:
         wide_gn = check_wide_groups()
         at = new_entry()
         check_attention(calls, generator, at, ATTENTION_EXTRA)
+        res = check_residual(calls, generator)
 
     log("== 4. the tiny slice: CPU plain versions against the card's kernels, float32")
     check_slice()
@@ -6539,6 +6643,7 @@ def main() -> None:
         ("group_norm_silu", gn["group_norm_silu"], launches, CALLS_PER_FORWARD),
         ("group_norm", gn["group_norm"], launches, CALLS_PER_FORWARD),
         ("attention_fwd", at, launches, CALLS_PER_FORWARD),
+        ("residual_add", res, launches, CALLS_PER_FORWARD),
         ("fused_msa", msa, dit_launches, DIT_CALLS_PER_FORWARD),
         ("flash_blhd_fwd", flash["flash_blhd_fwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
         ("flash_blhd_bwd", flash["flash_blhd_bwd"], train_launches, DIT_TRAIN_CALLS_PER_STEP),
@@ -6588,8 +6693,9 @@ def main() -> None:
             ),
             "group_stats": ("group_stats.cu", "azula_tpu/ops/norm.py:281 (_stats_pallas)"),
             "conv3x3": ("conv3x3.cu", "azula_tpu/ops/conv.py:53 (_pallas_conv3x3)"),
+            "residual_add": ("residual.cu", "none: XLA adds a convolution's bias in the convolution"),
         }.get(name) or masked_source(name)
-        tol = {"group_stats": TOL_STATS[torch.bfloat16], "conv3x3": TOL_CONV[torch.bfloat16]}.get(
+        tol = {"group_stats": TOL_STATS[torch.bfloat16], "conv3x3": TOL_CONV[torch.bfloat16], "residual_add": 0.0}.get(
             name, TOL_GN[torch.bfloat16] if name.startswith("group_norm") else TOL_ATTN[torch.bfloat16]
         )
         kernels.append({
@@ -6663,6 +6769,8 @@ def main() -> None:
                 entry[key] = timings(calls, timed)
         if entry["name"] == "group_stats":
             entry["wide_groups"] = timings(len(WIDE_GN_SHAPES), stats["wide"])
+        if entry["name"] == "residual_add":
+            entry["benchmark_largest"] = res["largest"]
         # one call at each new shape of phase 53 (the microbatch of
         # pipeline_dit; the ring step's block and whole sequence)
         for key, t in recipes["timings"].items():

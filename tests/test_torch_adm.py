@@ -331,3 +331,73 @@ def test_checkpointing_without_the_replay_breaks_gradients(monkeypatch):
     assert torch.equal(outs[0], outs[1])
     worst = max(float((grads[1][key] - g).abs().max() / g.abs().max()) for key, g in grads[0].items() if g.abs().max() > 0)
     assert worst > 1e-2
+
+def _unfolded(block, x, emb):
+    r"""`ADMResBlock.forward` before its biases moved into the residual sum:
+    each convolution through `Conv.forward` with its bias, then `skip + h`
+    (scale-shift norm, no dropout). Returns the sum and the two biased
+    convolutions that it rounded on the way (the skip's `None` where the
+    skip is the input)."""
+
+    gn = adm_backbone.group_norm_silu
+    h = gn(x, block.in_norm.groups, eps=block.in_norm.eps, scale=block.in_norm.weight, bias=block.in_norm.bias)
+    if block.updown == "up":
+        h, x = adm_backbone._upsample2(h), adm_backbone._upsample2(x)
+    elif block.updown == "down":
+        h, x = adm_backbone._avgpool2(h), adm_backbone._avgpool2(x)
+    h = block.in_conv(h)
+    scale, shift = block.emb_lin(torch.nn.functional.silu(emb)).to(h.dtype).chunk(2, dim=-1)
+    h = gn(
+        h, block.out_norm.groups, eps=block.out_norm.eps, scale=block.out_norm.weight,
+        bias=block.out_norm.bias, mod_scale=scale, mod_shift=shift,
+    )
+    h = block.out_conv(h)
+    skip = x if block.skip is None else block.skip(x)
+    return skip + h, h, None if block.skip is None else skip
+
+
+RESBLOCKS = {
+    "identity": dict(channels=64, out_channels=64),  # noqa: C408
+    "skip_1x1": dict(channels=64, out_channels=96),  # noqa: C408
+    "up": dict(channels=64, out_channels=64, up=True),  # noqa: C408
+    "down": dict(channels=64, out_channels=64, down=True),  # noqa: C408
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", sorted(RESBLOCKS))
+def test_resblock_folds_biases_into_the_residual(kind, dtype):
+    # the fold against the old composition from the same weights (none zero):
+    # float32 to its rounding; bf16 within half an ulp of each rounding of
+    # either side, at its tensor's scale. The old composition rounds each
+    # convolution with its bias and the sum; the fold each convolution
+    # without it (where the library adds the bias before rounding, as on
+    # the CPU) and the sum: one ulp of the output's scale and one of each
+    # convolution's.
+    dtype = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(sorted(RESBLOCKS).index(kind))
+    block = adm_backbone.ADMResBlock(
+        **RESBLOCKS[kind], emb_channels=128, use_scale_shift_norm=True, device="cpu", generator=g
+    )
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    assert (block.skip is not None) == (kind == "skip_1x1")
+    block = block.to(dtype)
+
+    x = torch.randn(2, 16, 16, 64, generator=g).to(dtype)
+    emb = torch.randn(2, 128, generator=g).to(dtype)
+    with torch.no_grad():
+        got = block(x, emb)
+        want, *rounded = _unfolded(block, x, emb)
+
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    scale = want.abs().max().double()
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 1e-5 * scale
+    else:
+        def ulp(t):
+            return torch.exp2(torch.floor(torch.log2(t.abs().max().double())) - 7)
+
+        bound = ulp(want) + sum(ulp(t) for t in rounded if t is not None)
+        assert (got.double() - want.double()).abs().max() <= bound

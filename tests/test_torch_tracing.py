@@ -16,7 +16,7 @@ from azula_tpu_torch.models import adm
 from azula_tpu_torch.models.flux import FluxDenoiser
 from azula_tpu_torch.models.flux.backbone import FluxTransformer
 from azula_tpu_torch.ops import conv3x3, dot_product_attention, fused_msa_attention
-from azula_tpu_torch.ops import group_norm, group_norm_silu, group_stats
+from azula_tpu_torch.ops import group_norm, group_norm_silu, group_stats, residual_add
 from azula_tpu_torch.sample import DDIMSampler, zEABSampler
 from azula_tpu_torch.utils import profiling
 
@@ -106,6 +106,7 @@ def test_adm_spans_nest_in_exact_counts():
     blocks = _named(spans, "azula.block.")
     norms = _named(spans, "azula.ops.group_norm")
     attention = _named(spans, "azula.ops.attention")
+    residuals = _named(spans, "azula.ops.residual_add")
 
     assert len(steps) == STEPS
     assert len(calls) == STEPS
@@ -113,6 +114,7 @@ def test_adm_spans_nest_in_exact_counts():
     assert all(_inside(c, steps) for c in calls)
     assert all(_inside(b, calls) for b in blocks)
     assert all(_inside(a, blocks) for a in attention)
+    assert all(_inside(r, blocks) for r in residuals)
     # the output norm follows the last block: every other norm is a block's
     assert sum(_inside(n, blocks) for n in norms) == len(norms) - STEPS
     assert all(_inside(n, calls) for n in norms)
@@ -125,13 +127,45 @@ def test_adm_spans_nest_in_exact_counts():
     }
 
     # one record per kernel span, in the order of the calls
-    assert [r.op for r in records] == [s[0] for s in sorted(norms + attention, key=lambda s: s[1])]
+    assert [r.op for r in records] == [s[0] for s in sorted(norms + attention + residuals, key=lambda s: s[1])]
     unet = denoiser.backbone
     resblocks = sum(isinstance(m, adm.backbone.ADMResBlock) for m in unet.modules())
     heads = sum(isinstance(m, adm.backbone.ADMAttentionBlock) for m in unet.modules())
     assert len(norms) == (2 * resblocks + heads + 1) * STEPS
     assert len(attention) == heads * STEPS
+    assert len(residuals) == resblocks * STEPS
     assert {r.route for r in records} == {"plain"}
+
+
+def test_adm_forward_records_one_residual_sum_a_resblock():
+    # each ADMResBlock ends in one residual sum, with its convolutions'
+    # biases: its record holds the route, the (B, HW, C) shape and the bytes
+    # of skip, h and the output with the biases (two where the skip is a
+    # convolution)
+    denoiser = _adm()
+    unet = denoiser.backbone
+    blocks = [m for m in unet.modules() if isinstance(m, adm.backbone.ADMResBlock)]
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+
+    shapes = []
+    hooks = [b.register_forward_hook(lambda m, args, out: shapes.append((out.shape, m.skip is not None))) for b in blocks]
+    try:
+        with torch.no_grad():
+            _, spans, records = _traced(lambda: unet(x, torch.tensor([10, 500])))
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+    residuals = [r for r in records if r.op == "azula.ops.residual_add"]
+    assert len(residuals) == len(blocks) == len(shapes)
+    assert any(conv for _, conv in shapes) and not all(conv for _, conv in shapes)
+    for record, (shape, conv) in zip(residuals, shapes):
+        B, H, W, C = shape
+        biases = 2 if conv else 1
+        assert record.route == "plain"
+        assert record.shape == (B, H * W, C)
+        assert record.flops == 0
+        assert record.bytes == 3 * B * H * W * C * 4 + biases * C * 4
 
 
 def test_flux_spans_nest_in_exact_counts():
@@ -224,11 +258,18 @@ def _fused_msa_case():
     return "azula.ops.fused_msa", lambda: fused_msa_attention(qkv, 2, theta), None
 
 
+def _residual_add_case():
+    skip, h, b0, b1 = _randn(2, 4, 4, 8), _randn(2, 4, 4, 8, seed=1), _randn(8, seed=2), _randn(8, seed=3)
+    work = ((2, 16, 8), 0, 3 * 2 * 16 * 8 * 4 + 2 * 8 * 4)
+    return "azula.ops.residual_add", lambda: residual_add(skip, h, b0, b1), work
+
+
 CASES = {
     "attention": _attention_case,
     "attention_bf16": _self_attention_bf16_case,
     "group_norm_silu": _group_norm_case,
     "group_norm": _group_norm_bare_case,
+    "residual_add": _residual_add_case,
     "group_stats": _group_stats_case,
     "conv3x3": _conv3x3_case,
     "fused_msa": _fused_msa_case,
